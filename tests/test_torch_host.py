@@ -1,0 +1,141 @@
+"""The port's jax-free copies of the host modules agree with their
+originals in simka_tpu, so the two cannot drift: the input DSL, the
+packed read source (native and pure-Python), the CSV format, and the
+statistics + distance formulas on one JoinStats."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import simka_tpu.core.distances as ref_dist
+import simka_tpu.core.output as ref_out
+import simka_tpu.core.stats as ref_stats
+import simka_tpu.io.dsl as ref_dsl
+import simka_tpu.io.packed as ref_packed
+import simka_tpu_torch.core.distances as port_dist
+import simka_tpu_torch.core.output as port_out
+import simka_tpu_torch.core.stats as port_stats
+import simka_tpu_torch.io.dsl as port_dsl
+import simka_tpu_torch.io.packed as port_packed
+from simka_tpu.config import SimkaConfig as RefConfig
+from simka_tpu.ops.countjoin import count_join_stats
+from simka_tpu_torch.config import SimkaConfig
+
+
+def _write_fasta(path, reads):
+    with open(path, "wb") as f:
+        for i, r in enumerate(reads):
+            f.write(b">r%d\n%s\n" % (i, r))
+
+
+@pytest.fixture()
+def banks(tmp_path):
+    rng = np.random.default_rng(5)
+    bases = np.frombuffer(b"ACGTN", np.uint8)
+
+    def reads(n):
+        return [
+            bytes(rng.choice(bases, size=int(rng.integers(15, 140)),
+                             p=[0.24, 0.24, 0.24, 0.24, 0.04]))
+            for _ in range(n)
+        ]
+
+    paths = []
+    for name, n in (("a1", 37), ("a2", 23), ("b1", 41)):
+        p = tmp_path / f"{name}.fasta"
+        _write_fasta(p, reads(n))
+        paths.append(str(p))
+    fq = tmp_path / "c1.fastq"
+    with open(fq, "wb") as f:
+        for i, r in enumerate(reads(19)):
+            f.write(b"@q%d\n%s\n+\n%s\n" % (i, r, b"I" * len(r)))
+    # two ';'-groups: [a1, a2] and [b1, c1]
+    return [[paths[0], paths[1]], [paths[2], str(fq)]]
+
+
+def test_parse_input_file_matches(tmp_path, banks):
+    inp = tmp_path / "input.txt"
+    inp.write_text(
+        f"A: {banks[0][0]} , {banks[0][1]} ; {banks[1][0]}\n\n"
+        f"B:{banks[1][1]}\n  C : a1.fasta\n"
+    )
+    got = port_dsl.parse_input_file(str(inp))
+    want = ref_dsl.parse_input_file(str(inp))
+    assert [(d.id, d.banks) for d in got] == [(d.id, d.banks) for d in want]
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("max_reads", [0, 10, 60])
+def test_iter_packed_matches(banks, native, max_reads, monkeypatch):
+    if not native:
+        monkeypatch.setenv("SIMKA_TPU_NO_NATIVE", "1")
+    else:
+        from simka_tpu_torch.io import native as port_native
+
+        assert port_native.available()
+
+    def batches(mod):
+        src = mod.PackedReadSource(banks, 20, 0.5, max_reads=max_reads)
+        return [
+            (p.copy(), v.copy(), n, nv)
+            for p, v, n, nv in src.iter_packed(16, k=21)
+        ]
+
+    got, want = batches(port_packed), batches(ref_packed)
+    assert len(got) == len(want) > 0
+    for (gp, gv, gn, gnv), (wp, wv, wn, wnv) in zip(got, want):
+        np.testing.assert_array_equal(gp, wp)
+        np.testing.assert_array_equal(gv, wv)
+        assert (gn, gnv) == (wn, wnv)
+    if native and not max_reads:
+        assert all(nv is not None for *_, nv in got)
+
+
+def test_format_matrix_csv_matches():
+    rng = np.random.default_rng(2)
+    m = rng.random((5, 5)) * 1.5
+    m[1, 2] = 1 / 3
+    ids = [f"S{i}" for i in range(5)]
+    assert port_out.format_matrix_csv(m, ids) == ref_out.format_matrix_csv(
+        m, ids
+    )
+
+
+def test_config_from_fields_copies_every_field():
+    ref = RefConfig(input_filename="x", kmer_size=31, abundance_min=0,
+                    max_reads=7, verbose=False, n_shards=1)
+    got = SimkaConfig.from_fields(ref)
+    assert got.__dict__ == ref.__dict__
+
+
+@pytest.mark.parametrize("simple,complex_", [(False, False), (True, True)])
+def test_stats_and_distances_match(simple, complex_):
+    rng = np.random.default_rng(9)
+    E, n = 1 << 12, 6
+    hi = np.zeros(E, np.uint32)
+    lo = rng.integers(0, 1 << 9, size=E, dtype=np.uint64).astype(np.uint32)
+    sid = rng.integers(0, n, size=E).astype(np.int32)
+    js = count_join_stats(
+        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(sid),
+        jnp.int32(2), jnp.int64(10**9), n_banks=n,
+        simple=simple, complex_=complex_, hi_bits=0,
+    )
+    js_np = type(js)(*(np.asarray(f) for f in js))
+    ids = [f"S{i}" for i in range(n)]
+    reads = np.arange(1, n + 1, dtype=np.int64) * 100
+    want = ref_stats.SimkaStatistics.from_join_stats(
+        js, ids, 21, reads, simple, complex_
+    )
+    got = port_stats.SimkaStatistics.from_join_stats(
+        js_np, ids, 21, reads, simple, complex_
+    )
+    for name, value in want.__dict__.items():
+        np.testing.assert_array_equal(getattr(got, name), value, err_msg=name)
+    assert got.summary() == want.summary()
+    m_got = port_dist.compute_all_matrices(got)
+    m_want = ref_dist.compute_all_matrices(want)
+    assert list(m_got) == list(m_want)
+    for name in m_want:
+        assert port_out.format_matrix_csv(m_got[name], ids) == (
+            ref_out.format_matrix_csv(m_want[name], ids)
+        ), name

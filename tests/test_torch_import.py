@@ -1,0 +1,29 @@
+"""The port imports neither JAX nor the JAX package, directly or
+indirectly: the GPU machine it runs on has no JAX."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import simka_tpu_torch, simka_tpu_torch.core.pipeline, "
+        "simka_tpu_torch.cli, simka_tpu_torch.ops.countjoin, "
+        "simka_tpu_torch.ops.compact, simka_tpu_torch.ops._kernels, "
+        "simka_tpu_torch.io.packed, simka_tpu_torch.io.native\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'simka_tpu' "
+        "or m.startswith('simka_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=REPO,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"

@@ -1,0 +1,105 @@
+"""The port end to end: its CLI on the CPU against
+simka_tpu.core.pipeline.run_simka (single-device path, n_shards=1) on
+the same simulated community files. The decompressed CSV text must be
+byte-equal and so must the repartition histogram; options outside the
+port's slice must raise NotImplementedError."""
+
+import glob
+import gzip
+import json
+import os
+
+import pytest
+import torch
+
+from simka_tpu.config import SimkaConfig as RefConfig
+from simka_tpu.core.pipeline import run_simka as run_ref
+from simka_tpu_torch.cli import main as port_main
+from simka_tpu_torch.utils.community import write_community
+
+
+def _outputs(out_dir):
+    texts = {
+        os.path.basename(p): gzip.open(p, "rt").read()
+        for p in sorted(glob.glob(os.path.join(out_dir, "*.csv.gz")))
+    }
+    with open(os.path.join(out_dir, "simka_metrics.json")) as f:
+        return texts, json.load(f)["counters"]
+
+
+@pytest.fixture(scope="module")
+def community(tmp_path_factory):
+    # sizes avoid a one-batch stream of exactly a power-of-two window
+    # class, where the reference's single-device path fails (it
+    # deletes the lone batch that jnp.concatenate handed back as is)
+    root = tmp_path_factory.mktemp("community")
+    return {
+        n: write_community(
+            str(root / f"n{n}"), seed=n, n_samples=n, n_genomes=4,
+            genome_len=3000, reads_per_sample=reads, n_frac=0.005,
+            fastq_samples=1,
+        )
+        for n, reads in ((3, 400), (16, 250))
+    }
+
+
+@pytest.mark.parametrize(
+    "n,k,amin", [(3, 21, 0), (3, 21, 2), (3, 31, 0), (3, 31, 2), (16, 21, 2)]
+)
+def test_cli_matches_reference(community, tmp_path, n, k, amin):
+    inp = community[n]
+    port_out, ref_out = str(tmp_path / "port"), str(tmp_path / "ref")
+    rc = port_main([
+        "-in", inp, "-out", port_out, "-kmer-size", str(k),
+        "-abundance-min", str(amin), "-verbose", "0", "-device", "cpu",
+    ])
+    assert rc == 0
+    run_ref(RefConfig(
+        input_filename=inp, output_dir=ref_out, kmer_size=k,
+        abundance_min=amin, verbose=False, n_shards=1,
+    ))
+    got_csv, got_m = _outputs(port_out)
+    want_csv, want_m = _outputs(ref_out)
+    assert list(got_csv) == list(want_csv) and len(got_csv) == 15
+    for name in want_csv:
+        assert got_csv[name] == want_csv[name], name
+    for key in ("repartition_histogram", "nb_distinct_kmers", "reads",
+                "n_datasets"):
+        assert got_m[key] == want_m[key], key
+    for key in ("stage_parse_pack_s", "stage_h2d_s",
+                "stage_extract_dispatch_s", "stage_join_s"):
+        assert key in got_m
+    assert got_m["nb_distinct_kmers"] > 0
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["-simple-dist"], ["-complex-dist"], ["-kmer-size", "33"],
+     ["-out-tmp", "tmp"], ["-kmer-shannon-index", "1.0"],
+     ["-coordinator", "localhost:1234"], ["-sweep-ranges", "2"],
+     ["-n-shards", "2"], ["-data-info"]],
+)
+def test_options_outside_the_slice_raise(community, tmp_path, flags):
+    with pytest.raises(NotImplementedError):
+        port_main(["-in", community[3], "-out", str(tmp_path), "-device",
+                   "cpu", "-verbose", "0", *flags])
+
+
+def test_min_subcommand_raises():
+    with pytest.raises(NotImplementedError):
+        port_main(["min", "sketch"])
+
+
+def test_device_cuda_without_gpu_raises(community, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_main(["-in", community[3], "-out", str(tmp_path), "-verbose",
+                   "0", "-device", "cuda"])
+    assert not glob.glob(os.path.join(str(tmp_path), "*.csv.gz"))
+
+
+def test_device_plan_overflow_raises(community, tmp_path, monkeypatch):
+    monkeypatch.setenv("SIMKA_TPU_HBM_MB", "0.01")
+    with pytest.raises(NotImplementedError, match="out-of-core"):
+        port_main(["-in", community[3], "-out", str(tmp_path), "-verbose",
+                   "0", "-device", "cpu"])
