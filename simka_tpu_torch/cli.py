@@ -28,15 +28,15 @@ def build_simka_parser() -> argparse.ArgumentParser:
     p.add_argument("-out", dest="out", default="./simka_results", help="output directory for distance matrices")
     p.add_argument("-out-tmp", dest="out_tmp", default=None, help="temporary directory (checkpoints; not ported)")
     p.add_argument("-keep-tmp", action="store_true", help="keep temporary files")
-    p.add_argument("-kmer-size", type=int, default=21, help="size of a kmer (<= 31)")
+    p.add_argument("-kmer-size", type=int, default=21, help="size of a kmer (1..127)")
     p.add_argument("-abundance-min", type=int, default=2, help="min abundance a kmer needs to be considered")
     p.add_argument("-abundance-max", type=int, default=999999999, help="max abundance a kmer can have")
-    p.add_argument("-kmer-shannon-index", type=float, default=0.0, help="minimal Shannon index a kmer should have (not ported)")
+    p.add_argument("-kmer-shannon-index", type=float, default=0.0, help="minimal Shannon index a kmer should have")
     p.add_argument("-max-reads", type=int, default=-1, help="max reads per sample (-1 all, 0 auto)")
     p.add_argument("-min-read-size", type=int, default=0, help="minimal read size")
     p.add_argument("-read-shannon-index", type=float, default=0.0, help="minimal read Shannon index")
-    p.add_argument("-simple-dist", action="store_true", help="compute all simple distances (not ported)")
-    p.add_argument("-complex-dist", action="store_true", help="compute all complex distances (not ported)")
+    p.add_argument("-simple-dist", action="store_true", help="compute all simple distances")
+    p.add_argument("-complex-dist", action="store_true", help="compute all complex distances")
     p.add_argument("-nb-cores", type=int, default=0, help="accepted for compatibility")
     p.add_argument("-max-memory", type=int, default=5000, help="max memory (MB); accepted for compatibility")
     p.add_argument("-sweep-ranges", type=int, default=0, help="out-of-core hash ranges (not ported)")

@@ -20,8 +20,10 @@ JOIN_WORKING_SET_FACTOR = 8
 # Fraction of the device's memory the join may plan to use.
 DEVICE_PLAN_FRACTION = 0.6
 
-# Bytes of one instance row: an int64 k-mer and an int32 sample id.
-INSTANCE_ROW_BYTES = 12
+# Bytes of one instance row: each int64 k-mer word and an int32
+# sample id.
+WORD_BYTES = 8
+SID_BYTES = 4
 
 
 def device_budget_bytes(device: torch.device) -> int:
@@ -41,7 +43,8 @@ def device_budget_bytes(device: torch.device) -> int:
     return int(total * DEVICE_PLAN_FRACTION)
 
 
-def instance_rows_budget(device: torch.device) -> int:
-    """Max k-mer instance rows the in-memory join may accumulate."""
-    per_row = INSTANCE_ROW_BYTES * JOIN_WORKING_SET_FACTOR
+def instance_rows_budget(device: torch.device, n_words: int) -> int:
+    """Max k-mer instance rows of ``n_words`` int64 words each that the
+    in-memory join may accumulate."""
+    per_row = (WORD_BYTES * n_words + SID_BYTES) * JOIN_WORKING_SET_FACTOR
     return max(device_budget_bytes(device) // per_row, 1)

@@ -10,11 +10,11 @@ Lengths are exact throughout: each batch keeps exactly its valid
 windows, so the stream that reaches the join holds only real
 instances (no padding classes, no invalid-window sentinel rows).
 
-Outside this slice, and raising NotImplementedError (see ROADMAP.md,
-queue 1): the simple and complex distances (item 6), k > 31 (item 7),
-the -out-tmp checkpoint path (item 9), a -kmer-shannon-index filter
-and the out-of-core sweep for runs beyond the device plan (item 10),
-and more than one device (item 12).
+Every distance (default, -simple-dist, -complex-dist), k from 1 to
+127 and the -kmer-shannon-index filter run. Outside this slice, and
+raising NotImplementedError (see ROADMAP.md, queue 1): the -out-tmp
+checkpoint path (item 9), the out-of-core sweep for runs beyond the
+device plan (item 10), and more than one device (item 12).
 """
 
 from __future__ import annotations
@@ -39,14 +39,8 @@ N_HIST_BUCKETS = 16
 def check_slice(config: SimkaConfig) -> None:
     """Raise NotImplementedError for options the port does not run."""
     todo = []
-    if config.simple_dist or config.complex_dist:
-        todo.append("-simple-dist/-complex-dist (ROADMAP queue 1, item 6)")
-    if config.kmer_size > 31:
-        todo.append(f"k={config.kmer_size} > 31 (ROADMAP queue 1, item 7)")
     if config.output_tmp_dir:
         todo.append("-out-tmp checkpoints (ROADMAP queue 1, item 9)")
-    if config.min_kmer_shannon_index > 0.0:
-        todo.append("-kmer-shannon-index > 0 (ROADMAP queue 1, item 7)")
     if config.sweep_ranges > 0:
         todo.append("-sweep-ranges out-of-core (ROADMAP queue 1, item 10)")
     if config.n_shards > 1:
@@ -139,32 +133,48 @@ def _pipelined_ingest(stream, ship, consume):
             consume(*shipped.popleft().result())
 
 
-def extract_windows(packed, validbits, sample: int, k: int, n_valid=None):
+def extract_windows(
+    packed, validbits, sample: int, k: int, n_valid=None,
+    min_shannon: float = 0.0,
+):
     """One ingest batch on the device: unpack, canonical k-mers, the
-    repartition histogram and the compaction of the valid windows.
+    optional k-mer Shannon filter, the repartition histogram and the
+    compaction of the kept windows.
 
-    Returns (kmer [n] int64, sid [n] int32, hist [16] int64), n the
-    batch's exact valid-window count.
+    Returns (words, sid [n] int32, hist [16] int64): ``words`` the
+    ``n_words(k)`` [n] int64 k-mer words (ops/kmers.py), n the batch's
+    exact kept-window count. ``n_valid``, the native parser's count of
+    valid windows, spares a device sync when no Shannon filter drops
+    windows the parser counted.
     """
     from simka_tpu_torch.ops.compact import compact_rows
     from simka_tpu_torch.ops.kmers import (
         canonical_kmers,
-        mix_hash,
+        kmer_shannon_index_words,
+        mix_hash_words,
+        uint32_words,
         unpack_codes,
     )
 
-    kmer, valid = canonical_kmers(unpack_codes(packed, validbits), k)
-    kmer = kmer.reshape(-1)
+    words, valid = canonical_kmers(unpack_codes(packed, validbits), k)
+    words = tuple(w.reshape(-1) for w in words)
     valid = valid.reshape(-1)
-    # instances per mix_hash bucket: the reference's repartition
-    # diagnostic, with invalid windows in an extra dropped bucket
-    h = mix_hash(kmer >> 32, kmer & 0xFFFFFFFF)
+    if min_shannon > 0.0:
+        # compared in f32, as the reference compares its f32 index
+        # with the threshold
+        thr = torch.tensor(min_shannon, dtype=torch.float32)
+        valid &= kmer_shannon_index_words(words, k) >= thr.to(valid.device)
+        n_valid = None
+    # instances per mix_hash bucket over the reference's uint32 words:
+    # its repartition diagnostic, with dropped windows in an extra
+    # bucket
+    h = mix_hash_words(uint32_words(words, k))
     bucket = torch.where(valid, h & (N_HIST_BUCKETS - 1), N_HIST_BUCKETS)
     hist = torch.bincount(bucket, minlength=N_HIST_BUCKETS + 1)
     n = int(valid.sum()) if n_valid is None else int(n_valid)
-    (kmer,) = compact_rows((kmer,), valid, fills=(-1,))
-    sid = torch.full((n,), sample, dtype=torch.int32, device=kmer.device)
-    return kmer[:n], sid, hist[:N_HIST_BUCKETS]
+    words = compact_rows(words, valid, fills=(-1,) * len(words))
+    sid = torch.full((n,), sample, dtype=torch.int32, device=valid.device)
+    return tuple(w[:n] for w in words), sid, hist[:N_HIST_BUCKETS]
 
 
 def compute_statistics(
@@ -190,12 +200,14 @@ def compute_statistics(
     """
     from simka_tpu_torch.core.budget import instance_rows_budget
     from simka_tpu_torch.ops.countjoin import count_join_stats
+    from simka_tpu_torch.ops.kmers import n_words
 
     check_slice(config)
     k = config.kmer_size
+    nw = n_words(k)
     nb_reads = [0] * len(dataset_seqs)
-    rows_budget = instance_rows_budget(device)
-    kmers, sids = [], []
+    rows_budget = instance_rows_budget(device, nw)
+    batches, sids = [], []  # per batch: its k-mer word columns; sids
     hist = torch.zeros(N_HIST_BUCKETS, dtype=torch.int64, device=device)
     state = {"rows": 0}
     timers = {
@@ -223,11 +235,13 @@ def compute_statistics(
 
     def consume(sample, packed, vb, n_valid):
         t0 = time.perf_counter()
-        kmer, sid, h = extract_windows(packed, vb, sample, k, n_valid)
+        words, sid, h = extract_windows(
+            packed, vb, sample, k, n_valid, config.min_kmer_shannon_index
+        )
         hist.add_(h)
-        kmers.append(kmer)
+        batches.append(list(words))
         sids.append(sid)
-        state["rows"] += kmer.shape[0]
+        state["rows"] += sid.shape[0]
         timers["extract_dispatch_s"] += time.perf_counter() - t0
         if state["rows"] > rows_budget:
             raise NotImplementedError(
@@ -239,23 +253,28 @@ def compute_statistics(
     _pipelined_ingest(stream, ship, consume)
 
     t_join = time.perf_counter()
-    kmer = torch.cat(kmers) if kmers else torch.empty(
-        0, dtype=torch.int64, device=device
-    )
+    words = []
+    for i in range(nw):
+        words.append(torch.cat([b[i] for b in batches]) if batches
+                     else torch.empty(0, dtype=torch.int64, device=device))
+        for b in batches:  # the batch copies go as their column exists
+            b[i] = None
     sid = torch.cat(sids) if sids else torch.empty(
         0, dtype=torch.int32, device=device
     )
-    kmers.clear()
+    batches.clear()
     sids.clear()
     js = count_join_stats(
-        kmer,
+        tuple(words),
         sid,
         config.abundance_min,
         config.abundance_max,
         n_banks=len(dataset_ids),
         kmer_bits=2 * k,
+        simple=config.simple_dist,
+        complex_=config.complex_dist,
     )
-    del kmer, sid
+    del words, sid
     stats = SimkaStatistics.from_join_stats(
         js.to_numpy(),
         dataset_ids,

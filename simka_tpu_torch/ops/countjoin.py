@@ -1,7 +1,6 @@
-"""K-mer counting + cross-sample join + default distance statistics.
+"""K-mer counting + cross-sample join + distance statistics.
 
-The torch counterpart of ``simka_tpu.ops.countjoin.count_join_stats``
-for the default distance channels:
+The torch counterpart of ``simka_tpu.ops.countjoin.count_join_stats``:
 
   1. sort the (k-mer, sample) instances so equal pairs are adjacent;
      run lengths give each sample's count of each k-mer;
@@ -14,24 +13,49 @@ for the default distance channels:
      one segment are a co-present pair (a, b) with a < b, added into
      flat [N * N] int64 sums with ``index_add_``.
 
-Every default channel is an exact integer sum, so results equal the
-reference bit for bit on any device.
+Every integer channel is an exact sum, so it equals the reference bit
+for bit on any device. The two float channels are made
+order-independent, so that every device and every run gives the same
+bits: chord is an int64 sum of products converted once, and
+Kullback-Leibler sums its f64 terms as fixed-point int64 limbs,
+rounded once on the host (``_kl_limbs``). The reference sums both as
+f32 halves over 8192-row panels: chord's integer terms keep those sums
+exact at moderate counts, KL's round, up to ~6e-6 relative off the
+exact sum (ROADMAP.md, section 3).
 
-K-mers travel as ONE int64 each (k <= 31: 2k <= 62 bits). Two sort
-paths, chosen as in the reference:
-  - packed: when 2k + sbits <= 63 (sbits = bits of N - 1, at least 1),
-    one int64 key ``(kmer << sbits) | sid`` sorts in one pass -- k=21
-    up to N = 2^21, k=31 only at N <= 2;
-  - multi-key: otherwise. torch has no multi-key sort, so a stable
-    sort by k-mer follows a sort by sample id, which gives the
-    lexicographic (k-mer, sample) order.
+K-mers are the big-endian int64 word tuples of ``ops.kmers`` (one
+word for k <= 31). Two sort paths, chosen as in the reference:
+  - packed: one word and 2k + sbits <= 63 (sbits = bits of N - 1, at
+    least 1): one int64 key ``(kmer << sbits) | sid`` sorts in one
+    pass -- k=21 up to N = 2^21, k=31 only at N <= 2;
+  - multi-key: otherwise. torch has no multi-key sort, so stable
+    sorts chain from the least significant key (the sample id) up to
+    the first word, which gives the lexicographic (k-mer, sample)
+    order.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence, Union
 
 import torch
+
+from simka_tpu_torch.ops.kmers import WORD_BASES
+
+# Whittaker A is accumulated over blocks of this many banks j (the
+# reference's block width) and of this many rows, which bound its
+# [rows, JB] temporaries.
+WHITTAKER_JB = 8
+WHITTAKER_ROWS = 1 << 24
+
+# Kullback-Leibler terms as fixed point: an integer limb and
+# KL_FRAC_LIMBS fractional limbs of KL_LIMB_BITS bits (resolution
+# 2^-112, far below an f64 term's last bit). A limb is < 2^28, so a
+# pair bin's int64 sums hold up to 2^35 pairs.
+KL_LIMB_BITS = 28
+KL_FRAC_LIMBS = 4
+
+_TWO32 = 2.0**32
 
 
 class JoinStats(NamedTuple):
@@ -40,8 +64,7 @@ class JoinStats(NamedTuple):
     Pairwise arrays hold UPPER-TRIANGLE pair sums (a < b);
     symmetrisation and the diagonal happen in
     ``core.stats.SimkaStatistics.from_join_stats``. The simple and
-    complex channels are zeros: the port computes the default
-    distances only.
+    complex channels are zeros unless asked for.
     """
 
     nb_distinct: torch.Tensor  # scalar i64: distinct k-mers in the union
@@ -53,12 +76,12 @@ class JoinStats(NamedTuple):
     shared_kmers_ba: torch.Tensor  # [N, N] i64 upper: sum C_b over pairs
     shared_distinct: torch.Tensor  # [N, N] i64 upper: co-present count
     bray_numerator: torch.Tensor  # [N, N] i64 upper: sum min(Ca, Cb)
-    chord_ninj: torch.Tensor  # [N, N] f64 (simple; zeros)
-    hellinger: torch.Tensor  # [N, N] i64 (simple; zeros)
-    whittaker: torch.Tensor  # [N, N] i64 (complex; zeros)
-    whittaker_all: torch.Tensor  # [N, N] i64 (complex; zeros)
-    whittaker_s12: torch.Tensor  # [N, N] i64 (complex; zeros)
-    kullback_leibler: torch.Tensor  # [N, N] f64 (complex; zeros)
+    chord_ninj: torch.Tensor  # [N, N] f64 upper: sum Ca*Cb (simple)
+    hellinger: torch.Tensor  # [N, N] i64 upper: sum isqrt(Ca*Cb) (simple)
+    whittaker: torch.Tensor  # [N, N] i64 upper: wrapped |Ca*Kb - Cb*Ka|
+    whittaker_all: torch.Tensor  # [N, N] i64 ordered: all rows (complex)
+    whittaker_s12: torch.Tensor  # [N, N] i64 upper (complex)
+    kullback_leibler: torch.Tensor  # [N, N] f64 upper pair terms (complex)
     max_count: torch.Tensor  # scalar i64: max per-(kmer, bank) count
 
     def to_numpy(self) -> "JoinStats":
@@ -92,8 +115,19 @@ def _first_of_run(*cols: torch.Tensor) -> torch.Tensor:
     return diff
 
 
+def _lex_order(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Permutation sorting rows by ``keys`` lexicographically (first
+    key most significant): stable sorts from the last key up."""
+    perm = None
+    for key in reversed(keys):
+        col = key if perm is None else key[perm]
+        order = torch.sort(col, stable=True).indices
+        perm = order if perm is None else perm[order]
+    return perm
+
+
 def solid_rows(
-    kmer: torch.Tensor,
+    words: Sequence[torch.Tensor],
     sid: torch.Tensor,
     abundance_min: int,
     abundance_max: int,
@@ -103,50 +137,111 @@ def solid_rows(
 ):
     """Sort + run-length count + abundance filter.
 
-    Returns (kmer, sid, count): one row per solid (k-mer, sample), in
-    (k-mer, sample)-ascending order, as int64 / int64 / int32.
+    Returns (words, sid, count): one row per solid (k-mer, sample), in
+    (k-mer, sample)-ascending order; int64 words, an int64 or int32
+    sid and an int32 count.
     """
     from simka_tpu_torch.ops.compact import compact_rows
 
+    nw = len(words)
     sbits = _sbits(n_banks)
-    if kmer_bits + sbits <= 63:
+    if nw == 1 and kmer_bits + sbits <= 63:
         # packed path: one int64 key carries (kmer, sid)
-        key = torch.sort((kmer << sbits) | sid.to(torch.int64)).values
+        key = torch.sort((words[0] << sbits) | sid.to(torch.int64)).values
         boundary = _first_of_run(key)
         count = _run_counts(boundary)
         kept = boundary & (count >= abundance_min) & (count <= abundance_max)
         n = int(kept.sum())
         key_c, cnt_c = compact_rows((key, count), kept, fills=(-1, 0))
         key_c = key_c[:n]
-        return key_c >> sbits, key_c & ((1 << sbits) - 1), cnt_c[:n]
+        return (key_c >> sbits,), key_c & ((1 << sbits) - 1), cnt_c[:n]
 
-    # multi-key path: (kmer, sid) lexicographic order from a stable
-    # sort by k-mer over rows already ordered by sample id
-    by_sid = torch.sort(sid.to(torch.int64), stable=True)
-    kmer1 = kmer[by_sid.indices]
-    by_kmer = torch.sort(kmer1, stable=True)
-    kmer2 = by_kmer.values
-    sid2 = by_sid.values[by_kmer.indices]
-    del kmer1, by_sid, by_kmer
-    boundary = _first_of_run(kmer2, sid2)
+    # multi-key path
+    perm = _lex_order((*words, sid))
+    words = tuple(w[perm] for w in words)
+    sid = sid[perm]
+    del perm
+    boundary = _first_of_run(*words, sid)
     count = _run_counts(boundary)
     kept = boundary & (count >= abundance_min) & (count <= abundance_max)
     n = int(kept.sum())
-    k_c, s_c, c_c = compact_rows(
-        (kmer2, sid2, count), kept, fills=(-1, 0, 0)
+    cols = compact_rows(
+        (*words, sid, count), kept, fills=(-1,) * nw + (0, 0)
     )
-    return k_c[:n], s_c[:n], c_c[:n]
+    return tuple(c[:n] for c in cols[:nw]), cols[nw][:n], cols[nw + 1][:n]
 
 
-def stats_from_rows(kmer, sid, count, *, n_banks: int) -> JoinStats:
-    """Per-bank totals, segments and default pair sums over solid rows
-    in (k-mer, sample)-ascending order."""
+def _abs_wrap32(prod: torch.Tensor) -> torch.Tensor:
+    """|int32 reinterpretation of (u64)(double product)| as int64: the
+    reference's Whittaker accumulator (``_abs_wrap32``). The floor
+    modulo of an integer-valued f64 is exact."""
+    low = torch.remainder(prod, _TWO32)
+    return torch.abs(torch.where(low >= 2.0**31, low - _TWO32, low)).to(
+        torch.int64
+    )
+
+
+def _whittaker_all(sid, c64, K, n_banks: int) -> torch.Tensor:
+    """A[i][j] = sum over solid rows (k, i, c) of |int32(u64(c * K_j))|
+    (``_whittaker_all_banks``), blocked over banks j and rows."""
     N = n_banks
-    dev = kmer.device
-    i64 = torch.int64
+    out = torch.zeros((N, N), dtype=torch.int64, device=sid.device)
+    Kf = K.to(torch.float64)
+    for r0 in range(0, sid.shape[0], WHITTAKER_ROWS):
+        s = sid[r0 : r0 + WHITTAKER_ROWS]
+        c = c64[r0 : r0 + WHITTAKER_ROWS].to(torch.float64)
+        for j0 in range(0, N, WHITTAKER_JB):
+            v = _abs_wrap32(c[:, None] * Kf[None, j0 : j0 + WHITTAKER_JB])
+            out[:, j0 : j0 + WHITTAKER_JB].index_add_(0, s, v)
+    return out
+
+
+def _kl_limbs(x: torch.Tensor) -> torch.Tensor:
+    """[P] f64 -> [P, 1 + KL_FRAC_LIMBS] int64 fixed-point limbs of x
+    truncated toward zero at 2^-112: the limbs of |x| (its floor, then
+    successive KL_LIMB_BITS-bit fractional digits), each times the
+    sign of x. Every step is exact (a non-negative float minus its
+    floor, scaling by a power of two), so limb sums are the exact sum
+    of the truncated terms, in any order."""
+    r = torch.abs(x)
+    whole = torch.floor(r)
+    r = r - whole
+    limbs = [whole]
+    for _ in range(KL_FRAC_LIMBS):
+        r = r * float(1 << KL_LIMB_BITS)
+        q = torch.floor(r)
+        r = r - q
+        limbs.append(q)
+    return (torch.stack(limbs, 1) * torch.sign(x)[:, None]).to(torch.int64)
+
+
+def _kl_from_limbs(sums: torch.Tensor) -> torch.Tensor:
+    """[M, 1 + KL_FRAC_LIMBS] int64 limb sums -> [M] f64, each the
+    exact fixed-point total rounded once (Python's int division rounds
+    correctly)."""
+    bits = KL_LIMB_BITS * KL_FRAC_LIMBS
+    vals = [
+        sum(v << (KL_LIMB_BITS * (KL_FRAC_LIMBS - j))
+            for j, v in enumerate(row)) / (1 << bits)
+        for row in sums.cpu().tolist()
+    ]
+    return torch.tensor(vals, dtype=torch.float64, device=sums.device)
+
+
+def stats_from_rows(
+    words, sid, count, *, n_banks: int, simple: bool = False,
+    complex_: bool = False,
+) -> JoinStats:
+    """Per-bank totals, segments and pair sums over solid rows in
+    (k-mer, sample)-ascending order (``_stats_from_rows`` with
+    ``_pair_accumulate``; the simple and complex channels only when
+    asked for)."""
+    N = n_banks
+    dev = sid.device
+    i64, f64 = torch.int64, torch.float64
     sid = sid.to(i64)
     c64 = count.to(i64)
-    n = kmer.shape[0]
+    n = sid.shape[0]
 
     def per_bank(values):
         return torch.zeros(N, dtype=i64, device=dev).index_add_(0, sid, values)
@@ -155,7 +250,7 @@ def stats_from_rows(kmer, sid, count, *, n_banks: int) -> JoinStats:
     solid_per_bank = per_bank(c64)
     chord_n2_per_bank = per_bank(c64 * c64)
 
-    newk = _first_of_run(kmer)
+    newk = _first_of_run(*words)
     seg = torch.cumsum(newk, 0)
     starts = newk.nonzero().squeeze(1)
     seg_len = torch.cat([starts[1:], starts.new_tensor([n])]) - starts
@@ -163,10 +258,15 @@ def stats_from_rows(kmer, sid, count, *, n_banks: int) -> JoinStats:
     nb_shared = (seg_len >= 2).sum().to(i64)
     d_max = int(seg_len.max()) if n else 0
 
-    flat = {
-        name: torch.zeros(N * N, dtype=i64, device=dev)
-        for name in ("ab", "ba", "distinct", "bray")
-    }
+    names = ["ab", "ba", "distinct", "bray"]
+    if simple:
+        names += ["hellinger", "chord"]
+    if complex_:
+        names += ["whittaker", "s12"]
+    flat = {name: torch.zeros(N * N, dtype=i64, device=dev) for name in names}
+    kl = torch.zeros((N * N, 1 + KL_FRAC_LIMBS), dtype=i64, device=dev)
+    # the global per-bank totals of the Whittaker and KL terms
+    Kf = solid_per_bank.to(f64)
     for d in range(1, d_max):
         pair = (seg[d:] == seg[:-d]).nonzero().squeeze(1)
         a, b = sid[pair], sid[pair + d]
@@ -176,74 +276,125 @@ def stats_from_rows(kmer, sid, count, *, n_banks: int) -> JoinStats:
         flat["ba"].index_add_(0, idx, cb)
         flat["distinct"].index_add_(0, idx, torch.ones_like(ca))
         flat["bray"].index_add_(0, idx, torch.minimum(ca, cb))
+        if simple:
+            prod = ca * cb
+            flat["hellinger"].index_add_(
+                0, idx, torch.floor(torch.sqrt(prod.to(f64))).to(i64)
+            )
+            flat["chord"].index_add_(0, idx, prod)
+        if complex_:
+            # Whittaker's pair term wraps the difference of the two
+            # rounded double products to int32 (SimkaAlgorithm.hpp:481)
+            caf, cbf = ca.to(f64), cb.to(f64)
+            Ka, Kb = Kf[a], Kf[b]
+            xY, yX = caf * Kb, cbf * Ka
+            low = torch.remainder(
+                torch.remainder(xY, _TWO32) - torch.remainder(yX, _TWO32),
+                _TWO32,
+            ).to(i64)
+            flat["whittaker"].index_add_(
+                0, idx, torch.abs(torch.where(low >= 1 << 31, low - (1 << 32),
+                                              low))
+            )
+            flat["s12"].index_add_(0, idx, _abs_wrap32(xY) + _abs_wrap32(yX))
+            # Kullback-Leibler pair term (SimkaAlgorithm.hpp:437-446);
+            # only co-present pairs are gathered, so no term is masked
+            den = xY + yX
+            d1 = (caf / torch.clamp(Ka, min=1.0)) * torch.log(2.0 * xY / den)
+            d2 = (cbf / torch.clamp(Kb, min=1.0)) * torch.log(2.0 * yX / den)
+            kl.index_add_(0, idx, _kl_limbs(d1 + d2))
 
-    zeros_i = torch.zeros((N, N), dtype=i64, device=dev)
-    zeros_f = torch.zeros((N, N), dtype=torch.float64, device=dev)
+    def pairs(name):
+        if name in flat:
+            return flat[name].view(N, N)
+        return torch.zeros((N, N), dtype=i64, device=dev)
+
     return JoinStats(
         nb_distinct=nb_distinct,
         nb_shared=nb_shared,
         distinct_per_bank=distinct_per_bank,
         solid_per_bank=solid_per_bank,
         chord_n2_per_bank=chord_n2_per_bank,
-        shared_kmers_ab=flat["ab"].view(N, N),
-        shared_kmers_ba=flat["ba"].view(N, N),
-        shared_distinct=flat["distinct"].view(N, N),
-        bray_numerator=flat["bray"].view(N, N),
-        chord_ninj=zeros_f,
-        hellinger=zeros_i,
-        whittaker=zeros_i.clone(),
-        whittaker_all=zeros_i.clone(),
-        whittaker_s12=zeros_i.clone(),
-        kullback_leibler=zeros_f.clone(),
+        shared_kmers_ab=pairs("ab"),
+        shared_kmers_ba=pairs("ba"),
+        shared_distinct=pairs("distinct"),
+        bray_numerator=pairs("bray"),
+        chord_ninj=pairs("chord").to(f64),
+        hellinger=pairs("hellinger"),
+        whittaker=pairs("whittaker"),
+        whittaker_all=(
+            _whittaker_all(sid, c64, solid_per_bank, N) if complex_
+            else pairs("whittaker_all")
+        ),
+        whittaker_s12=pairs("s12"),
+        kullback_leibler=(
+            _kl_from_limbs(kl).view(N, N) if complex_
+            else torch.zeros((N, N), dtype=f64, device=dev)
+        ),
         max_count=(c64.max() if n else torch.zeros((), dtype=i64, device=dev)),
     )
 
 
 def count_join_stats(
-    kmer: torch.Tensor,
+    words: Union[torch.Tensor, Sequence[torch.Tensor]],
     sid: torch.Tensor,
     abundance_min: int,
     abundance_max: int,
     *,
     n_banks: int,
     kmer_bits: int,
+    simple: bool = False,
+    complex_: bool = False,
 ) -> JoinStats:
-    """All default-channel sufficient statistics of an instance stream.
+    """All sufficient statistics of an instance stream.
 
     Args:
-      kmer: [E] int64 canonical k-mers, each in [0, 2^kmer_bits).
+      words: the [E] int64 canonical k-mer words, most significant
+        first (``ops.kmers``): ceil(kmer_bits / 62) of them, each in
+        [0, 2^62) and the first in [0, 2^(kmer_bits - 62 (nw - 1)));
+        one tensor stands for one word.
       sid: [E] int32 or int64 sample index of each instance, in
         [0, n_banks).
       abundance_min/max: per-sample solidity bounds (keep
         amin <= count <= amax).
       n_banks: number of samples N.
-      kmer_bits: bits of a k-mer value, 2k for k <= 31 (at most 62).
+      kmer_bits: bits of a k-mer value, 2k (at most 254: k <= 127).
+      simple/complex_: also compute the simple (hellinger, chord) and
+        complex (Whittaker, Kullback-Leibler) channels.
 
     The stream holds real instances only: there is no invalid-window
-    sentinel in int64, so a value outside [0, 2^kmer_bits) -- or a
-    sample id outside [0, n_banks) -- raises ValueError.
+    sentinel in int64, so a word outside its range -- or a sample id
+    outside [0, n_banks) -- raises ValueError.
     """
-    if not 1 <= kmer_bits <= 62:
-        raise NotImplementedError(
-            f"kmer_bits={kmer_bits}: the port handles k <= 31 "
-            "(k > 31 is ROADMAP queue 1, item 7)"
+    words = (words,) if isinstance(words, torch.Tensor) else tuple(words)
+    nw = len(words)
+    word_bits = 2 * WORD_BASES
+    if not 1 <= kmer_bits <= 254 or nw != -(-kmer_bits // word_bits):
+        raise ValueError(
+            f"kmer_bits={kmer_bits} with {nw} words: k-mers are 1..254 "
+            f"bits in words of {word_bits}"
         )
-    if kmer.dtype != torch.int64 or kmer.shape != sid.shape:
-        raise ValueError("kmer must be int64 and shaped like sid")
-    if kmer.numel():
-        bounds = torch.stack([
-            kmer.min(), kmer.max(), sid.min().to(torch.int64),
-            sid.max().to(torch.int64),
-        ]).tolist()
-        if bounds[0] < 0 or bounds[1] >> kmer_bits:
-            raise ValueError(
-                f"k-mer values outside [0, 2^{kmer_bits}): invalid "
-                "windows must be dropped before the join"
-            )
-        if bounds[2] < 0 or bounds[3] >= n_banks:
+    if any(w.dtype != torch.int64 or w.shape != sid.shape for w in words):
+        raise ValueError("k-mer words must be int64 and shaped like sid")
+    if sid.numel():
+        bounds = torch.stack(
+            [sid.min().to(torch.int64), sid.max().to(torch.int64)]
+            + [f(w) for w in words for f in (torch.min, torch.max)]
+        ).tolist()
+        top_bits = kmer_bits - word_bits * (nw - 1)
+        for i in range(nw):
+            lo, hi = bounds[2 + 2 * i], bounds[3 + 2 * i]
+            if lo < 0 or hi >> (top_bits if i == 0 else word_bits):
+                raise ValueError(
+                    f"k-mer word {i} outside its {kmer_bits}-bit range: "
+                    "invalid windows must be dropped before the join"
+                )
+        if bounds[0] < 0 or bounds[1] >= n_banks:
             raise ValueError(f"sample ids outside [0, {n_banks})")
     rows = solid_rows(
-        kmer, sid, abundance_min, abundance_max,
+        words, sid, abundance_min, abundance_max,
         n_banks=n_banks, kmer_bits=kmer_bits,
     )
-    return stats_from_rows(*rows, n_banks=n_banks)
+    return stats_from_rows(
+        *rows, n_banks=n_banks, simple=simple, complex_=complex_
+    )

@@ -1,11 +1,20 @@
-"""Canonical k-mer extraction on torch tensors (k <= 31).
+"""Canonical k-mer extraction on torch tensors (k up to 127).
 
-A k-mer of k <= 31 bases is 2k <= 62 bits, so it is held as ONE
-int64 (no unsigned types: torch's uint32/uint64 lack shifts and
-comparisons on the CPU build). The (hi, lo) uint32 pair of
-``simka_tpu`` appears only at the public functions ``extract_packed``
-and ``mix_hash``, as int64 tensors holding uint32 values, so tests
-compare like with like.
+A k-mer is held as a big-endian tuple of int64 WORDS of at most 31
+bases (62 bits) each: one word for k <= 31, two for k <= 62, five at
+k = 127 (``n_words``). The least significant word holds the last 31
+bases, the most significant one the first ``k - 31 * (n_words - 1)``.
+Every word is a fixed 62-bit field, so the lexicographic order of the
+tuples is the numeric order of the 2k-bit values. There are no
+unsigned types: torch's uint32/uint64 lack shifts and comparisons on
+the CPU build.
+
+``simka_tpu`` holds the same value as big-endian uint32 words. That
+layout appears only where the reference's own values are needed: the
+public functions ``extract_packed``, ``extract_canonical_kmers``,
+``extract_canonical_kmers_multi`` and ``mix_hash`` (which the
+repartition histogram runs over those words), as int64 tensors holding
+uint32 values, so tests compare like with like (``uint32_words``).
 
 Base codes: A=0, C=1, G=2, T=3, invalid = 255; complement is
 ``code ^ 3``. The canonical k-mer is min(forward, reverse complement);
@@ -15,12 +24,33 @@ either way).
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 
-SENTINEL = 0xFFFFFFFF  # (hi, lo) of an invalid window
+SENTINEL = 0xFFFFFFFF  # every uint32 word of an invalid window
 _M32 = 0xFFFFFFFF
+WORD_BASES = 31  # bases in one int64 word (62 bits)
+MAX_K = 127  # the reference's largest k (gatb-core's k-mer spans)
+
+Words = Tuple[torch.Tensor, ...]
+
+
+def n_words(k: int) -> int:
+    """int64 words of the port's k-mer layout."""
+    return -(-k // WORD_BASES)
+
+
+def n_uint32_words(k: int) -> int:
+    """uint32 words of ``simka_tpu``'s layout: ``n_words_for_k`` plus
+    the extra leading word it keeps when 2k is a multiple of 32 (so a
+    real k-mer's first word is never the all-ones SENTINEL); 2 for
+    k <= 31, whose (hi, lo) pair is never widened."""
+    if k <= 31:
+        return 2
+    nw = -(-2 * k // 32)
+    return nw + 1 if 2 * k == 32 * nw else nw
 
 
 def unpack_codes(packed: torch.Tensor, validbits: torch.Tensor) -> torch.Tensor:
@@ -40,17 +70,27 @@ def unpack_codes(packed: torch.Tensor, validbits: torch.Tensor) -> torch.Tensor:
     return torch.where(bits == 1, codes, 255).to(torch.uint8)
 
 
+def _word_spans(k: int):
+    """[lo, hi) window offsets of each word, most significant first."""
+    nw = n_words(k)
+    spans = []
+    for w in range(nw):
+        hi = k - WORD_BASES * (nw - 1 - w)
+        spans.append((max(0, hi - WORD_BASES), hi))
+    return spans
+
+
 def canonical_kmers(codes: torch.Tensor, k: int):
     """Canonical k-mers of every window of a [B, L] code batch.
 
-    Returns (kmer [B, W] int64, valid [B, W] bool), W = L - k + 1. A
-    window touching any invalid base is invalid; its kmer value is
+    Returns (words, valid): ``n_words(k)`` [B, W] int64 words, most
+    significant first, and the [B, W] bool validity, W = L - k + 1. A
+    window touching any invalid base is invalid; its words are
     unspecified.
     """
-    if not 1 <= k <= 31:
+    if not 1 <= k <= MAX_K:
         raise NotImplementedError(
-            f"k={k}: the port handles k <= 31 (k > 31 is ROADMAP "
-            "queue 1, item 7)"
+            f"k={k}: the port handles 1 <= k <= {MAX_K}, as the reference"
         )
     B, L = codes.shape
     if L < k:
@@ -59,43 +99,136 @@ def canonical_kmers(codes: torch.Tensor, k: int):
     c = codes.to(torch.int64)
     invalid = c >= 4
     c = c & 3
-    fwd = torch.zeros((B, W), dtype=torch.int64, device=codes.device)
-    rc = torch.zeros_like(fwd)
-    # Horner over the k window offsets: forward value
-    # sum_i base[i] * 4^(k-1-i), revcomp sum_i comp(base[i]) * 4^i
-    for i in range(k):
-        fwd = (fwd << 2) | c[:, i : i + W]
-        rc = (rc << 2) | (c[:, k - 1 - i : k - 1 - i + W] ^ 3)
-    kmer = torch.minimum(fwd, rc)
+    # Horner per word over its own window offsets: forward value
+    # sum_i base[i] * 4^(k-1-i); the reverse complement reads
+    # comp(base[k-1-j]) at its offset j
+    fwd, rc = [], []
+    for lo, hi in _word_spans(k):
+        f = torch.zeros((B, W), dtype=torch.int64, device=codes.device)
+        r = torch.zeros_like(f)
+        for i in range(lo, hi):
+            f = (f << 2) | c[:, i : i + W]
+            r = (r << 2) | (c[:, k - 1 - i : k - 1 - i + W] ^ 3)
+        fwd.append(f)
+        rc.append(r)
+    if len(fwd) == 1:
+        words = (torch.minimum(fwd[0], rc[0]),)
+    else:
+        # lexicographic min(forward, revcomp); equal -> forward
+        take_fwd = torch.zeros((B, W), dtype=torch.bool, device=codes.device)
+        undecided = torch.ones_like(take_fwd)
+        for f, r in zip(fwd, rc):
+            take_fwd |= undecided & (f < r)
+            undecided &= f == r
+        take_fwd |= undecided
+        words = tuple(torch.where(take_fwd, f, r) for f, r in zip(fwd, rc))
     cum = torch.nn.functional.pad(
         torch.cumsum(invalid.to(torch.int32), dim=1), (1, 0)
     )
     valid = (cum[:, k:] - cum[:, :W]) == 0
-    return kmer, valid
+    return words, valid
+
+
+def uint32_words(words: Words, k: int, valid=None) -> Words:
+    """The port's words as ``simka_tpu``'s big-endian uint32 words
+    (``n_uint32_words(k)`` int64 tensors of uint32 values), with
+    SENTINEL in every word where ``valid`` is False."""
+    nw = len(words)
+    out = []
+    for i in range(n_uint32_words(k)):  # i: uint32 word from the bottom
+        s = 32 * i
+        j, o = divmod(s, 2 * WORD_BASES)  # port word from the bottom
+        if j >= nw:
+            v = torch.zeros_like(words[0])
+        else:
+            v = words[nw - 1 - j]
+            if o:
+                v = v >> o
+            avail = 2 * WORD_BASES - o  # bits of v, all below 2^avail
+            if avail > 32:
+                v = v & _M32
+            elif avail < 32 and j + 1 < nw:
+                nxt = words[nw - 2 - j] & ((1 << (32 - avail)) - 1)
+                v = v | (nxt << avail)
+        out.append(v if valid is None else torch.where(valid, v, SENTINEL))
+    return tuple(reversed(out))
 
 
 def extract_canonical_kmers(codes: torch.Tensor, k: int):
     """Canonical k-mers of a [B, L] uint8 code batch as (hi, lo, valid)
-    (``simka_tpu``'s ``extract_canonical_kmers`` for k <= 31): [B, W]
+    (``simka_tpu``'s ``extract_canonical_kmers``, k <= 31): [B, W]
     int64 tensors of uint32 values, SENTINEL in both at invalid
     windows, and the [B, W] bool validity."""
-    kmer, valid = canonical_kmers(codes, k)
-    hi = torch.where(valid, kmer >> 32, SENTINEL)
-    lo = torch.where(valid, kmer & _M32, SENTINEL)
+    if k > 31:
+        raise ValueError(f"k={k}: (hi, lo) holds k <= 31")
+    words, valid = canonical_kmers(codes, k)
+    hi, lo = uint32_words(words, k, valid)
     return hi, lo, valid
 
 
+def extract_canonical_kmers_multi(codes: torch.Tensor, k: int):
+    """(uint32 words, valid) of a [B, L] code batch in
+    ``simka_tpu``'s ``extract_canonical_kmers_multi`` layout (k > 31)."""
+    words, valid = canonical_kmers(codes, k)
+    return uint32_words(words, k, valid), valid
+
+
 def extract_packed(
-    packed: torch.Tensor, validbits: torch.Tensor, k: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    packed: torch.Tensor, validbits: torch.Tensor, k: int,
+    multi: bool = False,
+) -> Words:
     """Unpack a packed batch and extract canonical k-mers.
 
-    Returns (hi, lo): [B, W*4 - k + 1] int64 tensors of uint32 values,
-    SENTINEL in both at invalid windows (``simka_tpu``'s
-    ``extract_packed`` for k <= 31).
+    Returns ``simka_tpu``'s ``extract_packed`` words: (hi, lo) for
+    k <= 31, or the multi-word tuple with ``multi``; [B, W*4 - k + 1]
+    int64 tensors of uint32 values, SENTINEL at invalid windows.
     """
-    hi, lo, _ = extract_canonical_kmers(unpack_codes(packed, validbits), k)
+    codes = unpack_codes(packed, validbits)
+    if multi:
+        return extract_canonical_kmers_multi(codes, k)[0]
+    hi, lo, _ = extract_canonical_kmers(codes, k)
     return hi, lo
+
+
+def shannon_terms(k: int) -> torch.Tensor:
+    """[k + 1] f32 table: the Shannon term ``f * (log(f) / log 2)`` of a
+    base seen c times in a k-mer, f = c / k, each step in f32 as the
+    reference computes it, 0 at c = 0. Made on the host, so every device
+    gets the same bits; log(f) is the correctly rounded f32 log (the f32
+    logs of XLA and CUDA are each off by an ulp at some frequencies)."""
+    f = torch.arange(k + 1, dtype=torch.float32) / torch.tensor(
+        float(k), dtype=torch.float32)
+    log_f = torch.tensor([math.log(v) if v > 0 else 0.0 for v in f.tolist()],
+                         dtype=torch.float64).to(torch.float32)
+    log2 = torch.tensor(math.log(2.0), dtype=torch.float32)
+    return f * (log_f / log2)
+
+
+def kmer_shannon_index_words(words: Words, k: int) -> torch.Tensor:
+    """Shannon index of each k-mer over its 4 base frequencies, f32
+    (``simka_tpu``'s ``kmer_shannon_index_words``:
+    ``|sum f * log(f) / log 2|`` summed in base order), from the port's
+    int64 words through the ``shannon_terms`` table. It equals the
+    reference's wherever XLA's f32 log is correctly rounded, and is
+    within 2 ulp elsewhere; indices made of frequencies 0, 1/4, 1/2 and
+    1 (0, 1.0, 1.5, 2.0) are exact in both.
+
+    Base i (0 = the last base) sits at bits [2i, 2i + 2) of the 2k-bit
+    value; a base never straddles two 62-bit words.
+    """
+    nw = len(words)
+    counts = [torch.zeros(words[0].shape, dtype=torch.int64,
+                          device=words[0].device) for _ in range(4)]
+    for i in range(k):
+        j, o = divmod(i, WORD_BASES)
+        code = (words[nw - 1 - j] >> (2 * o)) & 3
+        for base in range(4):
+            counts[base] += code == base
+    terms = shannon_terms(k).to(words[0].device)
+    total = terms[counts[0]]
+    for cnt in counts[1:]:
+        total = total + terms[cnt]
+    return torch.abs(total)
 
 
 def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
@@ -113,3 +246,13 @@ def mix_hash(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     h = h ^ (h >> 13)
     h = _mul32(h ^ lo, 0xC2B2AE35)
     return h ^ (h >> 16)
+
+
+def mix_hash_words(words32: Words) -> torch.Tensor:
+    """``mix_hash`` folded over uint32 words, most significant first:
+    ``h = w0; h = mix_hash(h, w)`` for each further word (the
+    reference's repartition hash for any word count)."""
+    h = words32[0]
+    for w in words32[1:]:
+        h = mix_hash(h, w)
+    return h

@@ -70,14 +70,24 @@ def write_community(
     read_len: int = 100,
     n_frac: float = 0.001,
     fastq_samples: int = 0,
+    motif_genomes: int = 0,
 ) -> str:
     """Write one file per sample plus ``input.txt``; return its path.
 
-    The first ``fastq_samples`` samples are FASTQ, the rest FASTA.
+    The first ``fastq_samples`` samples are FASTQ, the rest FASTA. The
+    first ``motif_genomes`` genomes are low-complexity tandem repeats,
+    for the k-mer Shannon filter, of a motif cycling through three
+    kinds: two distinct bases (every k-mer's index is 1.0 at even k);
+    four bases with one of them twice (1.5 at k a multiple of 4); four
+    bases with one of them three times (0.811 at k a multiple of 4).
     """
     rng = np.random.default_rng(seed)
     os.makedirs(out_dir, exist_ok=True)
     genomes = rng.integers(0, 4, size=(n_genomes, genome_len), dtype=np.uint8)
+    for g in range(motif_genomes):
+        p = rng.permutation(4).astype(np.uint8)
+        motif = (p[:2], p[[0, 0, 1, 2]], p[[0, 0, 0, 1]])[g % 3]
+        genomes[g] = np.tile(motif, -(-genome_len // len(motif)))[:genome_len]
     lines: List[str] = []
     for s in range(n_samples):
         fastq = s < fastq_samples

@@ -2,7 +2,8 @@
 simka_tpu.core.pipeline.run_simka (single-device path, n_shards=1) on
 the same simulated community files. The decompressed CSV text must be
 byte-equal and so must the repartition histogram; options outside the
-port's slice must raise NotImplementedError."""
+port's slice must raise NotImplementedError. The optional distances and
+the k-mer Shannon filter are in test_torch_cli_channels.py."""
 
 import glob
 import gzip
@@ -74,10 +75,8 @@ def test_cli_matches_reference(community, tmp_path, n, k, amin):
 
 @pytest.mark.parametrize(
     "flags",
-    [["-simple-dist"], ["-complex-dist"], ["-kmer-size", "33"],
-     ["-out-tmp", "tmp"], ["-kmer-shannon-index", "1.0"],
-     ["-coordinator", "localhost:1234"], ["-sweep-ranges", "2"],
-     ["-n-shards", "2"], ["-data-info"]],
+    [["-out-tmp", "tmp"], ["-coordinator", "localhost:1234"],
+     ["-sweep-ranges", "2"], ["-n-shards", "2"], ["-data-info"]],
 )
 def test_options_outside_the_slice_raise(community, tmp_path, flags):
     with pytest.raises(NotImplementedError):
