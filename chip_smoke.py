@@ -4,14 +4,23 @@
 
 Phases (each raises on failure; nothing is caught):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build of the CUDA kernels from simka_tpu_torch/csrc;
+  2. build of the CUDA kernels from simka_tpu_torch/csrc, and of the
+     native parser (the run refuses the pure-Python reader's fallback:
+     the parser sets the main path's pace);
   3. the compaction kernel against its plain torch version on the card,
-     bit for bit, at E in {1, 4095, 2^20+3, 2^24, 2^27} x kept
-     fractions {0, 0.37, 1}, with their times at 2^24 and 2^27;
+     bit for bit in both forms ([E] with the fill, and exact-length
+     [n]), with the kernel's own kept total equal to n, at E in {1,
+     4095, 2^20+3, 2^24, 2^27} x kept fractions {0, 0.37, 1}, with
+     their times at 2^24 and 2^27;
   4. the probe path (python -m simka_tpu_torch.profiling.probes): every
      probe kernel against its plain version (DMA routes printed), the
-     launch count of each of the four groups over that run, then each
-     group's kernel and plain CUDA-event times;
+     launch count of each of the four groups over that run; then per
+     probe the kernel's CUDA-event time around the Python call, its
+     device time from torch.profiler (device events only, as
+     profiling/trace.py counts them), the plain version's time and,
+     where one torch call computes the same function, that call's
+     times (for the bf16 products torch.mm(out_dtype=float32) on the
+     operands cast beforehand); the bf16 product twice, bit-identical;
   5. small communities through run_simka on cuda and on cpu, byte-equal
      CSVs and repartition histograms: the default distances (k=21);
      -simple-dist -complex-dist at k in {21, 33, 63, 127} (150 bp
@@ -24,15 +33,23 @@ Phases (each raises on failure; nothing is caught):
      x 500,000 reads x 100 bp of a 20-genome community; the default
      command (k=21, default distances), then -simple-dist
      -complex-dist at k=21 and at k=63; each run twice with identical
-     CSVs, each run's compaction launch count > 0;
-  8. the compaction kernel against its plain version at the column
-     layouts those runs gave it, each at the largest E it saw (at least
-     2^24 rows for 5 to 7 columns; 6 columns, k in 94..124, added), and
-     at the join shape of the k=21 run, timed there.
+     CSVs, each run's compaction launch count > 0, and the kernel's
+     own kept total equal to the caller's n on every call of the run
+     (held on the card and compared after the run: no sync on the path);
+  8. the compaction kernel against its plain version in both forms at
+     the column layouts those runs gave it, each at the largest E it
+     saw (at least 2^24 rows for 5 to 7 columns; 6 columns, k in
+     94..124, added); then timed, both forms beside the least time the
+     card could take (bytes over 3.35 TB/s) and, for one column,
+     torch.masked_select: at the join shape of the k=21 run and at an
+     extraction batch (2^17 reads x 80 windows, kept 0.979).
 
-Prints, before the last line, the kernels' JSON record and the card's
-nvidia-smi line; the last line is the JSON result. Exits non-zero
-without a result when no CUDA device is present.
+Prints, before the last line, the kernels' JSON record (per kernel:
+launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
+bound_by, library_ms -- null where no one torch call computes the same
+function -- and extra fields) and the card's nvidia-smi line; the last
+line is the JSON result. Exits non-zero without a result when no CUDA
+device is present.
 """
 
 from __future__ import annotations
@@ -51,7 +68,7 @@ import numpy as np
 import torch
 
 from simka_tpu_torch.ops import _kernels, compact
-from simka_tpu_torch.profiling import probes
+from simka_tpu_torch.profiling import probes, trace
 
 INT64_MAX = (1 << 63) - 1
 REPLACES = "simka_tpu/ops/pallas_compact.py:48"
@@ -60,6 +77,10 @@ ALL_DISTANCES = ["-simple-dist", "-complex-dist"]
 # keeps the reference's int32 wrap of its double products
 # (SimkaAlgorithm.hpp:481), which no formula bounds
 UNBOUNDED = {"mat_abundance_whittaker.csv.gz"}
+# published peaks of one H100 SXM (NVIDIA's H100 datasheet)
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+EXTRACT_ROWS = (1 << 17) * 80  # a 2^17-read batch of 100 bp reads, k=21
 
 
 def say(msg: str) -> None:
@@ -93,19 +114,41 @@ def rows(E: int, frac: float, gen: torch.Generator, dev, dtypes=None):
     return tuple(cols), kept, tuple(fills)
 
 
+def bound(nbytes: float, ops: float = 0.0):
+    """(least ms the card could take, "bytes" or "operations")."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def compact_bytes(cols, kept, n: int, fill: bool) -> int:
+    """The mask read once, each kept row read once, each output row
+    written once."""
+    row = sum(c.element_size() for c in cols)
+    E = kept.shape[0]
+    return E + n * row + (E if fill else n) * row
+
+
 def compare(cols, kept, fills) -> int:
-    """Kernel vs plain on the same inputs, bit for bit; returns the
-    max abs error, 0 (anything else raises)."""
-    got = compact.compact_rows(cols, kept, fills)
-    want = compact.compact_rows_plain(cols, kept, fills)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        if not torch.equal(g, w):
-            bad = (g != w).nonzero()[:5].flatten().tolist()
+    """Kernel vs plain on the same inputs, bit for bit, in both forms,
+    and the kernel's kept total against the count; returns the max abs
+    error, 0 (anything else raises)."""
+    n = int(kept.sum())
+    for form in (None, n):
+        got = compact.compact_rows(cols, kept, fills, n=form)
+        total = int(compact.last_kept_total)
+        want = compact.compact_rows_plain(cols, kept, fills, n=form)
+        torch.cuda.synchronize()
+        if total != n:
             raise AssertionError(
-                f"compact_rows kernel != plain at E={kept.shape[0]}, "
-                f"{g.dtype}, first bad rows {bad}"
-            )
+                f"compact_rows kept total {total} != {n} at E={kept.shape[0]}")
+        for g, w in zip(got, want):
+            if g.shape != w.shape or not torch.equal(g, w):
+                bad = ((g != w).nonzero()[:5].flatten().tolist()
+                       if g.shape == w.shape else (g.shape, w.shape))
+                raise AssertionError(
+                    f"compact_rows kernel != plain at E={kept.shape[0]}, "
+                    f"n={form}, {g.dtype}, first bad rows {bad}"
+                )
     return 0
 
 
@@ -125,6 +168,39 @@ def time_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
+def time_compaction(tag: str, cols, kept, fills, reps: int = 10) -> dict:
+    """Both forms of the kernel and of the plain version, their bounds
+    and, for one column, torch.masked_select, on the same inputs."""
+    n = int(kept.sum())
+    saved = compact.launches
+    r = {
+        "ms": time_ms(lambda: compact.compact_rows(cols, kept, fills, n=n),
+                      reps),
+        "fill_ms": time_ms(lambda: compact.compact_rows(cols, kept, fills),
+                           reps),
+        "plain_ms": time_ms(
+            lambda: compact.compact_rows_plain(cols, kept, fills, n=n), reps),
+        "plain_fill_ms": time_ms(
+            lambda: compact.compact_rows_plain(cols, kept, fills), reps),
+        "library_ms": (time_ms(lambda: torch.masked_select(cols[0], kept),
+                               reps) if len(cols) == 1 else None),
+        # a copy of every column: the traffic of reading all input rows
+        # (a random mask touches nearly every sector) and writing E rows
+        "copy_ms": time_ms(lambda: [c.clone() for c in cols], reps),
+    }
+    compact.launches = saved  # timing launches are not the path's
+    r["bound_ms"], r["bound_by"] = bound(compact_bytes(cols, kept, n, False))
+    r["fill_bound_ms"], _ = bound(compact_bytes(cols, kept, n, True))
+    lib = ("" if r["library_ms"] is None
+           else f", torch.masked_select {r['library_ms']:.4f} ms")
+    say(f"compact {tag} E={kept.shape[0]} n={n}: exact-length "
+        f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms); with fill {r['fill_ms']:.4f} ms (bound "
+        f"{r['fill_bound_ms']:.4f} ms, plain {r['plain_fill_ms']:.4f} ms); "
+        f"a copy of the columns {r['copy_ms']:.4f} ms" + lib)
+    return r
+
+
 def kernel_vs_plain(dev) -> int:
     """Phase 3; returns the max abs error."""
     gen = torch.Generator(device=dev)
@@ -135,51 +211,134 @@ def kernel_vs_plain(dev) -> int:
             cols, kept, fills = rows(E, frac, gen, dev)
             err = max(err, compare(cols, kept, fills))
             if frac == 0.37 and E >= 1 << 24:
-                saved = compact.launches
-                k_ms = time_ms(lambda: compact.compact_rows(cols, kept, fills))
-                p_ms = time_ms(
-                    lambda: compact.compact_rows_plain(cols, kept, fills)
-                )
-                compact.launches = saved  # timing launches are not the path's
-                say(f"compact E=2^{E.bit_length() - 1} frac=0.37 "
-                    f"(i64 key, i64 count, i32 sid): kernel {k_ms:.4f} ms, "
-                    f"plain {p_ms:.4f} ms")
+                time_compaction(f"2^{E.bit_length() - 1} (i64 key, i64 "
+                                "count, i32 sid)", cols, kept, fills)
             del cols, kept
     torch.cuda.empty_cache()
     say(f"compact kernel == plain at every shape (max_abs_err {err})")
     return err
 
 
+def device_ms(fn, reps: int = 20):
+    """Device time of one call of fn: the union of its device events
+    under torch.profiler (profiling/trace.py's count), over reps calls;
+    None when the trace shows no device event."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    intervals = trace.device_intervals(prof.events())
+    return trace.union_us(intervals) / 1e3 / reps if intervals else None
+
+
+def library_call(p, args):
+    """One torch call that computes probe p's function on its inputs,
+    or None where none does (the bf16 products' operands are cast, and
+    k6's one-hot built, outside the timed call). Timed here only: the
+    port never calls it."""
+    x = args[-1]
+    if p.name in ("basic_2d_vmem", "basic_1d_vmem", "reshape_f32"):
+        return lambda: torch.mul(x, 2)
+    if p.name in ("reshape_i32", "reshape_2d_i32"):
+        return lambda: torch.add(x, 1)
+    if p.name.startswith(("gram_bf16", "cond_gram", "onehot_gram")):
+        if p.name.startswith("onehot_gram"):
+            lane = torch.arange(probes.LANES, device=x.device) % 8
+            xb = (x.reshape(-1, 1) == lane).to(torch.bfloat16)
+        else:
+            xb = x.to(torch.bfloat16)
+        return lambda: torch.mm(xb.t(), xb, out_dtype=torch.float32)
+    return None
+
+
+def probe_bound(p, args):
+    """Bound of one probe call: the bytes of its inputs and outputs,
+    and for a bf16 product that runs 2 x rows x 128^2 operations (kd
+    on negative inputs skips it)."""
+    out = p.plain(*args)
+    outs = out if isinstance(out, tuple) else (out,)
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs))
+    product = (p.name.startswith(("gram_bf16", "cond_gram", "onehot_gram"))
+               and p.name != "cond_gram_negative")
+    ops = 2 * args[-1].shape[0] * probes.LANES ** 2 if product else 0
+    return bound(nbytes, ops)
+
+
 def probe_phase(dev, seed: int) -> dict:
-    """Phase 4: the probe path, then each group's kernel and plain
-    times; returns per group {launches, max_abs_err, ms, plain_ms}."""
+    """Phase 4: the probe path, then each probe's times; returns per
+    group, and for the bf16 product ("gram"), {launches, max_abs_err,
+    ms, device_ms, plain_ms, library_ms, library_device_ms, bound_ms,
+    bound_by}."""
     for g in probes.launches:
         probes.launches[g] = 0
+    probes.gram_launches = 0
     results = probes.run_all(dev, seed, strict=True, log=say)
     torch.cuda.synchronize()
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms")
     groups = {g: {"launches": probes.launches[g], "max_abs_err": 0.0,
-                  "ms": 0.0, "plain_ms": 0.0} for g in probes.GROUPS}
+                  **dict.fromkeys(keys, 0.0)} for g in probes.GROUPS}
+    gram = {"launches": probes.gram_launches, "max_abs_err": 0.0}
     idle = [g for g, v in groups.items() if v["launches"] <= 0]
-    if idle:
-        raise AssertionError(f"the probe path never launched {idle}")
+    if idle or gram["launches"] <= 0:
+        raise AssertionError(f"the probe path never launched {idle} "
+                             f"(bf16 product: {gram['launches']})")
     for r in results:
         g = groups[r["group"]]
         g["max_abs_err"] = max(g["max_abs_err"], r["max_abs_err"])
-    saved = dict(probes.launches)
+        if "gram" in r["name"]:
+            gram["max_abs_err"] = max(gram["max_abs_err"], r["max_abs_err"])
+    saved = dict(probes.launches), probes.gram_launches
     for p in probes.PROBES:
         args = probes.probe_inputs(p, seed, dev)
-        k_ms = time_ms(lambda: p.fn(*args), reps=20)
-        p_ms = time_ms(lambda: p.plain(*args), reps=20)
-        groups[p.group]["ms"] += k_ms
-        groups[p.group]["plain_ms"] += p_ms
-        say(f"probe {p.name} ({p.tpu}): kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms")
-    probes.launches.update(saved)  # timing launches are not the path's
+        lib = library_call(p, args)
+        t = {
+            "ms": time_ms(lambda: p.fn(*args), reps=20),
+            "device_ms": device_ms(lambda: p.fn(*args)),
+            "plain_ms": time_ms(lambda: p.plain(*args), reps=20),
+            "library_ms": None if lib is None else time_ms(lib, reps=20),
+            "library_device_ms": None if lib is None else device_ms(lib),
+        }
+        t["bound_ms"], by = probe_bound(p, args)
+        g = groups[p.group]
+        g["bound_by"] = "bytes" if g.get("bound_by", "bytes") == by == \
+            "bytes" else "operations"
+        for k in keys:  # a group's sum is None once a probe lacks the time
+            g[k] = None if g[k] is None or t[k] is None else g[k] + t[k]
+        if p.name == "gram_bf16_normal":  # ka at its shape, normal values
+            gram.update(t)
+            gram["bound_ms"], gram["bound_by"] = probe_bound(p, args)
+            a, b = p.fn(*args), p.fn(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError("the bf16 product differs between runs")
+        say(f"probe {p.name} ({p.tpu}): kernel {t['ms']:.4f} ms around "
+            f"the call, {fmt(t['device_ms'])} on the device; plain "
+            f"{t['plain_ms']:.4f} ms; one torch call {fmt(t['library_ms'])} "
+            f"({fmt(t['library_device_ms'])} on the device); bound "
+            f"{t['bound_ms']:.6f} ms")
+    probes.launches.update(saved[0])  # timing launches are not the path's
+    probes.gram_launches = saved[1]
     for name, g in groups.items():
         say(f"probe group {name}: {g['launches']} launches, kernels "
-            f"{g['ms']:.4f} ms, plain {g['plain_ms']:.4f} ms (sum of "
-            f"per-probe medians), max_abs_err {g['max_abs_err']}")
-    return groups
+            f"{g['ms']:.4f} ms ({fmt(g['device_ms'])} on the device), "
+            f"plain {g['plain_ms']:.4f} ms, one torch call "
+            f"{fmt(g['library_ms'])} (sums of per-probe medians), bound "
+            f"{g['bound_ms']:.6f} ms, max_abs_err {g['max_abs_err']}")
+    say(f"bf16 product (ka, normal values): kernel {gram['ms']:.4f} ms "
+        f"({fmt(gram['device_ms'])} on the device), "
+        f"torch.mm(out_dtype=float32) {fmt(gram['library_ms'])} "
+        f"({fmt(gram['library_device_ms'])} on the device), "
+        f"{gram['launches']} launches on the probe path, identical runs")
+    return {"groups": groups, "gram": gram}
+
+
+def fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def csv_texts(out_dir: str) -> dict:
@@ -196,21 +355,39 @@ def metrics_of(out_dir: str) -> dict:
 
 class ShapeRecorder:
     """Records (column dtypes) -> largest E of the compactions the
-    card runs while installed (the shapes the main paths give it)."""
+    card runs while installed (the shapes the main paths give it), and
+    each call's device-side kept total beside the caller's n, compared
+    by ``check_totals`` after a run (the sync is there, not on the
+    path)."""
 
     def __init__(self):
         self.shapes = {}
+        self.totals = []
         self._orig = compact.compact_rows
 
     def __enter__(self):
-        def recording(arrays, kept, fills):
-            if kept.device.type == "cuda":
+        def recording(arrays, kept, fills, n=None):
+            out = self._orig(arrays, kept, fills, n=n)
+            if kept.device.type == "cuda" and kept.shape[0] > 0:
                 key = tuple(a.dtype for a in arrays)
                 self.shapes[key] = max(self.shapes.get(key, 0), kept.shape[0])
-            return self._orig(arrays, kept, fills)
+                self.totals.append((compact.last_kept_total,
+                                    kept.sum() if n is None else n))
+            return out
 
         compact.compact_rows = recording
         return self
+
+    def check_totals(self) -> int:
+        """The kernel's kept total == the caller's n on every call since
+        the last check; returns the number of calls checked."""
+        for got, want in self.totals:
+            if int(got) != int(want):
+                raise AssertionError(
+                    f"compact_rows kept total {int(got)} != n {int(want)}")
+        k = len(self.totals)
+        self.totals.clear()
+        return k
 
     def __exit__(self, *exc):
         compact.compact_rows = self._orig
@@ -324,7 +501,7 @@ def check_matrices(texts: dict, n: int) -> None:
             raise AssertionError(f"{name}: values out of range")
 
 
-def full_size(tmp: str, seed: int) -> dict:
+def full_size(tmp: str, seed: int, recorder: ShapeRecorder) -> dict:
     """Phase 7; returns each path's first-run record."""
     from simka_tpu_torch.cli import main as cli_main
     from simka_tpu_torch.utils.community import write_community
@@ -360,6 +537,11 @@ def full_size(tmp: str, seed: int) -> dict:
             if compact.launches <= 0:
                 raise AssertionError(
                     f"{tag}: the run never launched the compaction kernel")
+            checked = recorder.check_totals()
+            if checked != compact.launches:
+                raise AssertionError(
+                    f"{tag}: {checked} kept totals checked, "
+                    f"{compact.launches} launches")
             m = metrics_of(out)
             c = m["counters"]
             rec = {
@@ -376,8 +558,8 @@ def full_size(tmp: str, seed: int) -> dict:
                 f"{m['stages']['output']}; reads {c['reads']}, instances "
                 f"{rec['instances']}, distinct solid "
                 f"{c['nb_distinct_kmers']}, compact launches "
-                f"{rec['launches']}, peak device memory "
-                f"{rec['peak_gib']:.2f} GiB"
+                f"{rec['launches']} (kernel kept total == n on each), "
+                f"peak device memory {rec['peak_gib']:.2f} GiB"
             )
             runs.append((csv_texts(out), rec))
         if runs[0][0] != runs[1][0]:
@@ -390,8 +572,8 @@ def full_size(tmp: str, seed: int) -> dict:
 
 def compaction_at_path_shapes(shapes: dict, join_rows: int, dev,
                               seed: int) -> tuple:
-    """Phase 8; returns (max_abs_err, kernel ms, plain ms) at the k=21
-    join shape."""
+    """Phase 8; returns (max_abs_err, timings at the k=21 join shape,
+    timings at the extraction-batch shape)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     saved = compact.launches
@@ -407,16 +589,10 @@ def compaction_at_path_shapes(shapes: dict, join_rows: int, dev,
         cols, kept, fills = rows(E, 0.37, gen, dev, dtypes)
         err = max(err, compare(cols, kept, fills))
         names = "+".join(str(d).split(".")[-1] for d in dtypes)
+        say(f"compact {len(dtypes)} columns ({names}) E={E}: kernel == "
+            "plain in both forms")
         if len(dtypes) >= 5:
-            k_ms = time_ms(lambda: compact.compact_rows(cols, kept, fills),
-                           reps=5)
-            p_ms = time_ms(
-                lambda: compact.compact_rows_plain(cols, kept, fills), reps=5)
-            say(f"compact {len(dtypes)} columns ({names}) E={E}: kernel == "
-                f"plain; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        else:
-            say(f"compact {len(dtypes)} columns ({names}) E={E}: kernel == "
-                "plain")
+            time_compaction(f"{len(dtypes)} columns", cols, kept, fills, 5)
         del cols, kept
         torch.cuda.empty_cache()
     # the join shape of the k=21 run: (int64 key, int32 count)
@@ -424,13 +600,17 @@ def compaction_at_path_shapes(shapes: dict, join_rows: int, dev,
                              (torch.int64, torch.int32))
     fills = (-1, 0)
     err = max(err, compare(cols, kept, fills))
-    k_ms = time_ms(lambda: compact.compact_rows(cols, kept, fills), reps=5)
-    p_ms = time_ms(lambda: compact.compact_rows_plain(cols, kept, fills),
-                   reps=5)
+    join = time_compaction("at the join shape (i64 key, i32 count, frac "
+                           "0.37)", cols, kept, fills, 5)
+    del cols, kept
+    torch.cuda.empty_cache()
+    # an extraction batch: one int64 word column
+    cols, kept, fills = rows(EXTRACT_ROWS, 0.979, gen, dev, (torch.int64,))
+    err = max(err, compare(cols, kept, fills))
+    extract = time_compaction("at an extraction batch (i64 word, frac "
+                              "0.979)", cols, kept, fills, 20)
     compact.launches = saved
-    say(f"compact at the join shape E={join_rows} (i64 key, i32 count, "
-        f"frac 0.37): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    return err, k_ms, p_ms
+    return err, join, extract
 
 
 def main() -> int:
@@ -451,20 +631,31 @@ def main() -> int:
     _kernels.lib()
     say(f"kernel build: {time.perf_counter() - t0:.2f} s -> "
         f"{os.path.relpath(path)}")
+    from simka_tpu_torch.io import native
+
+    if not native.available():
+        raise RuntimeError(
+            "the native parser did not build (g++ and zlib): the measured "
+            "run would take the slower pure-Python reader")
+    say(f"native parser: {os.path.relpath(native.SRC)} -> "
+        f"{os.path.relpath(native.get_lib()._name)}")
 
     dev = torch.device("cuda", 0)
     err = kernel_vs_plain(dev)
-    groups = probe_phase(dev, args.seed)
+    probe = probe_phase(dev, args.seed)
     with tempfile.TemporaryDirectory(prefix="simka_chip_smoke_") as tmp:
         with ShapeRecorder() as rec:
             small_gpu_vs_cpu(tmp, args.seed)
             determinism(dev, args.seed)
-            paths = full_size(tmp, args.seed)
+            rec.check_totals()
+            paths = full_size(tmp, args.seed, rec)
     main_run = paths["default k=21"]
-    c_err, k_ms, p_ms = compaction_at_path_shapes(
+    c_err, join, extract = compaction_at_path_shapes(
         rec.shapes, main_run["instances"], dev, args.seed)
     err = max(err, c_err)
 
+    # compact_rows at the join shape in the path's exact-length form;
+    # the fill form and the extraction batch beside it
     kernels = [{
         "name": "compact_rows",
         "route": "cuda",
@@ -472,19 +663,31 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": main_run["launches"],
         "max_abs_err": err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        **{k: join[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "fill_ms", "fill_bound_ms",
+                                "copy_ms")},
+        **{f"extract_{k}": extract[k] for k in ("ms", "plain_ms",
+                                                 "bound_ms", "library_ms")},
     }]
-    for name, g in groups.items():
+    gram = probe["gram"]
+    kernels.append({
+        "name": "probe_gram_bf16",
+        "route": "cuda",
+        "source": "simka_tpu_torch/csrc/probes.cu",
+        "replaces": "scripts/profiling/test_mosaic_features.py:11",
+        **{k: gram[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms",
+                                "device_ms", "library_device_ms")},
+    })
+    for name, g in probe["groups"].items():
         kernels.append({
             "name": f"probes.{name}",
             "route": "cuda",
             "source": "simka_tpu_torch/csrc/probes.cu",
             "replaces": probes.GROUPS[name],
-            "launches": g["launches"],
-            "max_abs_err": g["max_abs_err"],
-            "ms": g["ms"],
-            "plain_ms": g["plain_ms"],
+            **{k: g[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "device_ms", "library_device_ms")},
         })
     say(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_all:.1f} s")

@@ -172,9 +172,9 @@ def extract_windows(
     bucket = torch.where(valid, h & (N_HIST_BUCKETS - 1), N_HIST_BUCKETS)
     hist = torch.bincount(bucket, minlength=N_HIST_BUCKETS + 1)
     n = int(valid.sum()) if n_valid is None else int(n_valid)
-    words = compact_rows(words, valid, fills=(-1,) * len(words))
+    words = compact_rows(words, valid, fills=(-1,) * len(words), n=n)
     sid = torch.full((n,), sample, dtype=torch.int32, device=valid.device)
-    return tuple(w[:n] for w in words), sid, hist[:N_HIST_BUCKETS]
+    return words, sid, hist[:N_HIST_BUCKETS]
 
 
 def compute_statistics(

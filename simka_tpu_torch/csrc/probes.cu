@@ -22,13 +22,20 @@
 //     the last one go by plain loads and stores ("peeled"), the aligned
 //     body by one bulk copy. The split is reported per copy in `info`.
 //   - simka_probe_gram_bf16: the bf16 dot_generals contracting dim 0
-//     (k6, ka, kd) become a tensor-core product, mma.sync m16n8k16
-//     bf16 x bf16 -> f32, one warp per 16 x 8 output tile; kd's
-//     lax.cond becomes a device-side flag read by the kernel (no host
-//     sync), written by simka_probe_max_positive.
+//     (k6, ka, kd) become a tensor-core product split over the rows:
+//     each CTA bulk-copies a 64-row chunk into shared memory, converts
+//     it to bf16 there and runs ldmatrix.trans + mma.sync m16n8k16
+//     (bf16 x bf16 -> f32) for its [128, 128] partial; a second kernel
+//     sums the partials in a fixed order. kd's lax.cond becomes a
+//     device-side flag read by the kernels (no host sync), written by
+//     simka_probe_max_positive.
 //   - the elementwise bodies are grid-stride loops.
-// What bounds them: nothing at these sizes (<= 1 MB, one launch each);
-// they are capability and correctness probes, timed for the record.
+// What bounds them: nothing at these sizes (<= 1 MB, one or two
+// launches each): the least time the card could take is under a
+// microsecond (the product's 1 MB of x over 3.35 TB/s is 0.33 us, its
+// 67 MFLOP over 989 TFLOP/s bf16 0.07 us), so launch latency and the
+// host's wrapper set their time. They are capability and correctness
+// probes, timed for the record.
 //
 // Plain C interface for ctypes; nothing here allocates or
 // synchronises. Each entry point returns cudaGetLastError().
@@ -133,78 +140,161 @@ __global__ void probe_max_positive(int is_i32, const void* __restrict__ x,
   }
 }
 
-// ---- tensor cores: out = A^T A, A [rows, cols] in bf16 ----
+// ---- tensor cores: out = A^T A, A [rows, 128] in bf16 ----
+//
+// The contraction over rows is split across CTAs: CTA c takes rows
+// [64 c, 64 c + 64) of x, brings them into shared memory with one 1-D
+// bulk copy (cp.async.bulk + mbarrier), converts them there to bf16
+// once (mode 0: f32 x rounded to nearest even, ka and kd; mode 1: the
+// one-hot A[r][c] = (x[r] == c % mod) of an int32 x [rows], k6), and
+// computes its whole [128, 128] f32 partial on the tensor cores: eight
+// warps, each a 64 x 32 block, with ldmatrix.trans fragments (the
+// chunk is stored [row][col], and both operands of the dim-0
+// contraction are its transpose in mma's terms) into mma.sync
+// m16n8k16. A second kernel sums the partials in chunk order, so runs
+// are bit-identical and integer inputs stay exact. A flag (nullable)
+// at 0 makes the first kernel return before any load and the second
+// write zeros (kd's lax.cond false branch).
 
-// A[r][c] as bf16 bits: mode 0 reads f32 x [rows, cols] and rounds to
-// nearest even (ka, kd: x.astype(bf16)); mode 1 is the one-hot of the
-// int32 x [rows], A[r][c] = (x[r] == c % mod) (k6).
-__device__ __forceinline__ uint32_t gram_elem(int mode, const void* x,
-                                              int64_t r, int c, int cols,
-                                              int mod) {
-  float v;
-  if (mode == 0) {
-    v = static_cast<const float*>(x)[r * cols + c];
-  } else {
-    v = static_cast<const int32_t*>(x)[r] == c % mod ? 1.f : 0.f;
+constexpr int kGramCols = 128;
+constexpr int kGramChunk = 64;                // rows of x per CTA
+constexpr int kGramThreads = 256;             // 8 warps: 2 (m) x 4 (n)
+constexpr int kGramStride = kGramCols + 8;    // bf16 row stride: 272 B puts
+                                              // ldmatrix's 8 rows in
+                                              // distinct banks
+constexpr int kGramXBytes = kGramChunk * kGramCols * 4;
+constexpr int kGramSmem =
+    kGramXBytes + kGramChunk * kGramStride * 2;  // 50,176 B
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((uint32_t)__cvta_generic_to_shared(p)));
+}
+
+__global__ void __launch_bounds__(kGramThreads)
+    probe_gram_partial(int mode, const void* __restrict__ x,
+                       float* __restrict__ part, int mod,
+                       const int32_t* __restrict__ flag) {
+  extern __shared__ __align__(16) unsigned char gram_smem[];
+  __shared__ __align__(8) uint64_t bar;
+  if (flag != nullptr && *flag == 0) return;
+  float* xs = reinterpret_cast<float*>(gram_smem);
+  __nv_bfloat16* as =
+      reinterpret_cast<__nv_bfloat16*>(gram_smem + kGramXBytes);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t chunk = blockIdx.x;
+  const uint32_t bytes =
+      mode == 0 ? (uint32_t)kGramXBytes : (uint32_t)(kGramChunk * 4);
+  const char* src = static_cast<const char*>(x) + chunk * bytes;
+  const uint32_t bar_a = (uint32_t)__cvta_generic_to_shared(&bar);
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_a)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ uint32_t pack2(uint32_t lo, uint32_t hi) {
-  return lo | (hi << 16);
-}
-
-// One warp per 16 x 8 tile of out [cols, cols]; the contraction over
-// rows runs in steps of 16 through mma.sync.m16n8k16 with the MMA's A
-// operand = A^T (row-major view) and B operand = A (column view),
-// fragments gathered straight from global memory (L1/L2-resident at
-// these sizes). flag (nullable): when *flag == 0 the product is skipped
-// and out is 0 (kd's lax.cond false branch).
-__global__ void probe_gram_bf16(int mode, const void* __restrict__ x,
-                                float* __restrict__ out, int64_t rows,
-                                int cols, int mod,
-                                const int32_t* __restrict__ flag) {
-  const int warp = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  const int tiles_n = cols / 8;
-  const int m0 = warp / tiles_n * 16;
-  const int n0 = warp % tiles_n * 8;
-  if (m0 >= cols) return;  // whole warps only
-  const int g = lane >> 2, t = lane & 3;
-  float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
-  if (flag == nullptr || *flag != 0) {
-    for (int64_t k0 = 0; k0 < rows; k0 += 16) {
-      const int64_t ka = k0 + 2 * t, kb = ka + 8;
-      // A fragment (16 x 16, row): rows g / g + 8, columns 2t.. / 2t+8..
-      const uint32_t a0 = pack2(gram_elem(mode, x, ka, m0 + g, cols, mod),
-                                gram_elem(mode, x, ka + 1, m0 + g, cols, mod));
-      const uint32_t a1 =
-          pack2(gram_elem(mode, x, ka, m0 + g + 8, cols, mod),
-                gram_elem(mode, x, ka + 1, m0 + g + 8, cols, mod));
-      const uint32_t a2 = pack2(gram_elem(mode, x, kb, m0 + g, cols, mod),
-                                gram_elem(mode, x, kb + 1, m0 + g, cols, mod));
-      const uint32_t a3 =
-          pack2(gram_elem(mode, x, kb, m0 + g + 8, cols, mod),
-                gram_elem(mode, x, kb + 1, m0 + g + 8, cols, mod));
-      // B fragment (16 x 8, col): rows 2t.. / 2t+8.., column g
-      const uint32_t b0 = pack2(gram_elem(mode, x, ka, n0 + g, cols, mod),
-                                gram_elem(mode, x, ka + 1, n0 + g, cols, mod));
-      const uint32_t b1 = pack2(gram_elem(mode, x, kb, n0 + g, cols, mod),
-                                gram_elem(mode, x, kb + 1, n0 + g, cols, mod));
-      asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-          "{%0, %1, %2, %3};\n"
-          : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  __syncthreads();
+  if (tid == 0) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            bar_a),
+        "r"(bytes)
+        : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(
+            (uint32_t)__cvta_generic_to_shared(xs)),
+        "l"((uint64_t)src), "r"(bytes), "r"(bar_a)
+        : "memory");
+  }
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar_a), "r"(0u)
+        : "memory");
+  }
+  // the chunk in bf16, rows padded to kGramStride
+  if (mode == 0) {
+    for (int i = tid; i < kGramChunk * kGramCols / 4; i += kGramThreads) {
+      const float4 v = reinterpret_cast<const float4*>(xs)[i];
+      const int r = i / (kGramCols / 4), c = i % (kGramCols / 4) * 4;
+      __nv_bfloat162* d =
+          reinterpret_cast<__nv_bfloat162*>(as + r * kGramStride + c);
+      d[0] = __floats2bfloat162_rn(v.x, v.y);
+      d[1] = __floats2bfloat162_rn(v.z, v.w);
+    }
+  } else {
+    const int32_t* xi = reinterpret_cast<const int32_t*>(xs);
+    for (int i = tid; i < kGramChunk * kGramCols; i += kGramThreads) {
+      const int r = i / kGramCols, c = i % kGramCols;
+      as[r * kGramStride + c] =
+          __float2bfloat16(xi[r] == c % mod ? 1.f : 0.f);
     }
   }
+  __syncthreads();
+
+  // warp block: out rows [m_base, m_base + 64), cols [n_base, +32)
+  const int m_base = (warp >> 2) * 64, n_base = (warp & 3) * 32;
+  const int q = lane >> 3, r8 = lane & 7, g = lane >> 2, t = lane & 3;
+  float acc[4][4][4] = {};
+#pragma unroll
+  for (int k0 = 0; k0 < kGramChunk; k0 += 16) {
+    uint32_t a[4][4], b[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)  // a0..a3: (m 0-7|8-15) x (k 0-7|8-15)
+      ldmatrix_x4_trans(a[mt], as + (k0 + r8 + (q >> 1) * 8) * kGramStride +
+                                   m_base + mt * 16 + (q & 1) * 8);
+#pragma unroll
+    for (int np = 0; np < 2; ++np)  // b0, b1 of n-tile 2 np, then 2 np + 1
+      ldmatrix_x4_trans(b[np], as + (k0 + r8 + (q & 1) * 8) * kGramStride +
+                                   n_base + np * 16 + (q >> 1) * 8);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint32_t b0 = b[nt >> 1][(nt & 1) * 2];
+        const uint32_t b1 = b[nt >> 1][(nt & 1) * 2 + 1];
+        float* d = acc[mt][nt];
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "r"(a[mt][0]), "r"(a[mt][1]), "r"(a[mt][2]), "r"(a[mt][3]),
+              "r"(b0), "r"(b1));
+      }
+  }
   // D fragment: rows g / g + 8, columns 2t, 2t + 1
-  float* o = out + (int64_t)(m0 + g) * cols + n0 + 2 * t;
-  o[0] = d0;
-  o[1] = d1;
-  o[8 * cols] = d2;
-  o[8 * cols + 1] = d3;
+  float* o = part + chunk * kGramCols * kGramCols;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int m = m_base + mt * 16 + g, n = n_base + nt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(o + m * kGramCols + n) =
+          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(o + (m + 8) * kGramCols + n) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+}
+
+// out[i] = sum of part[c][i] over chunks c in order (0 when *flag == 0)
+__global__ void probe_gram_reduce(const float* __restrict__ part, int chunks,
+                                  float* __restrict__ out, int n,
+                                  const int32_t* __restrict__ flag) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  if (flag == nullptr || *flag != 0)
+    for (int c = 0; c < chunks; ++c) s += part[(int64_t)c * n + i];
+  out[i] = s;
 }
 
 // ---- bulk copies (TMA, 1-D) ----
@@ -364,18 +454,24 @@ int simka_probe_max_positive(int is_i32, const void* x, int64_t n,
   return (int)cudaGetLastError();
 }
 
-// out [cols, cols] f32 = A^T A; rows and cols multiples of 16.
+// out [128, 128] f32 = A^T A over rows (a multiple of 64); part: f32
+// scratch [rows / 64, 128, 128]; x 16-byte aligned.
 int simka_probe_gram_bf16(int mode, const void* x, float* out, int64_t rows,
-                          int cols, int mod, const int32_t* flag,
+                          int cols, int mod, const int32_t* flag, float* part,
                           void* stream) {
-  if ((mode != 0 && mode != 1) || rows % 16 || cols % 16 || cols < 16 ||
-      (mode == 1 && mod < 1))
+  if ((mode != 0 && mode != 1) || rows < kGramChunk || rows % kGramChunk ||
+      cols != kGramCols || (mode == 1 && mod < 1) || ((uintptr_t)x & 15))
     return (int)cudaErrorInvalidValue;
-  const int warps = (cols / 16) * (cols / 8);
-  const int threads = 128;
-  const int blocks = (warps * 32 + threads - 1) / threads;
-  probe_gram_bf16<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      mode, x, out, rows, cols, mod, flag);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      probe_gram_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kGramSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int chunks = (int)(rows / kGramChunk);
+  probe_gram_partial<<<chunks, kGramThreads, kGramSmem,
+                       (cudaStream_t)stream>>>(mode, x, part, mod, flag);
+  const int n = kGramCols * kGramCols;
+  probe_gram_reduce<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                      (cudaStream_t)stream>>>(part, chunks, out, n, flag);
   return (int)cudaGetLastError();
 }
 

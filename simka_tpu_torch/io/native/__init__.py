@@ -1,12 +1,14 @@
 """ctypes bindings for the native FASTA/FASTQ parser.
 
-Both packages parse with ONE C++ source: this loader compiles
-``simka_tpu/io/native/fastx.cpp`` by path (the file is read by g++,
-never imported as Python), so the port cannot drift from the
-reference's parser. The library goes into the port's git-ignored
-build directory (``simka_tpu_torch/_build``), never next to the
-source. Callers fall back to the pure-Python reader in
-``simka_tpu_torch.io.bank`` when the toolchain or zlib is unavailable.
+This loader compiles the port's own copy of the JAX package's parser,
+``fastx.cpp`` beside this file, with g++ at first use
+(``tests/test_torch_host.py`` holds the copy to the original byte for
+byte, so the two cannot drift). The library goes into the port's
+git-ignored build directory (``simka_tpu_torch/_build``), never next
+to the source. Callers fall back to the pure-Python reader in
+``simka_tpu_torch.io.bank`` when the toolchain or zlib is unavailable;
+``chip_smoke.py`` refuses that fallback on the card's machine, since
+the parser sets the main path's pace.
 """
 
 from __future__ import annotations
@@ -19,12 +21,9 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-_PKG = os.path.dirname(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-)
-_SRC = os.path.join(
-    os.path.dirname(_PKG), "simka_tpu", "io", "native", "fastx.cpp"
-)
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(os.path.dirname(_HERE))
+SRC = os.path.join(_HERE, "fastx.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 _LIB = os.path.join(BUILD_DIR, "libfastx.so")
 
@@ -33,10 +32,8 @@ _tried = False
 
 
 def _build() -> Optional[str]:
-    if not os.path.exists(_SRC):
-        return None
     if os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(
-        _SRC
+        SRC
     ):
         return _LIB
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -44,7 +41,7 @@ def _build() -> Optional[str]:
     # may build at once, and a reader must never load a partial file
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC,
+    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", SRC,
            "-o", tmp, "-lz"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)

@@ -79,15 +79,15 @@ def lib():
             handle.simka_compact_tile_rows.argtypes = []
             i32, i64 = ctypes.c_int, ctypes.c_int64
             for name, args in (
-                ("simka_compact_rows", [vp, i64, i32, vp, vp, vp, vp, vp,
-                                        vp, vp]),
+                ("simka_compact_rows", [vp, i64, i32, vp, vp, vp, vp, i64,
+                                        i32, vp, vp]),
                 # csrc/probes.cu
                 ("simka_probe_scale_f32", [vp, vp, i64, ctypes.c_float, vp]),
                 ("simka_probe_map_i32", [i32, vp, vp, i64, i32, vp, vp]),
                 ("simka_probe_onehot_f32", [vp, vp, i64, i32, vp]),
                 ("simka_probe_max_positive", [i32, vp, i64, vp, vp]),
                 ("simka_probe_gram_bf16", [i32, vp, vp, i64, i32, i32, vp,
-                                           vp]),
+                                           vp, vp]),
                 ("simka_probe_dma", [vp, i64, vp, i64, vp, i64, i64, i64,
                                      i64, vp, vp]),
             ):

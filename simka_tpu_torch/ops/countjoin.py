@@ -152,9 +152,8 @@ def solid_rows(
         count = _run_counts(boundary)
         kept = boundary & (count >= abundance_min) & (count <= abundance_max)
         n = int(kept.sum())
-        key_c, cnt_c = compact_rows((key, count), kept, fills=(-1, 0))
-        key_c = key_c[:n]
-        return (key_c >> sbits,), key_c & ((1 << sbits) - 1), cnt_c[:n]
+        key_c, cnt_c = compact_rows((key, count), kept, fills=(-1, 0), n=n)
+        return (key_c >> sbits,), key_c & ((1 << sbits) - 1), cnt_c
 
     # multi-key path
     perm = _lex_order((*words, sid))
@@ -166,9 +165,9 @@ def solid_rows(
     kept = boundary & (count >= abundance_min) & (count <= abundance_max)
     n = int(kept.sum())
     cols = compact_rows(
-        (*words, sid, count), kept, fills=(-1,) * nw + (0, 0)
+        (*words, sid, count), kept, fills=(-1,) * nw + (0, 0), n=n
     )
-    return tuple(c[:n] for c in cols[:nw]), cols[nw][:n], cols[nw + 1][:n]
+    return cols[:nw], cols[nw], cols[nw + 1]
 
 
 def _abs_wrap32(prod: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,9 @@ GROUPS = {
 
 # kernel launches per group on the CUDA path (the CPU path does not count)
 launches = dict.fromkeys(GROUPS, 0)
+# kernel launches of the bf16 product (k6, ka, kd; two kernels a call),
+# counted in their groups too
+gram_launches = 0
 
 # csrc/probes.cu's int32 ops
 _MUL, _ADD, _ROLL_ADD1, _ROLL_SUM, _LANE_BYTE, _SELECT = range(6)
@@ -82,11 +85,12 @@ def _is_cuda(*ts: torch.Tensor) -> bool:
     return True
 
 
-def _launch(group: str, fn: str, *args) -> None:
+def _launch(group: str, fn: str, *args, kernels: int = 1) -> None:
+    """Call entry point ``fn``, which launches ``kernels`` kernels."""
     from simka_tpu_torch.ops import _kernels
 
     _kernels.check(getattr(_kernels.lib(), fn)(*args), fn)
-    launches[group] += 1
+    launches[group] += kernels
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -127,13 +131,23 @@ def _max_positive(group, x):
     return flag
 
 
+GRAM_CHUNK = 64  # rows of x per CTA of csrc/probes.cu's product
+
+
 def _gram(group, x, mode, cols, mod=1, flag=None):
+    global gram_launches
     rows = x.shape[0]
     out = torch.empty((cols, cols), dtype=torch.float32, device=x.device)
+    # one [cols, cols] f32 partial per chunk, summed in order by the
+    # entry point's second kernel
+    part = torch.empty((rows // GRAM_CHUNK, cols, cols), dtype=torch.float32,
+                       device=x.device)
     with torch.cuda.device(x.device):
         _launch(group, "simka_probe_gram_bf16", mode, x.data_ptr(),
                 out.data_ptr(), rows, cols, mod,
-                None if flag is None else flag.data_ptr(), _stream(x))
+                None if flag is None else flag.data_ptr(), part.data_ptr(),
+                _stream(x), kernels=2)
+    gram_launches += 2  # probe_gram_partial, then probe_gram_reduce
     return out
 
 

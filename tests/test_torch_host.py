@@ -1,7 +1,10 @@
 """The port's jax-free copies of the host modules agree with their
 originals in simka_tpu, so the two cannot drift: the input DSL, the
-packed read source (native and pure-Python), the CSV format, and the
-statistics + distance formulas on one JoinStats."""
+native parser's C++ source, the packed read source (native and
+pure-Python), the CSV format, and the statistics + distance formulas
+on one JoinStats."""
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -89,6 +92,20 @@ def test_iter_packed_matches(banks, native, max_reads, monkeypatch):
         assert (gn, gnv) == (wn, wnv)
     if native and not max_reads:
         assert all(nv is not None for *_, nv in got)
+
+
+def test_native_parser_source_is_the_reference_copy():
+    """The port builds its own copy of fastx.cpp; it must stay the
+    reference's byte for byte (the same parse of the same inputs is
+    test_iter_packed_matches)."""
+    from simka_tpu_torch.io import native as port_native
+
+    ref = os.path.join(os.path.dirname(ref_packed.__file__), "native",
+                       "fastx.cpp")
+    assert os.path.dirname(port_native.SRC) == os.path.dirname(
+        port_native.__file__)
+    with open(port_native.SRC, "rb") as f, open(ref, "rb") as g:
+        assert f.read() == g.read()
 
 
 def test_format_matrix_csv_matches():

@@ -28,3 +28,16 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_port_builds_only_its_own_sources():
+    """The native parser and the CUDA kernels compile from files inside
+    simka_tpu_torch/, never from the JAX package's tree."""
+    from simka_tpu_torch.io import native
+    from simka_tpu_torch.ops import _kernels
+
+    port = os.path.join(REPO, "simka_tpu_torch") + os.sep
+    for path in (native.SRC, native.BUILD_DIR, _kernels.CSRC,
+                 _kernels.BUILD_DIR):
+        assert os.path.abspath(path).startswith(port), path
+    assert os.path.exists(native.SRC)
