@@ -25,29 +25,46 @@ Phases (each raises on failure; nothing is caught):
      CSVs and repartition histograms: the default distances (k=21);
      -simple-dist -complex-dist at k in {21, 33, 63, 127} (150 bp
      reads); -kmer-shannon-index 1.5 at k=63 on a community with
-     low-complexity genomes;
+     low-complexity genomes; the -out-tmp checkpoint path at k=21
+     (default distances) and at k=63 (all distances), its CSVs also
+     equal to the in-memory run's;
   6. determinism: count_join_stats with every channel twice on the card
      over one 3-word (k=63) instance stream, bit-identical JoinStats,
      and against the CPU (integers equal, floats to 1e-12);
   7. the main paths at full size through the CLI entry point: 8 samples
-     x 500,000 reads x 100 bp of a 20-genome community; the default
-     command (k=21, default distances), then -simple-dist
-     -complex-dist at k=21 and at k=63; each run twice with identical
-     CSVs, each run's compaction launch count > 0, and the kernel's
-     own kept total equal to the caller's n on every call of the run
-     (held on the card and compared after the run: no sync on the path);
-  8. the compaction kernel against its plain version in both forms at
-     the column layouts those runs gave it, each at the largest E it
+     x 500,000 reads x 100 bp of a 20-genome community (the first 8 of
+     9 written); the default command (k=21, default distances), then
+     -simple-dist -complex-dist at k=21 and at k=63; each run twice
+     with identical CSVs, each run's compaction launch count > 0, and
+     the kernel's own kept total equal to the caller's n on every call
+     of the run (held on the card and compared after the run: no sync
+     on the path);
+  8. the -out-tmp checkpoint path at full size through the CLI (k=21,
+     default distances, -max-memory 50000): run 1 counts the 8 samples
+     into checkpoints, its CSVs byte-equal to phase 7's default run
+     (run 0); run 2 resumes all 8 (files untouched, same CSVs); run 3
+     adds the ninth sample and counts only it; run 4, without
+     -keep-tmp, resumes all 9 and removes <tmp>/count/. Per run: the
+     count, merge and output stages, per-sample checkpoint load, count
+     and save times, compaction launches (kept total == n on each),
+     peak device memory, spectrum rows and the memory budget. Then
+     count_dataset_spectrum on one full-size sample with
+     stream_batch_reads 2^18 (four partial spectra and their merge)
+     equals the default call (one spectrum) word for word;
+  9. the compaction kernel against its plain version in both forms at
+     the column layouts phases 5-8 gave it, each at the largest E it
      saw (at least 2^24 rows for 5 to 7 columns; 6 columns, k in
      94..124, added); then timed, both forms beside the least time the
      card could take (bytes over 3.35 TB/s) and, for one column,
-     torch.masked_select: at the join shape of the k=21 run and at an
-     extraction batch (2^17 reads x 80 windows, kept 0.979).
+     torch.masked_select: at the join shape of the k=21 run, at an
+     extraction batch (2^17 reads x 80 windows, kept 0.979) and at the
+     -out-tmp spectra join (word, sample id, count).
 
 Prints, before the last line, the kernels' JSON record (per kernel:
 launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
 bound_by, library_ms -- null where no one torch call computes the same
-function -- and extra fields) and the card's nvidia-smi line; the last
+function -- launches_out_tmp, the compaction's launches in phase 8's
+run 1, and extra fields) and the card's nvidia-smi line; the last
 line is the JSON result. Exits non-zero without a result when no CUDA
 device is present.
 """
@@ -81,6 +98,8 @@ UNBOUNDED = {"mat_abundance_whittaker.csv.gz"}
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 EXTRACT_ROWS = (1 << 17) * 80  # a 2^17-read batch of 100 bp reads, k=21
+# the -out-tmp join's abundance filter at k=21: (word, sample id, count)
+SPECTRA_JOIN = (torch.int64, torch.int32, torch.int32)
 
 
 def say(msg: str) -> None:
@@ -393,13 +412,19 @@ class ShapeRecorder:
         compact.compact_rows = self._orig
 
 
-def gpu_vs_cpu(tmp: str, tag: str, inp: str, n_matrices: int, **cfg) -> None:
+def gpu_vs_cpu(tmp: str, tag: str, inp: str, n_matrices: int,
+               out_tmp: bool = False, **cfg) -> dict:
+    """run_simka on cuda and on cpu (with ``out_tmp``, through the
+    -out-tmp checkpoint path): byte-equal CSVs and repartition
+    histograms; returns the CSV texts."""
     from simka_tpu_torch.config import SimkaConfig
     from simka_tpu_torch.core.pipeline import run_simka
 
     outs = {}
     for dev in ("cuda", "cpu"):
         out = os.path.join(tmp, f"{tag}_{dev}")
+        if out_tmp:
+            cfg["output_tmp_dir"] = out + "_tmp"
         run_simka(
             SimkaConfig(input_filename=inp, output_dir=out, verbose=False,
                         **cfg),
@@ -414,8 +439,17 @@ def gpu_vs_cpu(tmp: str, tag: str, inp: str, n_matrices: int, **cfg) -> None:
     if g_m["nb_distinct_kmers"] <= 0:
         raise AssertionError(f"{tag}: no solid k-mers")
     say(f"{tag}: cuda == cpu, {len(g_csv)} matrices byte-equal, "
-        f"{sum(g_m['repartition_histogram'])} instances, "
+        f"{sum(g_m['repartition_histogram'])} "
+        f"{'distinct solid k-mers' if out_tmp else 'instances'} hashed, "
         f"{g_m['nb_distinct_kmers']} distinct solid k-mers")
+    return g_csv
+
+
+def same_csvs(tag: str, a: dict, b: dict) -> None:
+    if a != b:
+        raise AssertionError(f"{tag}: the -out-tmp CSVs differ from the "
+                             "in-memory run's")
+    say(f"{tag}: -out-tmp CSVs == in-memory CSVs")
 
 
 def small_gpu_vs_cpu(tmp: str, seed: int) -> None:
@@ -427,15 +461,21 @@ def small_gpu_vs_cpu(tmp: str, seed: int) -> None:
         genome_len=20_000, reads_per_sample=3_000, n_frac=0.01,
         fastq_samples=2,
     )
-    gpu_vs_cpu(tmp, "small default k=21", inp, 15)
+    mem = gpu_vs_cpu(tmp, "small default k=21", inp, 15)
+    same_csvs("small default k=21", mem,
+              gpu_vs_cpu(tmp, "small -out-tmp default k=21", inp, 15, True))
     inp150 = write_community(
         os.path.join(tmp, "small150"), seed=seed + 1, n_samples=4,
         n_genomes=5, genome_len=20_000, reads_per_sample=3_000,
         read_len=150, n_frac=0.002, fastq_samples=2,
     )
     for k in (21, 33, 63, 127):
-        gpu_vs_cpu(tmp, f"small all distances k={k}", inp150, 21,
-                   kmer_size=k, simple_dist=True, complex_dist=True)
+        mem = gpu_vs_cpu(tmp, f"small all distances k={k}", inp150, 21,
+                         kmer_size=k, simple_dist=True, complex_dist=True)
+        if k == 63:
+            same_csvs(f"small all distances k={k}", mem, gpu_vs_cpu(
+                tmp, f"small -out-tmp all distances k={k}", inp150, 21,
+                True, kmer_size=k, simple_dist=True, complex_dist=True))
     motif = write_community(
         os.path.join(tmp, "motif"), seed=seed + 2, n_samples=4,
         n_genomes=6, genome_len=20_000, reads_per_sample=3_000,
@@ -501,21 +541,56 @@ def check_matrices(texts: dict, n: int) -> None:
             raise AssertionError(f"{name}: values out of range")
 
 
-def full_size(tmp: str, seed: int, recorder: ShapeRecorder) -> dict:
-    """Phase 7; returns each path's first-run record."""
+def cli_run(tag: str, argv: list, out: str, recorder: ShapeRecorder):
+    """One CLI run on the card with the compaction's launch count and
+    peak memory reset before it; every launch's kept total checked
+    after it. Returns (record, simka_metrics.json)."""
     from simka_tpu_torch.cli import main as cli_main
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    compact.launches = 0
+    t1 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    if rc != 0:
+        raise AssertionError(f"{tag}: cli returned {rc}")
+    if compact.launches <= 0:
+        raise AssertionError(
+            f"{tag}: the run never launched the compaction kernel")
+    checked = recorder.check_totals()
+    if checked != compact.launches:
+        raise AssertionError(f"{tag}: {checked} kept totals checked, "
+                             f"{compact.launches} launches")
+    rec = {
+        "launches": compact.launches,
+        "wall_s": wall,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    return rec, metrics_of(out)
+
+
+def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
+    """Phase 7; returns (each path's first-run record, the inputs of the
+    first 8 and of all 9 samples, the default run's first CSVs)."""
     from simka_tpu_torch.utils.community import write_community
 
     n = 8
     t0 = time.perf_counter()
-    inp = write_community(
-        os.path.join(tmp, "full"), seed=seed, n_samples=n, n_genomes=20,
+    # nine samples: the first eight are the community of 8 of this seed
+    inp9 = write_community(
+        os.path.join(tmp, "full"), seed=seed, n_samples=n + 1, n_genomes=20,
         genome_len=2_000_000, reads_per_sample=500_000, read_len=100,
         n_frac=0.001,
     )
+    inp = os.path.join(tmp, "full", "input8.txt")
+    with open(inp9) as f, open(inp, "w") as g:
+        g.writelines(f.readlines()[:n])
     say(f"full-size data written in {time.perf_counter() - t0:.2f} s "
-        f"(8 samples x 500000 reads x 100 bp, 20 genomes x 2 Mbp)")
-    paths = {}
+        f"(9 samples x 500000 reads x 100 bp, 20 genomes x 2 Mbp; the "
+        f"main paths read the first 8)")
+    paths, yardstick = {}, None
     for tag, k, flags in (("default k=21", 21, []),
                           ("all distances k=21", 21, ALL_DISTANCES),
                           ("all distances k=63", 63, ALL_DISTANCES)):
@@ -525,33 +600,11 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder) -> dict:
             argv = ["-in", inp, "-out", out, "-kmer-size", str(k),
                     "-abundance-min", "2", "-verbose", "0", "-device",
                     "cuda", *flags]
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            compact.launches = 0
-            t1 = time.perf_counter()
-            rc = cli_main(argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-            if rc != 0:
-                raise AssertionError(f"cli returned {rc}")
-            if compact.launches <= 0:
-                raise AssertionError(
-                    f"{tag}: the run never launched the compaction kernel")
-            checked = recorder.check_totals()
-            if checked != compact.launches:
-                raise AssertionError(
-                    f"{tag}: {checked} kept totals checked, "
-                    f"{compact.launches} launches")
-            m = metrics_of(out)
+            rec, m = cli_run(tag, argv, out, recorder)
             c = m["counters"]
-            rec = {
-                "launches": compact.launches,
-                "instances": int(sum(c["repartition_histogram"])),
-                "wall_s": wall,
-                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            }
+            rec["instances"] = int(sum(c["repartition_histogram"]))
             say(
-                f"full {tag} run {r}: wall {wall:.3f} s; stages "
+                f"full {tag} run {r}: wall {rec['wall_s']:.3f} s; stages "
                 + ", ".join(f"{key} {c[key]}" for key in sorted(c)
                             if key.startswith("stage_"))
                 + f", count {m['stages']['count']}, output "
@@ -567,13 +620,103 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder) -> dict:
         check_matrices(runs[0][0], n)
         say(f"full {tag}: both runs identical, {len(runs[0][0])} matrices")
         paths[tag] = runs[0][1]
-    return paths
+        if yardstick is None:
+            yardstick = runs[0][0]
+    return paths, inp, inp9, yardstick
+
+
+def checkpoint_mtimes(tmp: str) -> dict:
+    return {p: os.stat(p).st_mtime_ns
+            for p in sorted(glob.glob(os.path.join(tmp, "count", "*.npz")))}
+
+
+def out_tmp_full_size(tmp: str, inp8: str, inp9: str, yardstick: dict,
+                      recorder: ShapeRecorder, dev) -> dict:
+    """Phase 8; returns run 1's record."""
+    from simka_tpu_torch.core.pipeline import count_dataset_spectrum
+    from simka_tpu_torch.io.dsl import parse_input_file
+    from simka_tpu_torch.io.packed import PackedReadSource
+
+    ckpt = os.path.join(tmp, "ckpt")
+    csvs = {0: yardstick}
+    first = None
+    for r, inp, keep, resumed in ((1, inp8, True, None), (2, inp8, True, 8),
+                                  (3, inp9, True, 8), (4, inp9, False, 9)):
+        tag = f"-out-tmp run {r}"
+        out = os.path.join(tmp, f"ckpt_out_{r}")
+        before = checkpoint_mtimes(ckpt)
+        argv = ["-in", inp, "-out", out, "-out-tmp", ckpt, "-max-memory",
+                "50000", "-kmer-size", "21", "-abundance-min", "2",
+                "-verbose", "0", "-device", "cuda"]
+        rec, m = cli_run(tag, argv + (["-keep-tmp"] if keep else []), out,
+                         recorder)
+        first = first or rec
+        c, texts = m["counters"], csv_texts(out)
+        after = checkpoint_mtimes(ckpt)
+        if c.get("datasets_resumed") != resumed:
+            raise AssertionError(f"{tag}: {c.get('datasets_resumed')} "
+                                 f"datasets resumed, expected {resumed}")
+        if any(after.get(p) != t for p, t in before.items()) and keep:
+            raise AssertionError(f"{tag}: a resumed checkpoint was rewritten")
+        n = 8 if inp == inp8 else 9
+        if keep and len(after) != n:
+            raise AssertionError(f"{tag}: {len(after)} checkpoints, not {n}")
+        if not keep and os.path.exists(os.path.join(ckpt, "count")):
+            raise AssertionError(f"{tag}: <tmp>/count/ outlived the run")
+        same_as = {1: 0, 2: 1, 4: 3}.get(r)
+        if same_as is not None and texts != csvs[same_as]:
+            raise AssertionError(f"{tag}: CSVs differ from run {same_as}'s")
+        check_matrices(texts, n)
+        csvs[r] = texts
+        per = c["per_sample"]
+        say(
+            f"full {tag}: wall {rec['wall_s']:.3f} s; stages count "
+            f"{m['stages']['count']}, merge {m['stages']['merge']}, output "
+            f"{m['stages']['output']}; datasets resumed {resumed or 0}; "
+            f"spectrum rows {c['spectrum_rows']} x 16 B x 8 against the "
+            f"budget {c['memory_budget_bytes']} B; compact launches "
+            f"{rec['launches']} (kernel kept total == n on each); peak "
+            f"device memory {rec['peak_gib']:.2f} GiB; CSVs "
+            + {1: "== phase 7's default run (run 0)", 2: "== run 1",
+               3: f"{len(texts)} matrices of 9 samples",
+               4: "== run 3, <tmp>/count/ removed"}[r])
+        say(f"full {tag} per sample (rows, load / count / save s): "
+            + "; ".join(
+                f"{x['id']} {x['rows']} "
+                + " / ".join(f"{x[key]}" if key in x else "-"
+                             for key in ("load_s", "count_s", "save_s"))
+                for x in per))
+    # the merge at size: one sample in 2^18-read gathers (four partial
+    # spectra, then their merge) against one spectrum of all its reads
+    d = parse_input_file(inp8)[0]
+    spectra = {}
+    for sbr in (1 << 20, 1 << 18):
+        compact.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        words, counts, n_reads = count_dataset_spectrum(
+            PackedReadSource(d.banks), 21, dev, stream_batch_reads=sbr)
+        torch.cuda.synchronize()
+        spectra[sbr] = (words, counts, compact.launches,
+                        time.perf_counter() - t0)
+        recorder.check_totals()
+    (w1, c1, l1, t1), (w2, c2, l2, t2) = spectra[1 << 20], spectra[1 << 18]
+    if l2 < l1 + 4 or not (all(torch.equal(a, b) for a, b in zip(w1, w2))
+                           and torch.equal(c1, c2)):
+        raise AssertionError("the merged spectrum differs from the "
+                             f"one-spectrum count ({l1} vs {l2} launches)")
+    say(f"merge at size ({d.id}, {n_reads} reads): stream_batch_reads 2^18 "
+        f"(partials + merge, {l2} compactions, {t2:.3f} s) == 2^20 (one "
+        f"spectrum, {l1} compactions, {t1:.3f} s): {c1.shape[0]} distinct "
+        f"k-mers, {int(c1.sum())} instances, word for word")
+    return first
 
 
 def compaction_at_path_shapes(shapes: dict, join_rows: int, dev,
                               seed: int) -> tuple:
-    """Phase 8; returns (max_abs_err, timings at the k=21 join shape,
-    timings at the extraction-batch shape)."""
+    """Phase 9; returns (max_abs_err, timings at the k=21 join shape,
+    at the extraction-batch shape and at the -out-tmp spectra join's
+    abundance filter)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     saved = compact.launches
@@ -583,6 +726,7 @@ def compaction_at_path_shapes(shapes: dict, join_rows: int, dev,
     six = (torch.int64,) * 4 + (torch.int32, torch.int32)
     shapes = dict(shapes)
     shapes.setdefault(six, 0)
+    spectra = None
     for dtypes, E in sorted(shapes.items(), key=lambda kv: len(kv[0])):
         if len(dtypes) >= 5:
             E = max(E, 1 << 24)
@@ -593,6 +737,10 @@ def compaction_at_path_shapes(shapes: dict, join_rows: int, dev,
             "plain in both forms")
         if len(dtypes) >= 5:
             time_compaction(f"{len(dtypes)} columns", cols, kept, fills, 5)
+        if dtypes == SPECTRA_JOIN:
+            spectra = time_compaction(
+                "at the -out-tmp spectra join (i64 word, i32 sid, i32 count, "
+                "frac 0.37)", cols, kept, fills, 5)
         del cols, kept
         torch.cuda.empty_cache()
     # the join shape of the k=21 run: (int64 key, int32 count)
@@ -610,7 +758,7 @@ def compaction_at_path_shapes(shapes: dict, join_rows: int, dev,
     extract = time_compaction("at an extraction batch (i64 word, frac "
                               "0.979)", cols, kept, fills, 20)
     compact.launches = saved
-    return err, join, extract
+    return err, join, extract, spectra
 
 
 def main() -> int:
@@ -648,9 +796,11 @@ def main() -> int:
             small_gpu_vs_cpu(tmp, args.seed)
             determinism(dev, args.seed)
             rec.check_totals()
-            paths = full_size(tmp, args.seed, rec)
+            paths, inp8, inp9, yardstick = full_size(tmp, args.seed, rec)
+            out_tmp_run = out_tmp_full_size(tmp, inp8, inp9, yardstick, rec,
+                                            dev)
     main_run = paths["default k=21"]
-    c_err, join, extract = compaction_at_path_shapes(
+    c_err, join, extract, spectra = compaction_at_path_shapes(
         rec.shapes, main_run["instances"], dev, args.seed)
     err = max(err, c_err)
 
@@ -662,12 +812,15 @@ def main() -> int:
         "source": "simka_tpu_torch/csrc/compact.cu",
         "replaces": REPLACES,
         "launches": main_run["launches"],
+        "launches_out_tmp": out_tmp_run["launches"],
         "max_abs_err": err,
         **{k: join[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "fill_ms", "fill_bound_ms",
                                 "copy_ms")},
         **{f"extract_{k}": extract[k] for k in ("ms", "plain_ms",
                                                  "bound_ms", "library_ms")},
+        **{f"spectra_join_{k}": spectra[k] for k in ("ms", "plain_ms",
+                                                      "bound_ms", "fill_ms")},
     }]
     gram = probe["gram"]
     kernels.append({

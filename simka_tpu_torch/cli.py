@@ -26,8 +26,8 @@ def build_simka_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("-in", dest="input", required=True, help="input file of samples (one per line: id: f1,f2;f3...)")
     p.add_argument("-out", dest="out", default="./simka_results", help="output directory for distance matrices")
-    p.add_argument("-out-tmp", dest="out_tmp", default=None, help="temporary directory (checkpoints; not ported)")
-    p.add_argument("-keep-tmp", action="store_true", help="keep temporary files")
+    p.add_argument("-out-tmp", dest="out_tmp", default=None, help="temporary directory: per-sample count checkpoints under <dir>/count/ (resume, add datasets)")
+    p.add_argument("-keep-tmp", action="store_true", help="keep temporary files (the checkpoints, for later runs)")
     p.add_argument("-kmer-size", type=int, default=21, help="size of a kmer (1..127)")
     p.add_argument("-abundance-min", type=int, default=2, help="min abundance a kmer needs to be considered")
     p.add_argument("-abundance-max", type=int, default=999999999, help="max abundance a kmer can have")
@@ -38,11 +38,11 @@ def build_simka_parser() -> argparse.ArgumentParser:
     p.add_argument("-simple-dist", action="store_true", help="compute all simple distances")
     p.add_argument("-complex-dist", action="store_true", help="compute all complex distances")
     p.add_argument("-nb-cores", type=int, default=0, help="accepted for compatibility")
-    p.add_argument("-max-memory", type=int, default=5000, help="max memory (MB); accepted for compatibility")
+    p.add_argument("-max-memory", type=int, default=5000, help="max memory (MB): the -out-tmp join's budget")
     p.add_argument("-sweep-ranges", type=int, default=0, help="out-of-core hash ranges (not ported)")
     p.add_argument("-verbose", type=int, default=1, help="verbosity")
     p.add_argument("-n-shards", type=int, default=0, help="k-mer-space shards (only 0 or 1: one device)")
-    p.add_argument("-data-info", action="store_true", help="compute (and display) input information only (not ported)")
+    p.add_argument("-data-info", action="store_true", help="compute (and display) input information only")
     p.add_argument("-coordinator", default=None, help="multi-host coordinator (not ported)")
     p.add_argument("-num-hosts", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("-host-id", type=int, default=None, help=argparse.SUPPRESS)
@@ -56,16 +56,6 @@ def build_simka_parser() -> argparse.ArgumentParser:
 
 def simka_main(argv) -> int:
     args = build_simka_parser().parse_args(argv)
-    if args.coordinator:
-        raise NotImplementedError(
-            "-coordinator (multi-host) is not ported to simka_tpu_torch "
-            "yet (ROADMAP queue 1, item 12)"
-        )
-    if args.data_info:
-        raise NotImplementedError(
-            "-data-info is not ported to simka_tpu_torch yet "
-            "(ROADMAP queue 1, item 5)"
-        )
     config = SimkaConfig(
         input_filename=args.input,
         output_dir=args.out,
@@ -86,6 +76,16 @@ def simka_main(argv) -> int:
         n_shards=args.n_shards,
         sweep_ranges=args.sweep_ranges,
     )
+    if args.data_info:
+        from simka_tpu_torch.core.pipeline import run_data_info
+
+        run_data_info(config)
+        return 0
+    if args.coordinator:
+        raise NotImplementedError(
+            "-coordinator (multi-host) is not ported to simka_tpu_torch "
+            "yet (ROADMAP queue 1, item 12)"
+        )
     from simka_tpu_torch.core.pipeline import run_simka
 
     run_simka(config, device=args.device)

@@ -1,10 +1,17 @@
-"""End-to-end exact-mode pipeline (the `simka` tool), in memory, on one
-device.
+"""End-to-end exact-mode pipeline (the `simka` tool) on one device.
 
-host parse + 2-bit pack -> H2D -> per batch: unpack, canonical k-mers,
-repartition histogram, compaction of the valid windows -> one join
-over the concatenated instance stream -> host statistics, distances
-and csv.gz.
+In memory (the default): host parse + 2-bit pack -> H2D -> per batch:
+unpack, canonical k-mers, compaction of the valid windows, repartition
+histogram -> one join over the concatenated instance stream -> host
+statistics, distances and csv.gz.
+
+With -out-tmp (the checkpoint path): per sample, its spectrum from a
+checkpoint whose key matches, or counted (the same per-batch
+extraction, then ``ops.spectrum``) and checkpointed under
+<tmp>/count/ -> the repartition histogram of its distinct solid
+k-mers; then the spectra concatenated -> one join from spectra ->
+statistics, distances, csv.gz; <tmp>/count/ is removed unless
+-keep-tmp.
 
 Lengths are exact throughout: each batch keeps exactly its valid
 windows, so the stream that reaches the join holds only real
@@ -12,16 +19,17 @@ instances (no padding classes, no invalid-window sentinel rows).
 
 Every distance (default, -simple-dist, -complex-dist), k from 1 to
 127 and the -kmer-shannon-index filter run. Outside this slice, and
-raising NotImplementedError (see ROADMAP.md, queue 1): the -out-tmp
-checkpoint path (item 9), the out-of-core sweep for runs beyond the
-device plan (item 10), and more than one device (item 12).
+raising NotImplementedError (see ROADMAP.md, queue 1): the out-of-core
+sweep, for runs beyond the device plan or the -max-memory budget and
+for -sweep-ranges (item 10), and more than one device (item 12).
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +47,6 @@ N_HIST_BUCKETS = 16
 def check_slice(config: SimkaConfig) -> None:
     """Raise NotImplementedError for options the port does not run."""
     todo = []
-    if config.output_tmp_dir:
-        todo.append("-out-tmp checkpoints (ROADMAP queue 1, item 9)")
     if config.sweep_ranges > 0:
         todo.append("-sweep-ranges out-of-core (ROADMAP queue 1, item 10)")
     if config.n_shards > 1:
@@ -133,26 +139,22 @@ def _pipelined_ingest(stream, ship, consume):
             consume(*shipped.popleft().result())
 
 
-def extract_windows(
-    packed, validbits, sample: int, k: int, n_valid=None,
-    min_shannon: float = 0.0,
+def kept_windows(
+    packed, validbits, k: int, n_valid=None, min_shannon: float = 0.0,
 ):
     """One ingest batch on the device: unpack, canonical k-mers, the
-    optional k-mer Shannon filter, the repartition histogram and the
-    compaction of the kept windows.
+    optional k-mer Shannon filter and the compaction of the kept
+    windows.
 
-    Returns (words, sid [n] int32, hist [16] int64): ``words`` the
-    ``n_words(k)`` [n] int64 k-mer words (ops/kmers.py), n the batch's
-    exact kept-window count. ``n_valid``, the native parser's count of
-    valid windows, spares a device sync when no Shannon filter drops
-    windows the parser counted.
+    Returns the ``n_words(k)`` [n] int64 k-mer words (ops/kmers.py), n
+    the batch's exact kept-window count. ``n_valid``, the native
+    parser's count of valid windows, spares a device sync when no
+    Shannon filter drops windows the parser counted.
     """
     from simka_tpu_torch.ops.compact import compact_rows
     from simka_tpu_torch.ops.kmers import (
         canonical_kmers,
         kmer_shannon_index_words,
-        mix_hash_words,
-        uint32_words,
         unpack_codes,
     )
 
@@ -165,16 +167,41 @@ def extract_windows(
         thr = torch.tensor(min_shannon, dtype=torch.float32)
         valid &= kmer_shannon_index_words(words, k) >= thr.to(valid.device)
         n_valid = None
-    # instances per mix_hash bucket over the reference's uint32 words:
-    # its repartition diagnostic, with dropped windows in an extra
-    # bucket
-    h = mix_hash_words(uint32_words(words, k))
-    bucket = torch.where(valid, h & (N_HIST_BUCKETS - 1), N_HIST_BUCKETS)
-    hist = torch.bincount(bucket, minlength=N_HIST_BUCKETS + 1)
     n = int(valid.sum()) if n_valid is None else int(n_valid)
-    words = compact_rows(words, valid, fills=(-1,) * len(words), n=n)
-    sid = torch.full((n,), sample, dtype=torch.int32, device=valid.device)
-    return words, sid, hist[:N_HIST_BUCKETS]
+    return compact_rows(words, valid, fills=(-1,) * len(words), n=n)
+
+
+def extract_windows(
+    packed, validbits, sample: int, k: int, n_valid=None,
+    min_shannon: float = 0.0,
+):
+    """``kept_windows`` with the batch's sample ids and its repartition
+    histogram: instances per ``mix_hash`` bucket over the reference's
+    uint32 words (its repartition diagnostic).
+
+    Returns (words, sid [n] int32, hist [16] int64).
+    """
+    from simka_tpu_torch.ops.kmers import mix_hash_words, uint32_words
+
+    words = kept_windows(packed, validbits, k, n_valid, min_shannon)
+    h = mix_hash_words(uint32_words(words, k))
+    hist = torch.bincount(h & (N_HIST_BUCKETS - 1), minlength=N_HIST_BUCKETS)
+    sid = torch.full(h.shape, sample, dtype=torch.int32, device=h.device)
+    return words, sid, hist
+
+
+def _concat_columns(batches: List[list], nw: int, device) -> tuple:
+    """The ``nw`` word columns of per-batch lists of columns, each
+    concatenated; a batch's copy goes as soon as its column exists, and
+    ``batches`` is left empty."""
+    words = []
+    for i in range(nw):
+        words.append(torch.cat([b[i] for b in batches]) if batches
+                     else torch.empty(0, dtype=torch.int64, device=device))
+        for b in batches:
+            b[i] = None
+    batches.clear()
+    return tuple(words)
 
 
 def compute_statistics(
@@ -253,19 +280,13 @@ def compute_statistics(
     _pipelined_ingest(stream, ship, consume)
 
     t_join = time.perf_counter()
-    words = []
-    for i in range(nw):
-        words.append(torch.cat([b[i] for b in batches]) if batches
-                     else torch.empty(0, dtype=torch.int64, device=device))
-        for b in batches:  # the batch copies go as their column exists
-            b[i] = None
+    words = _concat_columns(batches, nw, device)
     sid = torch.cat(sids) if sids else torch.empty(
         0, dtype=torch.int32, device=device
     )
-    batches.clear()
     sids.clear()
     js = count_join_stats(
-        tuple(words),
+        words,
         sid,
         config.abundance_min,
         config.abundance_max,
@@ -292,14 +313,323 @@ def compute_statistics(
     return stats
 
 
+HostSpectrum = Tuple[Tuple[np.ndarray, ...], np.ndarray]
+
+
+def compute_statistics_from_spectra(
+    spectra: Sequence[HostSpectrum],
+    dataset_ids: List[str],
+    nb_reads: List[int],
+    config: SimkaConfig,
+    device: torch.device,
+) -> SimkaStatistics:
+    """Statistics from per-sample spectra on one device (the checkpoint
+    path's merge; ``simka_tpu``'s ``compute_statistics_from_spectra``).
+
+    ``spectra[s]`` = (words, counts) of sample s on the host, as
+    ``count_one_dataset`` returns them: ``simka_tpu``'s uint32 words
+    and the counts. They are concatenated on the host, shipped once,
+    and joined (``ops.countjoin.join_stats_from_spectra``).
+    """
+    from simka_tpu_torch.ops.countjoin import join_stats_from_spectra
+    from simka_tpu_torch.ops.kmers import n_uint32_words
+    from simka_tpu_torch.ops.spectrum import words_from_host
+
+    k = config.kmer_size
+    nw32 = n_uint32_words(k)
+    live = [(s, w, c) for s, (w, c) in enumerate(spectra) if len(c)]
+    for s, w, _ in live:
+        if len(w) != nw32:
+            raise ValueError(
+                f"{dataset_ids[s]}: a spectrum of {len(w)} uint32 words "
+                f"where k={k} has {nw32}"
+            )
+
+    def column(parts, dtype):
+        return np.concatenate(parts) if parts else np.empty(0, dtype)
+
+    words = words_from_host(
+        [column([w[i] for _, w, _ in live], np.uint32) for i in range(nw32)],
+        k, device,
+    )
+    sid = column([np.full(len(c), s, np.int32) for s, _, c in live], np.int32)
+    counts = column([c.astype(np.int32) for _, _, c in live], np.int32)
+    js = join_stats_from_spectra(
+        words,
+        torch.from_numpy(sid).to(device),
+        torch.from_numpy(counts).to(device),
+        config.abundance_min,
+        config.abundance_max,
+        n_banks=len(dataset_ids),
+        kmer_bits=2 * k,
+        simple=config.simple_dist,
+        complex_=config.complex_dist,
+    )
+    return SimkaStatistics.from_join_stats(
+        js.to_numpy(),
+        dataset_ids,
+        k,
+        np.asarray(nb_reads, np.int64),
+        config.simple_dist,
+        config.complex_dist,
+    )
+
+
+def count_dataset_spectrum(
+    seqs,
+    k: int,
+    device: torch.device,
+    stream_batch_reads: int = 1 << 20,
+    min_kmer_shannon_index: float = 0.0,
+):
+    """Count phase for one sample on ``device`` (``simka_tpu``'s
+    ``count_dataset_spectrum``).
+
+    ``seqs``: a PackedReadSource, a list of read byte strings, or a
+    zero-arg provider callable. Batches of at most 2^17 reads are
+    extracted as in the in-memory path (``kept_windows``, pipelined as
+    there); each time the kept windows gathered reach
+    ``stream_batch_reads * 32`` rows they are counted into a partial
+    spectrum, and the partials are merged at the end, bounding the
+    device memory by the gather instead of the sample.
+
+    Returns (words, counts, n_reads): the sample's spectrum on
+    ``device`` (``ops.spectrum``) and its read count.
+    """
+    from simka_tpu_torch.ops.kmers import n_words
+    from simka_tpu_torch.ops.spectrum import count_spectrum, merge_spectra
+
+    nw = n_words(k)
+    nb_reads = [0]
+    parts: List[list] = []  # per batch: its k-mer word columns
+    partials = []
+    rows = [0]
+
+    def flush():
+        partials.append(count_spectrum(_concat_columns(parts, nw, device), k))
+        rows[0] = 0
+
+    def ship(item):
+        _, packed, vb, n_valid = item
+        return (torch.from_numpy(packed).to(device),
+                torch.from_numpy(vb).to(device), n_valid)
+
+    def consume(packed, vb, n_valid):
+        words = kept_windows(packed, vb, k, n_valid, min_kmer_shannon_index)
+        parts.append(list(words))
+        rows[0] += words[0].shape[0]
+        if rows[0] >= stream_batch_reads * 32:
+            flush()
+
+    stream = _packed_batch_stream(
+        [seqs], [""], k, nb_reads, None, min(stream_batch_reads, 1 << 17),
+        {"parse_pack_s": 0.0},
+    )
+    _pipelined_ingest(stream, ship, consume)
+    if parts or not partials:
+        flush()
+    words, counts = merge_spectra(partials)
+    return words, counts, nb_reads[0]
+
+
+def _mix_hash_np(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """Host copy of ops.kmers.mix_hash (numpy, uint32 wraparound)."""
+    with np.errstate(over="ignore"):
+        h = (hi ^ np.uint32(0x9E3779B9)) * np.uint32(0x85EBCA6B)
+        h = h ^ (h >> np.uint32(13))
+        h = (h ^ lo) * np.uint32(0xC2B2AE35)
+        h = h ^ (h >> np.uint32(16))
+    return h
+
+
+def repartition_histogram(
+    spectra_iter,
+    abundance_min: int,
+    abundance_max: int,
+    n_buckets: int = N_HIST_BUCKETS,
+) -> np.ndarray:
+    """Distinct solid k-mers per hash bucket, summed over samples
+    (``simka_tpu``'s ``repartition_histogram``, the reference's
+    printCountInfo, src/SimkaPotara.hpp:785-811), over host spectra of
+    uint32 words. The in-memory path's histogram counts instances."""
+    hist = np.zeros(n_buckets, np.int64)
+    for words, counts in spectra_iter:
+        h = words[0]
+        for w in words[1:]:
+            h = _mix_hash_np(h, w)
+        keep = (counts >= abundance_min) & (counts <= abundance_max)
+        hist += np.bincount(
+            (h[keep] % np.uint32(n_buckets)).astype(np.int64),
+            minlength=n_buckets,
+        )
+    return hist
+
+
+def count_one_dataset(
+    d, config: SimkaConfig, cap: int, device: torch.device, ckpt=None,
+    log=lambda m: None, timers: Optional[dict] = None,
+):
+    """Count phase for one dataset (``simka_tpu``'s
+    ``count_one_dataset``): checkpoint reuse, the count, the checkpoint
+    save, and the reference's retry-x4 (simkaCountProcess,
+    src/minikc/SimkaCountProcess.cpp:21-28) for read failures
+    (OSError) only: an error of the device or of a kernel wrapper
+    propagates at once, since a sticky CUDA error would only repeat and
+    hide the first message.
+
+    Returns (words, counts, n_reads, resumed): the spectrum on the host
+    in the checkpoint's layout, ``simka_tpu``'s uint32 words and int64
+    counts. ``timers``, when given, receives ``load_s``, ``count_s``
+    and ``save_s`` for the steps taken.
+    """
+    from simka_tpu_torch.io.packed import PackedReadSource
+    from simka_tpu_torch.ops.spectrum import to_host
+
+    timers = {} if timers is None else timers
+    k = config.kmer_size
+    key = None
+    if ckpt is not None:
+        from simka_tpu_torch.core.checkpoint import count_key
+
+        key = count_key(
+            d.files,
+            k,
+            config.min_read_size,
+            config.min_read_shannon_index,
+            cap,
+            config.min_kmer_shannon_index,
+        )
+        t0 = time.perf_counter()
+        cached = ckpt.load(d.id, key)
+        timers["load_s"] = time.perf_counter() - t0
+        if cached is not None:
+            words, counts, n = cached
+            log(f"count {d.id}: resumed from checkpoint "
+                f"({len(counts)} distinct k-mers)")
+            return words, counts, n, True
+    source = PackedReadSource(
+        d.banks,
+        config.min_read_size,
+        config.min_read_shannon_index,
+        max_reads=cap,
+    )
+    t0 = time.perf_counter()
+    for attempt in range(4):
+        try:
+            *spectrum, n = count_dataset_spectrum(
+                source, k, device,
+                min_kmer_shannon_index=config.min_kmer_shannon_index,
+            )
+            break
+        except OSError as e:
+            if attempt == 3:
+                raise
+            log(f"count {d.id}: attempt {attempt + 1} failed ({e}); "
+                "retrying")
+    words, counts = to_host(spectrum, k)
+    timers["count_s"] = time.perf_counter() - t0
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        ckpt.save(d.id, key, words, counts, n)
+        timers["save_s"] = time.perf_counter() - t0
+    log(f"count {d.id}: {n} reads -> {len(counts)} distinct k-mers")
+    return words, counts, n, False
+
+
+def compute_statistics_checkpointed(
+    datasets, config: SimkaConfig, cap: int, device: torch.device,
+    metrics, log,
+) -> SimkaStatistics:
+    """The -out-tmp path (``simka_tpu``'s ``run_simka`` with
+    ``output_tmp_dir``, without its out-of-core sweep): per sample its
+    checkpointed or counted spectrum, the repartition histogram of its
+    distinct solid k-mers and the reference's spill decision; then the
+    join from the spectra. Fills ``metrics``' count and merge stages
+    and counters (the reference's keys, plus ``spectrum_rows``,
+    ``memory_budget_bytes`` and ``per_sample`` step times)."""
+    from simka_tpu_torch.core.budget import (
+        JOIN_WORKING_SET_FACTOR,
+        device_budget_bytes,
+    )
+    from simka_tpu_torch.core.checkpoint import CountCheckpoint
+    from simka_tpu_torch.ops.kmers import n_uint32_words
+
+    ids = [d.id for d in datasets]
+    ckpt = CountCheckpoint(config.output_tmp_dir)
+    # the reference's rule, over the row bytes of its uint32 layout, so
+    # both packages route an input alike: the join must fit both the
+    # -max-memory declaration and the device plan
+    row_bytes = 4 * (n_uint32_words(config.kmer_size) + 2)
+    budget = min(max(config.max_memory_mb, 1) * 1_000_000,
+                 device_budget_bytes(device))
+    spectra, nb_reads, per_sample = [], [], []
+    rows_so_far = 0
+    hist = np.zeros(N_HIST_BUCKETS, np.int64)
+    with metrics.stage("count"):
+        for i, d in enumerate(datasets):
+            log(f"count [{i + 1}/{len(datasets)}] {d.id}")
+            timers: dict = {}
+            words, counts, n, resumed = count_one_dataset(
+                d, config, cap, device, ckpt=ckpt, log=log, timers=timers
+            )
+            hist += repartition_histogram(
+                [(words, counts)], config.abundance_min, config.abundance_max
+            )
+            if resumed:
+                metrics.count("datasets_resumed", 1)
+            rows_so_far += len(counts)
+            need = rows_so_far * row_bytes * JOIN_WORKING_SET_FACTOR
+            log(f"{rows_so_far} spectrum rows so far: {need} B of a "
+                f"{budget} B budget")
+            if need > budget:
+                raise NotImplementedError(
+                    f"{rows_so_far} spectrum rows x {row_bytes} B x "
+                    f"{JOIN_WORKING_SET_FACTOR} exceed the budget of "
+                    f"{budget} B (-max-memory and the device plan): the "
+                    "reference would take the out-of-core sweep, which is "
+                    "not ported yet (ROADMAP queue 1, item 10)"
+                )
+            spectra.append((words, counts))
+            nb_reads.append(n)
+            metrics.count("kmer_instances", int(counts.sum()))
+            per_sample.append({
+                "id": d.id, "resumed": resumed, "rows": len(counts),
+                **{name: round(v, 4) for name, v in timers.items()},
+            })
+        metrics.count("reads", int(sum(nb_reads)))
+        metrics.set("repartition_histogram", hist.tolist())
+    metrics.set("spectrum_rows", rows_so_far)
+    metrics.set("memory_budget_bytes", budget)
+    metrics.set("per_sample", per_sample)
+    if hist.sum():
+        log(f"kmer repartition over {N_HIST_BUCKETS} hash buckets: min "
+            f"{int(hist.min())} mean {int(hist.mean())} max "
+            f"{int(hist.max())}")
+    log(f"count phase: {int(sum(nb_reads))} reads in "
+        f"{metrics.timings['count']:.2f}s")
+    with metrics.stage("merge"):
+        stats = compute_statistics_from_spectra(
+            spectra, ids, nb_reads, config, device
+        )
+    log(f"merge: {metrics.timings['merge']:.2f}s")
+    return stats
+
+
 def run_simka(
     config: SimkaConfig, device: str = "cuda"
 ) -> Dict[str, np.ndarray]:
     """The `simka` tool: input file -> distance matrices on disk, on
-    ``device`` ("cuda" or "cpu"; "cuda" without a GPU raises)."""
+    ``device`` ("cuda" or "cpu"; "cuda" without a GPU raises).
+
+    With ``output_tmp_dir`` set, per-sample spectra are checkpointed
+    there and reused on resume (the reference's sentinel-file system,
+    SimkaPotara.hpp:838-842); ``keep_tmp`` preserves them so later runs
+    can add datasets without recounting.
+    """
     from simka_tpu_torch.io.packed import PackedReadSource
     from simka_tpu_torch.utils.metrics import Metrics
 
+    check_slice(config)
     dev = resolve_device(device)
     metrics = Metrics()
     t0 = time.time()
@@ -331,35 +661,40 @@ def run_simka(
         if config.verbose:
             print(f"[simka-tpu-torch] {msg}", flush=True)
 
-    providers = [
-        PackedReadSource(
-            d.banks,
-            config.min_read_size,
-            config.min_read_shannon_index,
-            max_reads=cap,
+    if config.output_tmp_dir:
+        stats = compute_statistics_checkpointed(
+            datasets, config, cap, dev, metrics, log
         )
-        for d in datasets
-    ]
-    observer: dict = {}
-    with metrics.stage("count"):
-        stats = compute_statistics(
-            providers, ids, config, dev,
-            log=log if config.verbose else None,
-            observer=observer,
-        )
-    for name, v in observer["stage_timers"].items():
-        metrics.set(f"stage_{name}", round(v, 4))
-    total = int(np.sum(stats.dataset_nb_reads))
-    metrics.count("reads", total)
-    hist = observer["repartition_instances"]
-    metrics.set("repartition_histogram", hist.tolist())
-    if hist.sum():
-        log(
-            f"kmer repartition over {len(hist)} hash "
-            f"buckets: min {int(hist.min())} "
-            f"mean {int(hist.mean())} max {int(hist.max())}"
-        )
-    log(f"{len(ids)} datasets, {total} reads")
+    else:
+        providers = [
+            PackedReadSource(
+                d.banks,
+                config.min_read_size,
+                config.min_read_shannon_index,
+                max_reads=cap,
+            )
+            for d in datasets
+        ]
+        observer: dict = {}
+        with metrics.stage("count"):
+            stats = compute_statistics(
+                providers, ids, config, dev,
+                log=log if config.verbose else None,
+                observer=observer,
+            )
+        for name, v in observer["stage_timers"].items():
+            metrics.set(f"stage_{name}", round(v, 4))
+        total = int(np.sum(stats.dataset_nb_reads))
+        metrics.count("reads", total)
+        hist = observer["repartition_instances"]
+        metrics.set("repartition_histogram", hist.tolist())
+        if hist.sum():
+            log(
+                f"kmer repartition over {len(hist)} hash "
+                f"buckets: min {int(hist.min())} "
+                f"mean {int(hist.mean())} max {int(hist.max())}"
+            )
+        log(f"{len(ids)} datasets, {total} reads")
 
     with metrics.stage("output"):
         matrices = compute_all_matrices(stats)
@@ -369,8 +704,34 @@ def run_simka(
     metrics.save(os.path.join(config.output_dir, "simka_metrics.json"))
     if config.verbose:
         print(stats.summary())
+    if config.output_tmp_dir and not config.keep_tmp:
+        # the reference removes its temporary files unless -keep-tmp
+        # (SimkaPotara.hpp:288-315)
+        shutil.rmtree(os.path.join(config.output_tmp_dir, "count"),
+                      ignore_errors=True)
     log(
         f"wrote {len(matrices)} matrices to {config.output_dir} "
         f"in {time.time() - t0:.2f}s"
     )
     return matrices
+
+
+def run_data_info(config: SimkaConfig) -> List[Tuple[str, int]]:
+    """The reference's -data-info mode (Simka.cpp:30): only compute and
+    display input statistics, (id, filtered reads) per dataset. Host
+    only: no device is used."""
+    from simka_tpu_torch.io.bank import count_dataset_reads
+
+    datasets = parse_input_file(config.input_filename)
+    check_input_validity(datasets)
+    out = []
+    for d in datasets:
+        n = count_dataset_reads(
+            d.banks,
+            config.min_read_size,
+            config.min_read_shannon_index,
+        )
+        out.append((d.id, n))
+        if config.verbose:
+            print(f"{d.id}: {n} reads")
+    return out

@@ -73,7 +73,12 @@ def lib():
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
+            try:
+                handle = ctypes.CDLL(build())
+            except OSError as e:  # not a read failure: callers retry those
+                raise RuntimeError(
+                    f"the CUDA kernel library did not build or load: {e}"
+                ) from e
             vp = ctypes.c_void_p
             handle.simka_compact_tile_rows.restype = ctypes.c_int64
             handle.simka_compact_tile_rows.argtypes = []

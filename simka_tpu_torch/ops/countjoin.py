@@ -32,6 +32,10 @@ word for k <= 31). Two sort paths, chosen as in the reference:
     sorts chain from the least significant key (the sample id) up to
     the first word, which gives the lexicographic (k-mer, sample)
     order.
+
+``join_stats_from_spectra`` starts from counted rows instead (the
+-out-tmp path's per-sample spectra): the abundance filter compacts
+them first, then the same sort and pair sums follow.
 """
 
 from __future__ import annotations
@@ -155,8 +159,8 @@ def solid_rows(
         key_c, cnt_c = compact_rows((key, count), kept, fills=(-1, 0), n=n)
         return (key_c >> sbits,), key_c & ((1 << sbits) - 1), cnt_c
 
-    # multi-key path
-    perm = _lex_order((*words, sid))
+    # multi-key path (one bank: the sample id is no key)
+    perm = _lex_order((*words, sid) if n_banks > 1 else words)
     words = tuple(w[perm] for w in words)
     sid = sid[perm]
     del perm
@@ -365,6 +369,19 @@ def count_join_stats(
     sentinel in int64, so a word outside its range -- or a sample id
     outside [0, n_banks) -- raises ValueError.
     """
+    words = _checked_rows(words, sid, n_banks, kmer_bits)
+    rows = solid_rows(
+        words, sid, abundance_min, abundance_max,
+        n_banks=n_banks, kmer_bits=kmer_bits,
+    )
+    return stats_from_rows(
+        *rows, n_banks=n_banks, simple=simple, complex_=complex_
+    )
+
+
+def _checked_rows(words, sid, n_banks: int, kmer_bits: int):
+    """``words`` as a tuple, once every word is in its range and every
+    sample id in [0, n_banks); ValueError otherwise."""
     words = (words,) if isinstance(words, torch.Tensor) else tuple(words)
     nw = len(words)
     word_bits = 2 * WORD_BASES
@@ -390,10 +407,51 @@ def count_join_stats(
                 )
         if bounds[0] < 0 or bounds[1] >= n_banks:
             raise ValueError(f"sample ids outside [0, {n_banks})")
-    rows = solid_rows(
-        words, sid, abundance_min, abundance_max,
-        n_banks=n_banks, kmer_bits=kmer_bits,
+    return words
+
+
+def join_stats_from_spectra(
+    words: Union[torch.Tensor, Sequence[torch.Tensor]],
+    sid: torch.Tensor,
+    counts: torch.Tensor,
+    abundance_min: int,
+    abundance_max: int,
+    *,
+    n_banks: int,
+    kmer_bits: int,
+    simple: bool = False,
+    complex_: bool = False,
+) -> JoinStats:
+    """All sufficient statistics of pre-counted per-sample spectra
+    (``simka_tpu``'s ``join_stats_from_spectra``, and its split form,
+    which the reference takes from N >= 33: the direct pair sums take
+    any N).
+
+    ``words``/``sid``/``counts`` hold one row per (distinct k-mer,
+    sample), in any order: the concatenated spectra of the count
+    phase (``ops.spectrum``). Words and sample ids as in
+    ``count_join_stats``; ``counts`` int32. Rows with a count outside
+    [abundance_min, abundance_max] are dropped by the stable
+    compaction, the rest sorted by (k-mer, sample).
+    """
+    from simka_tpu_torch.ops.compact import compact_rows
+
+    words = _checked_rows(words, sid, n_banks, kmer_bits)
+    nw = len(words)
+    kept = (counts >= abundance_min) & (counts <= abundance_max)
+    cols = compact_rows(
+        (*words, sid, counts), kept, fills=(-1,) * nw + (0, 0),
+        n=int(kept.sum()),
     )
+    words, sid, counts = cols[:nw], cols[nw], cols[nw + 1]
+    sbits = _sbits(n_banks)
+    if nw == 1 and kmer_bits + sbits <= 63:
+        key, order = torch.sort((words[0] << sbits) | sid.to(torch.int64))
+        words, sid = (key >> sbits,), key & ((1 << sbits) - 1)
+    else:
+        order = _lex_order((*words, sid))
+        words, sid = tuple(w[order] for w in words), sid[order]
     return stats_from_rows(
-        *rows, n_banks=n_banks, simple=simple, complex_=complex_
+        words, sid, counts[order], n_banks=n_banks, simple=simple,
+        complex_=complex_,
     )

@@ -14,7 +14,10 @@ layout appears only where the reference's own values are needed: the
 public functions ``extract_packed``, ``extract_canonical_kmers``,
 ``extract_canonical_kmers_multi`` and ``mix_hash`` (which the
 repartition histogram runs over those words), as int64 tensors holding
-uint32 values, so tests compare like with like (``uint32_words``).
+uint32 values, so tests compare like with like (``uint32_words``), and
+the count checkpoints, whose files hold that layout so either package
+loads the other's (``uint32_words`` on save, ``from_uint32_words`` on
+load).
 
 Base codes: A=0, C=1, G=2, T=3, invalid = 255; complement is
 ``code ^ 3``. The canonical k-mer is min(forward, reverse complement);
@@ -151,6 +154,28 @@ def uint32_words(words: Words, k: int, valid=None) -> Words:
                 nxt = words[nw - 2 - j] & ((1 << (32 - avail)) - 1)
                 v = v | (nxt << avail)
         out.append(v if valid is None else torch.where(valid, v, SENTINEL))
+    return tuple(reversed(out))
+
+
+def from_uint32_words(words32: Words, k: int) -> Words:
+    """``uint32_words`` undone: ``simka_tpu``'s big-endian uint32 words
+    of real k-mers (int64 tensors of uint32 values, any count of them
+    that holds the 2k bits) as the port's ``n_words(k)`` int64 words."""
+    low = tuple(reversed(words32))  # uint32 words from the bottom
+    out = []
+    for j in range(n_words(k)):  # port word from the bottom
+        s = 2 * WORD_BASES * j
+        width = min(2 * WORD_BASES, 2 * k - s)
+        v = torch.zeros_like(low[0])
+        for i, w in enumerate(low):
+            b = 32 * i
+            if b + 32 <= s or b >= s + width:
+                continue
+            if b < s:
+                v = v | (w >> (s - b))
+            else:
+                v = v | ((w & ((1 << min(32, s + width - b)) - 1)) << (b - s))
+        out.append(v & ((1 << width) - 1))
     return tuple(reversed(out))
 
 

@@ -1,8 +1,9 @@
 """The port's jax-free copies of the host modules agree with their
 originals in simka_tpu, so the two cannot drift: the input DSL, the
 native parser's C++ source, the packed read source (native and
-pure-Python), the CSV format, and the statistics + distance formulas
-on one JoinStats."""
+pure-Python), the CSV format, the statistics + distance formulas on one
+JoinStats, the count checkpoints (key and file format) and the
+repartition histogram of the checkpoint path with its host hash."""
 
 import os
 
@@ -156,3 +157,61 @@ def test_stats_and_distances_match(simple, complex_):
         assert port_out.format_matrix_csv(m_got[name], ids) == (
             ref_out.format_matrix_csv(m_want[name], ids)
         ), name
+
+
+@pytest.mark.parametrize("k", [21, 31, 32, 63, 64])
+def test_checkpoint_copy_matches(tmp_path, banks, k):
+    """core/checkpoint.py: the same key for the same count, and a file
+    written by either package loads in the other field for field."""
+    import simka_tpu.core.checkpoint as ref_ckpt
+    import simka_tpu_torch.core.checkpoint as port_ckpt
+    from simka_tpu_torch.ops.kmers import n_uint32_words
+
+    files = banks[0] + banks[1]
+    args = (files, k, 20, 0.5, 7, 1.25)
+    key = port_ckpt.count_key(*args)
+    assert key == ref_ckpt.count_key(*args)
+    assert key != port_ckpt.count_key(files[:-1], *args[1:])
+    rng = np.random.default_rng(k)
+    n = 300
+    words = tuple(rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+                  .astype(np.uint32) for _ in range(n_uint32_words(k)))
+    counts = rng.integers(1, 1 << 20, size=n).astype(np.int64)
+    for writer, reader in ((port_ckpt, ref_ckpt), (ref_ckpt, port_ckpt)):
+        d = tmp_path / writer.__name__
+        writer.CountCheckpoint(str(d)).save("S0", key, words, counts, 41)
+        got = reader.CountCheckpoint(str(d)).load("S0", key)
+        assert got is not None
+        for g, w in zip(got[0], words):
+            assert g.dtype == np.uint32
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(got[1], counts)
+        assert got[2] == 41 and len(got[0]) == len(words)
+        assert reader.CountCheckpoint(str(d)).load("S0", "other") is None
+        z = np.load(reader.CountCheckpoint(str(d)).path("S0"))
+        assert int(z["nb_kmers"]) == int(counts.sum())
+        assert int(z["chord_n2"]) == int((counts ** 2).sum())
+
+
+def test_mix_hash_np_and_repartition_histogram_match():
+    import simka_tpu.core.pipeline as ref_pipeline
+    from simka_tpu.parallel.sharded import _mix_hash_np as ref_mix
+
+    import simka_tpu_torch.core.pipeline as port_pipeline
+
+    rng = np.random.default_rng(3)
+
+    def u32(n):
+        return rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(
+            np.uint32)
+
+    a, b = u32(5000), u32(5000)
+    np.testing.assert_array_equal(port_pipeline._mix_hash_np(a, b),
+                                  ref_mix(a, b))
+    spectra = [((u32(n), u32(n), u32(n)),
+                rng.integers(1, 9, size=n).astype(np.int64))
+               for n in (0, 700, 1300)]
+    np.testing.assert_array_equal(
+        port_pipeline.repartition_histogram(spectra, 2, 6),
+        ref_pipeline.repartition_histogram(spectra, 2, 6),
+    )

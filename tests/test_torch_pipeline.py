@@ -2,7 +2,8 @@
 simka_tpu.core.pipeline.run_simka (single-device path, n_shards=1) on
 the same simulated community files. The decompressed CSV text must be
 byte-equal and so must the repartition histogram; options outside the
-port's slice must raise NotImplementedError. The optional distances and
+port's slice must raise NotImplementedError; -data-info gives the same
+read counts. The optional distances and
 the k-mer Shannon filter are in test_torch_cli_channels.py."""
 
 import glob
@@ -75,13 +76,39 @@ def test_cli_matches_reference(community, tmp_path, n, k, amin):
 
 @pytest.mark.parametrize(
     "flags",
-    [["-out-tmp", "tmp"], ["-coordinator", "localhost:1234"],
-     ["-sweep-ranges", "2"], ["-n-shards", "2"], ["-data-info"]],
+    [["-out-tmp", "tmp", "-sweep-ranges", "2"],
+     ["-coordinator", "localhost:1234"], ["-sweep-ranges", "2"],
+     ["-n-shards", "2"], ["-out-tmp", "tmp", "-max-memory", "1"]],
 )
 def test_options_outside_the_slice_raise(community, tmp_path, flags):
+    """The out-of-core sweep (forced, or where the reference's spill rule
+    takes it), several devices and several hosts."""
+    flags = [str(tmp_path / f) if f == "tmp" else f for f in flags]
+    out = str(tmp_path / "out")
     with pytest.raises(NotImplementedError):
-        port_main(["-in", community[3], "-out", str(tmp_path), "-device",
-                   "cpu", "-verbose", "0", *flags])
+        port_main(["-in", community[3], "-out", out, "-device", "cpu",
+                   "-verbose", "0", *flags])
+    assert not glob.glob(os.path.join(out, "*.csv.gz"))
+
+
+def test_data_info_matches_reference(community, capsys):
+    from simka_tpu.core.pipeline import run_data_info as ref_data_info
+    from simka_tpu_torch.config import SimkaConfig
+    from simka_tpu_torch.core.pipeline import run_data_info
+
+    for shannon in (0.0, 1.95):
+        kw = dict(input_filename=community[16], min_read_size=100,
+                  min_read_shannon_index=shannon, verbose=True)
+        got = run_data_info(SimkaConfig(**kw))
+        printed = capsys.readouterr().out
+        assert got == ref_data_info(RefConfig(**kw))
+        capsys.readouterr()
+        assert len(got) == 16 and all(n > 0 for _, n in got)
+        assert printed.splitlines() == [f"{i}: {n} reads" for i, n in got]
+        if shannon:  # the filter drops reads
+            assert sum(n for _, n in got) < 16 * 250
+    assert port_main(["-in", community[3], "-data-info", "-device", "cpu",
+                      "-verbose", "0"]) == 0
 
 
 def test_min_subcommand_raises():
