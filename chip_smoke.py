@@ -26,45 +26,76 @@ Phases (each raises on failure; nothing is caught):
      -simple-dist -complex-dist at k in {21, 33, 63, 127} (150 bp
      reads); -kmer-shannon-index 1.5 at k=63 on a community with
      low-complexity genomes; the -out-tmp checkpoint path at k=21
-     (default distances) and at k=63 (all distances), its CSVs also
-     equal to the in-memory run's;
+     (default distances) and at k=63 (all distances), each also with
+     -sweep-ranges 3 (the out-of-core sweep from <tmp>/sweep/); the
+     in-memory command forced out-of-core on the device and the
+     host-memory spill tiers (k=21, -max-memory 20: tens of hash
+     ranges); the CSVs of every -out-tmp and out-of-core run equal to
+     the in-memory run's;
   6. determinism: count_join_stats with every channel twice on the card
      over one 3-word (k=63) instance stream, bit-identical JoinStats,
      and against the CPU (integers equal, floats to 1e-12);
   7. the main paths at full size through the CLI entry point: 8 samples
      x 500,000 reads x 100 bp of a 20-genome community (the first 8 of
      9 written); the default command (k=21, default distances), then
-     -simple-dist -complex-dist at k=21 and at k=63; each run twice
-     with identical CSVs, each run's compaction launch count > 0, and
-     the kernel's own kept total equal to the caller's n on every call
-     of the run (held on the card and compared after the run: no sync
-     on the path);
+     -simple-dist -complex-dist at k=21 and at k=63 (the join of three
+     int64 words); each run in memory (its route checked), twice with
+     identical CSVs, each run's compaction launch count > 0, and the
+     kernel's own kept total equal to the caller's n on every call of
+     the run (held on the card and compared after the run: no sync on
+     the path);
   8. the -out-tmp checkpoint path at full size through the CLI (k=21,
-     default distances, -max-memory 50000): run 1 counts the 8 samples
-     into checkpoints, its CSVs byte-equal to phase 7's default run
-     (run 0); run 2 resumes all 8 (files untouched, same CSVs); run 3
-     adds the ninth sample and counts only it; run 4, without
-     -keep-tmp, resumes all 9 and removes <tmp>/count/. Per run: the
-     count, merge and output stages, per-sample checkpoint load, count
-     and save times, compaction launches (kept total == n on each),
-     peak device memory, spectrum rows and the memory budget. Then
+     default distances, -max-memory 50000 unless said): run 1 counts the
+     8 samples into checkpoints, its CSVs byte-equal to phase 7's
+     default run (run 0); run 2 resumes all 8 (files untouched, same
+     CSVs); run 3 adds the ninth sample and counts only it; run 3s
+     resumes the 9 at the default -max-memory, where the reference's
+     spill rule takes the sweep (the disk tier, -keep-tmp), its CSVs
+     equal to run 3's; run 3f resumes the 8 with -simple-dist
+     -complex-dist -sweep-ranges 7, its CSVs byte-equal to phase 7's
+     all-distances k=21 run; run 4, without -keep-tmp, resumes all 9
+     and removes <tmp>/count/. Per run: the count, merge and output
+     stages, per-sample checkpoint load, count, save and spill times,
+     the sweep's ranges, partition (each checkpoint shipped and cut on
+     the card), npz write, range load and join times, compaction
+     launches (kept total == n on each), peak device
+     memory, spectrum rows and the memory budget. Then
      count_dataset_spectrum on one full-size sample with
      stream_batch_reads 2^18 (four partial spectra and their merge)
      equals the default call (one spectrum) word for word;
   9. the compaction kernel against its plain version in both forms at
-     the column layouts phases 5-8 gave it, each at the largest E it
-     saw (at least 2^24 rows for 5 to 7 columns; 6 columns, k in
+     the column layouts phases 5-8 and 10 gave it, each at the largest
+     E it saw (at least 2^24 rows for 5 to 7 columns; 6 columns, k in
      94..124, added); then timed, both forms beside the least time the
      card could take (bytes over 3.35 TB/s) and, for one column,
      torch.masked_select: at the join shape of the k=21 run, at an
-     extraction batch (2^17 reads x 80 windows, kept 0.979) and at the
-     -out-tmp spectra join (word, sample id, count).
+     extraction batch (2^17 reads x 80 windows, kept 0.979), at the
+     -out-tmp spectra join (word, sample id, count) and at the sweep's
+     range extraction (the same columns over every resident spectrum
+     row, kept about 1/R: phase 10's largest);
+ 10. the in-memory command out-of-core at full size through the CLI
+     (k=21, default distances): (a) the 8 samples with a 30 GB device
+     plan (SIMKA_TPU_HBM_MB=30000, for that run only), which the
+     estimate (320 M windows) routes out-of-core up front on the device
+     tier, its CSVs byte-equal to phase 7's default run; (r) the
+     mid-ingest restart: compute_statistics on the 8 samples under a 20
+     GB plan, the in-memory batches dropped (the device memory still
+     allocated at the restart checked) and the run redone out-of-core,
+     its CSVs byte-equal to phase 7's default run; (b) 16 samples of
+     the same community (samples 9-15 written now), past the card's own
+     plan with no override: the up-front route on the device tier, then
+     run_simka on the host-memory tier, the two runs' CSVs byte-equal.
+     Per run: route, spill tier, hash ranges, the count stage (parse,
+     H2D, extraction, per-sample spectra, spill), the sweep (range
+     extraction or load, joins), output, compaction launches (kept
+     total == n on each), peak device memory and spectrum rows.
 
 Prints, before the last line, the kernels' JSON record (per kernel:
 launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
 bound_by, library_ms -- null where no one torch call computes the same
-function -- launches_out_tmp, the compaction's launches in phase 8's
-run 1, and extra fields) and the card's nvidia-smi line; the last
+function -- launches_out_tmp and launches_sweep, the compaction's
+launches in phase 8's run 1 and in phase 10's 16-sample run, and extra
+fields) and the card's nvidia-smi line; the last
 line is the JSON result. Exits non-zero without a result when no CUDA
 device is present.
 """
@@ -76,6 +107,7 @@ import glob
 import gzip
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -84,6 +116,7 @@ import time
 import numpy as np
 import torch
 
+from simka_tpu_torch.core import sweep
 from simka_tpu_torch.ops import _kernels, compact
 from simka_tpu_torch.profiling import probes, trace
 
@@ -377,24 +410,42 @@ class ShapeRecorder:
     card runs while installed (the shapes the main paths give it), and
     each call's device-side kept total beside the caller's n, compared
     by ``check_totals`` after a run (the sync is there, not on the
-    path)."""
+    path). The sweep's range extractions are kept apart: ``range_shape``
+    holds the (dtypes, E, n) of the largest."""
 
     def __init__(self):
         self.shapes = {}
         self.totals = []
+        self.range_shape = None
+        self._in_range = False
         self._orig = compact.compact_rows
+        self._orig_range = sweep.range_extract
 
     def __enter__(self):
         def recording(arrays, kept, fills, n=None):
             out = self._orig(arrays, kept, fills, n=n)
             if kept.device.type == "cuda" and kept.shape[0] > 0:
                 key = tuple(a.dtype for a in arrays)
-                self.shapes[key] = max(self.shapes.get(key, 0), kept.shape[0])
+                if self._in_range:
+                    if (self.range_shape is None
+                            or kept.shape[0] > self.range_shape[1]):
+                        self.range_shape = (key, kept.shape[0], n)
+                else:
+                    self.shapes[key] = max(self.shapes.get(key, 0),
+                                           kept.shape[0])
                 self.totals.append((compact.last_kept_total,
                                     kept.sum() if n is None else n))
             return out
 
+        def range_recording(*args, **kw):
+            self._in_range = True
+            try:
+                return self._orig_range(*args, **kw)
+            finally:
+                self._in_range = False
+
         compact.compact_rows = recording
+        sweep.range_extract = range_recording
         return self
 
     def check_totals(self) -> int:
@@ -410,13 +461,17 @@ class ShapeRecorder:
 
     def __exit__(self, *exc):
         compact.compact_rows = self._orig
+        sweep.range_extract = self._orig_range
 
 
 def gpu_vs_cpu(tmp: str, tag: str, inp: str, n_matrices: int,
-               out_tmp: bool = False, **cfg) -> dict:
+               out_tmp: bool = False, tier=None, sweeps: bool = False,
+               **cfg) -> dict:
     """run_simka on cuda and on cpu (with ``out_tmp``, through the
-    -out-tmp checkpoint path): byte-equal CSVs and repartition
-    histograms; returns the CSV texts."""
+    -out-tmp checkpoint path; with ``tier``, out-of-core on that spill
+    tier): byte-equal CSVs and repartition histograms, the sweep's hash
+    ranges equal and present exactly when ``sweeps``; returns the CSV
+    texts."""
     from simka_tpu_torch.config import SimkaConfig
     from simka_tpu_torch.core.pipeline import run_simka
 
@@ -428,7 +483,7 @@ def gpu_vs_cpu(tmp: str, tag: str, inp: str, n_matrices: int,
         run_simka(
             SimkaConfig(input_filename=inp, output_dir=out, verbose=False,
                         **cfg),
-            device=dev,
+            device=dev, tier=tier,
         )
         outs[dev] = (csv_texts(out), metrics_of(out)["counters"])
     (g_csv, g_m), (c_csv, c_m) = outs["cuda"], outs["cpu"]
@@ -438,18 +493,23 @@ def gpu_vs_cpu(tmp: str, tag: str, inp: str, n_matrices: int,
         raise AssertionError(f"{tag}: repartition histograms differ")
     if g_m["nb_distinct_kmers"] <= 0:
         raise AssertionError(f"{tag}: no solid k-mers")
+    ranges = g_m.get("sweep_ranges")
+    if ranges != c_m.get("sweep_ranges") or (ranges is not None) != sweeps:
+        raise AssertionError(f"{tag}: sweep ranges {ranges} (cuda), "
+                             f"{c_m.get('sweep_ranges')} (cpu)")
     say(f"{tag}: cuda == cpu, {len(g_csv)} matrices byte-equal, "
         f"{sum(g_m['repartition_histogram'])} "
-        f"{'distinct solid k-mers' if out_tmp else 'instances'} hashed, "
-        f"{g_m['nb_distinct_kmers']} distinct solid k-mers")
+        f"{'distinct solid k-mers' if out_tmp or tier else 'instances'} "
+        f"hashed, {g_m['nb_distinct_kmers']} distinct solid k-mers"
+        + (f", {ranges} hash ranges" if sweeps else ""))
     return g_csv
 
 
 def same_csvs(tag: str, a: dict, b: dict) -> None:
     if a != b:
-        raise AssertionError(f"{tag}: the -out-tmp CSVs differ from the "
-                             "in-memory run's")
-    say(f"{tag}: -out-tmp CSVs == in-memory CSVs")
+        raise AssertionError(f"{tag}: the CSVs differ from the in-memory "
+                             "run's")
+    say(f"{tag}: CSVs == in-memory CSVs")
 
 
 def small_gpu_vs_cpu(tmp: str, seed: int) -> None:
@@ -462,8 +522,16 @@ def small_gpu_vs_cpu(tmp: str, seed: int) -> None:
         fastq_samples=2,
     )
     mem = gpu_vs_cpu(tmp, "small default k=21", inp, 15)
-    same_csvs("small default k=21", mem,
+    same_csvs("small -out-tmp default k=21", mem,
               gpu_vs_cpu(tmp, "small -out-tmp default k=21", inp, 15, True))
+    same_csvs("small -out-tmp -sweep-ranges 3 k=21", mem, gpu_vs_cpu(
+        tmp, "small -out-tmp -sweep-ranges 3 k=21", inp, 15, True,
+        sweeps=True, sweep_ranges=3))
+    for tier in ("device", "ram"):
+        # -max-memory 20 cuts the sweep into tens of ranges
+        tag = f"small out-of-core, {tier} tier, k=21, -max-memory 20"
+        same_csvs(tag, mem, gpu_vs_cpu(tmp, tag, inp, 15, tier=tier,
+                                       sweeps=True, max_memory_mb=20))
     inp150 = write_community(
         os.path.join(tmp, "small150"), seed=seed + 1, n_samples=4,
         n_genomes=5, genome_len=20_000, reads_per_sample=3_000,
@@ -473,9 +541,13 @@ def small_gpu_vs_cpu(tmp: str, seed: int) -> None:
         mem = gpu_vs_cpu(tmp, f"small all distances k={k}", inp150, 21,
                          kmer_size=k, simple_dist=True, complex_dist=True)
         if k == 63:
-            same_csvs(f"small all distances k={k}", mem, gpu_vs_cpu(
+            same_csvs(f"small -out-tmp all distances k={k}", mem, gpu_vs_cpu(
                 tmp, f"small -out-tmp all distances k={k}", inp150, 21,
                 True, kmer_size=k, simple_dist=True, complex_dist=True))
+            tag = f"small -out-tmp -sweep-ranges 3 all distances k={k}"
+            same_csvs(tag, mem, gpu_vs_cpu(
+                tmp, tag, inp150, 21, True, sweeps=True, sweep_ranges=3,
+                kmer_size=k, simple_dist=True, complex_dist=True))
     motif = write_community(
         os.path.join(tmp, "motif"), seed=seed + 2, n_samples=4,
         n_genomes=6, genome_len=20_000, reads_per_sample=3_000,
@@ -541,17 +613,20 @@ def check_matrices(texts: dict, n: int) -> None:
             raise AssertionError(f"{name}: values out of range")
 
 
-def cli_run(tag: str, argv: list, out: str, recorder: ShapeRecorder):
-    """One CLI run on the card with the compaction's launch count and
-    peak memory reset before it; every launch's kept total checked
-    after it. Returns (record, simka_metrics.json)."""
+def cli_run(tag: str, argv: list, out: str, recorder: ShapeRecorder,
+            run=None):
+    """One CLI run on the card (or ``run()``, another entry point
+    writing to ``out`` and returning the run's metrics) with the
+    compaction's launch count and peak memory reset before it; every
+    launch's kept total checked after it. Returns (record, the metrics:
+    simka_metrics.json of a CLI run)."""
     from simka_tpu_torch.cli import main as cli_main
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     compact.launches = 0
     t1 = time.perf_counter()
-    rc = cli_main(argv)
+    rc, m = (cli_main(argv), None) if run is None else (0, run())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     if rc != 0:
@@ -568,12 +643,12 @@ def cli_run(tag: str, argv: list, out: str, recorder: ShapeRecorder):
         "wall_s": wall,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    return rec, metrics_of(out)
+    return rec, metrics_of(out) if m is None else m
 
 
 def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
     """Phase 7; returns (each path's first-run record, the inputs of the
-    first 8 and of all 9 samples, the default run's first CSVs)."""
+    first 8 and of all 9 samples, each path's first CSVs)."""
     from simka_tpu_torch.utils.community import write_community
 
     n = 8
@@ -590,7 +665,7 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
     say(f"full-size data written in {time.perf_counter() - t0:.2f} s "
         f"(9 samples x 500000 reads x 100 bp, 20 genomes x 2 Mbp; the "
         f"main paths read the first 8)")
-    paths, yardstick = {}, None
+    paths, yardsticks = {}, {}
     for tag, k, flags in (("default k=21", 21, []),
                           ("all distances k=21", 21, ALL_DISTANCES),
                           ("all distances k=63", 63, ALL_DISTANCES)):
@@ -602,9 +677,14 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
                     "cuda", *flags]
             rec, m = cli_run(tag, argv, out, recorder)
             c = m["counters"]
+            if c["route"] != "in-memory":
+                raise AssertionError(f"full {tag}: route {c['route']}, "
+                                     "expected in-memory")
+            # in memory the histogram counts every instance
             rec["instances"] = int(sum(c["repartition_histogram"]))
             say(
-                f"full {tag} run {r}: wall {rec['wall_s']:.3f} s; stages "
+                f"full {tag} run {r}: route {c['route']}; wall "
+                f"{rec['wall_s']:.3f} s; stages "
                 + ", ".join(f"{key} {c[key]}" for key in sorted(c)
                             if key.startswith("stage_"))
                 + f", count {m['stages']['count']}, output "
@@ -620,9 +700,8 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
         check_matrices(runs[0][0], n)
         say(f"full {tag}: both runs identical, {len(runs[0][0])} matrices")
         paths[tag] = runs[0][1]
-        if yardstick is None:
-            yardstick = runs[0][0]
-    return paths, inp, inp9, yardstick
+        yardsticks[tag] = runs[0][0]
+    return paths, inp, inp9, yardsticks
 
 
 def checkpoint_mtimes(tmp: str) -> dict:
@@ -630,7 +709,7 @@ def checkpoint_mtimes(tmp: str) -> dict:
             for p in sorted(glob.glob(os.path.join(tmp, "count", "*.npz")))}
 
 
-def out_tmp_full_size(tmp: str, inp8: str, inp9: str, yardstick: dict,
+def out_tmp_full_size(tmp: str, inp8: str, inp9: str, yardsticks: dict,
                       recorder: ShapeRecorder, dev) -> dict:
     """Phase 8; returns run 1's record."""
     from simka_tpu_torch.core.pipeline import count_dataset_spectrum
@@ -638,16 +717,27 @@ def out_tmp_full_size(tmp: str, inp8: str, inp9: str, yardstick: dict,
     from simka_tpu_torch.io.packed import PackedReadSource
 
     ckpt = os.path.join(tmp, "ckpt")
-    csvs = {0: yardstick}
+    sweep_dir = os.path.join(ckpt, "sweep")
+    csvs = {0: yardsticks["default k=21"],
+            "7all": yardsticks["all distances k=21"]}
     first = None
-    for r, inp, keep, resumed in ((1, inp8, True, None), (2, inp8, True, 8),
-                                  (3, inp9, True, 8), (4, inp9, False, 9)):
+    fits = ["-max-memory", "50000"]
+    # (run, input, -keep-tmp, datasets resumed, flags, CSVs equal to,
+    #  hash ranges: None (no sweep), 0 (any), or the number forced)
+    for r, inp, keep, resumed, flags, same_as, ranges in (
+            (1, inp8, True, None, fits, 0, None),
+            (2, inp8, True, 8, fits, 1, None),
+            (3, inp9, True, 8, fits, None, None),
+            ("3s", inp9, True, 9, [], 3, 0),
+            ("3f", inp8, True, 8, ALL_DISTANCES + ["-sweep-ranges", "7"]
+             + fits, "7all", 7),
+            (4, inp9, False, 9, fits, 3, None)):
         tag = f"-out-tmp run {r}"
         out = os.path.join(tmp, f"ckpt_out_{r}")
         before = checkpoint_mtimes(ckpt)
-        argv = ["-in", inp, "-out", out, "-out-tmp", ckpt, "-max-memory",
-                "50000", "-kmer-size", "21", "-abundance-min", "2",
-                "-verbose", "0", "-device", "cuda"]
+        argv = ["-in", inp, "-out", out, "-out-tmp", ckpt, "-kmer-size",
+                "21", "-abundance-min", "2", "-verbose", "0", "-device",
+                "cuda", *flags]
         rec, m = cli_run(tag, argv + (["-keep-tmp"] if keep else []), out,
                          recorder)
         first = first or rec
@@ -659,33 +749,51 @@ def out_tmp_full_size(tmp: str, inp8: str, inp9: str, yardstick: dict,
         if any(after.get(p) != t for p, t in before.items()) and keep:
             raise AssertionError(f"{tag}: a resumed checkpoint was rewritten")
         n = 8 if inp == inp8 else 9
-        if keep and len(after) != n:
-            raise AssertionError(f"{tag}: {len(after)} checkpoints, not {n}")
+        n_ckpt = max(n, len(before))  # run 3f's input lacks the ninth
+        if keep and len(after) != n_ckpt:
+            raise AssertionError(f"{tag}: {len(after)} checkpoints, not "
+                                 f"{n_ckpt}")
         if not keep and os.path.exists(os.path.join(ckpt, "count")):
             raise AssertionError(f"{tag}: <tmp>/count/ outlived the run")
-        same_as = {1: 0, 2: 1, 4: 3}.get(r)
         if same_as is not None and texts != csvs[same_as]:
             raise AssertionError(f"{tag}: CSVs differ from run {same_as}'s")
+        got = c.get("sweep_ranges")
+        if (got is None) != (ranges is None) or ranges and got != ranges:
+            raise AssertionError(f"{tag}: {got} hash ranges, expected "
+                                 f"{ranges}")
         check_matrices(texts, n)
         csvs[r] = texts
         per = c["per_sample"]
+        sweep_line = "" if got is None else (
+            f"; the sweep: {got} hash ranges (disk tier), partition (H2D, "
+            f"the cut on the card, D2H) {c['sweep_partition_s']} s, npz write "
+            f"{c['sweep_write_s']} s, range load {c['sweep_range_load_s']} "
+            f"s, range joins {c['sweep_range_join_s']} s")
         say(
             f"full {tag}: wall {rec['wall_s']:.3f} s; stages count "
             f"{m['stages']['count']}, merge {m['stages']['merge']}, output "
             f"{m['stages']['output']}; datasets resumed {resumed or 0}; "
             f"spectrum rows {c['spectrum_rows']} x 16 B x 8 against the "
-            f"budget {c['memory_budget_bytes']} B; compact launches "
-            f"{rec['launches']} (kernel kept total == n on each); peak "
-            f"device memory {rec['peak_gib']:.2f} GiB; CSVs "
-            + {1: "== phase 7's default run (run 0)", 2: "== run 1",
-               3: f"{len(texts)} matrices of 9 samples",
-               4: "== run 3, <tmp>/count/ removed"}[r])
-        say(f"full {tag} per sample (rows, load / count / save s): "
+            f"budget {c['memory_budget_bytes']} B{sweep_line}; compact "
+            f"launches {rec['launches']} (kernel kept total == n on each); "
+            f"peak device memory {rec['peak_gib']:.2f} GiB; CSVs "
+            + {0: "== phase 7's default run (run 0)", 1: "== run 1",
+               3: "== run 3", "7all": "== phase 7's all-distances k=21 run",
+               None: f"{len(texts)} matrices of 9 samples"}[same_as]
+            + (", <tmp>/count/ removed" if not keep else ""))
+        say(f"full {tag} per sample (rows, load / count / save / spill s): "
             + "; ".join(
                 f"{x['id']} {x['rows']} "
                 + " / ".join(f"{x[key]}" if key in x else "-"
-                             for key in ("load_s", "count_s", "save_s"))
+                             for key in ("load_s", "count_s", "save_s",
+                                         "spill_s"))
                 for x in per))
+        if got is not None:
+            # -keep-tmp kept the spill; it is not needed again
+            if len(os.listdir(sweep_dir)) != n * got:
+                raise AssertionError(f"{tag}: {len(os.listdir(sweep_dir))} "
+                                     f"spill files, not {n} x {got}")
+            shutil.rmtree(sweep_dir)
     # the merge at size: one sample in 2^18-read gathers (four partial
     # spectra, then their merge) against one spectrum of all its reads
     d = parse_input_file(inp8)[0]
@@ -712,11 +820,172 @@ def out_tmp_full_size(tmp: str, inp8: str, inp9: str, yardstick: dict,
     return first
 
 
-def compaction_at_path_shapes(shapes: dict, join_rows: int, dev,
-                              seed: int) -> tuple:
+def out_of_core_full_size(tmp: str, seed: int, inp8: str, inp9: str,
+                          yardsticks: dict, recorder: ShapeRecorder) -> dict:
+    """Phase 10; returns the 16-sample CLI run's record."""
+    from simka_tpu_torch.config import SimkaConfig
+    from simka_tpu_torch.core.pipeline import run_simka
+    from simka_tpu_torch.utils.community import write_community
+
+    def argv(inp, out):
+        return ["-in", inp, "-out", out, "-kmer-size", "21",
+                "-abundance-min", "2", "-verbose", "0", "-device", "cuda"]
+
+    def report(tag, rec, m, tier):
+        c = m["counters"]
+        if c["route"] != "up-front" or c["spill_tier"] != tier:
+            raise AssertionError(f"{tag}: route {c['route']}, tier "
+                                 f"{c['spill_tier']}, expected up-front, "
+                                 f"{tier}")
+        if c["sweep_ranges"] < 2:
+            raise AssertionError(f"{tag}: {c['sweep_ranges']} hash ranges")
+        spectra = [x["spectrum_s"] for x in c["per_sample"]]
+        say(f"full {tag}: wall {rec['wall_s']:.3f} s; route {c['route']}, "
+            f"{c['spill_tier']} tier, {c['sweep_ranges']} hash ranges, "
+            f"{c['spectrum_rows']} spectrum rows "
+            f"({c['spectrum_rows'] / c['sweep_ranges']:.0f} a range); stage "
+            f"'count' (the count and the sweep) {m['stages']['count']} s: "
+            + ", ".join(f"{key[6:]} {c[key]}" for key in sorted(c)
+                        if key.startswith("stage_"))
+            + f"; per-sample spectra {min(spectra)}-{max(spectra)} s; "
+            f"output {m['stages']['output']} s; compact launches "
+            f"{rec['launches']} (kernel kept total == n on each); peak "
+            f"device memory {rec['peak_gib']:.2f} GiB")
+
+    # (a) the 8 samples with a 30 GB plan: the estimate (8 x 52 MB of
+    # FASTA at 80 windows in 104 bytes, 320 M) exceeds its 312 M
+    # instance rows
+    out = os.path.join(tmp, "ooc_8")
+    saved = os.environ.get("SIMKA_TPU_HBM_MB")
+    os.environ["SIMKA_TPU_HBM_MB"] = "30000"
+    try:
+        rec, m = cli_run("out-of-core 8 samples", argv(inp8, out), out,
+                         recorder)
+    finally:
+        if saved is None:
+            del os.environ["SIMKA_TPU_HBM_MB"]
+        else:
+            os.environ["SIMKA_TPU_HBM_MB"] = saved
+    report("out-of-core, 8 samples, SIMKA_TPU_HBM_MB=30000", rec, m,
+           "device")
+    if csv_texts(out) != yardsticks["default k=21"]:
+        raise AssertionError("out-of-core 8 samples: CSVs differ from "
+                             "phase 7's default run")
+    say("full out-of-core, 8 samples: CSVs == phase 7's default run")
+    restart_run(tmp, inp8, yardsticks, recorder)
+
+    # (b) 16 samples of the same community: samples 9-15 join the 9
+    # written in phase 7, past the card's own plan
+    t0 = time.perf_counter()
+    more = write_community(
+        os.path.join(tmp, "full16"), seed=seed, n_samples=16, n_genomes=20,
+        genome_len=2_000_000, reads_per_sample=500_000, read_len=100,
+        n_frac=0.001, first=9,
+    )
+    inp16 = os.path.join(tmp, "full16", "input16.txt")
+    with open(inp9) as f, open(more) as g, open(inp16, "w") as h:
+        h.writelines(f.readlines() + g.readlines())
+    say(f"samples 9-15 written in {time.perf_counter() - t0:.2f} s")
+    out = os.path.join(tmp, "ooc_16")
+    rec16, m = cli_run("out-of-core 16 samples", argv(inp16, out), out,
+                       recorder)
+    report("out-of-core, 16 samples", rec16, m, "device")
+    texts = csv_texts(out)
+    check_matrices(texts, 16)
+    out_ram = os.path.join(tmp, "ooc_16_ram")
+
+    def ram_tier() -> dict:
+        run_simka(SimkaConfig(input_filename=inp16, output_dir=out_ram,
+                              kmer_size=21, abundance_min=2, verbose=False),
+                  device="cuda", tier="ram")
+        return metrics_of(out_ram)
+
+    rec, m = cli_run("out-of-core 16 samples, host-memory tier", [], out_ram,
+                     recorder, run=ram_tier)
+    report("out-of-core, 16 samples, run_simka(tier='ram')", rec, m, "ram")
+    c = m["counters"]
+    say(f"full out-of-core, 16 samples, host-memory tier: spill (the cut "
+        f"per range on the card, D2H, stored; on a worker thread) "
+        f"{c['stage_spill_s']} s")
+    if csv_texts(out_ram) != texts:
+        raise AssertionError("out-of-core 16 samples: the device and the "
+                             "host-memory tiers' CSVs differ")
+    say("full out-of-core, 16 samples: device tier CSVs == host-memory "
+        "tier CSVs")
+    return rec16
+
+
+def restart_run(tmp: str, inp8: str, yardsticks: dict,
+                recorder: ShapeRecorder) -> None:
+    """Phase 10's restart: compute_statistics, which has no up-front
+    route, on the 8 samples under a 20 GB plan (208 M instance rows
+    against the run's 313 M): the in-memory ingest trips its guard
+    after about 5 samples and the run restarts out-of-core, with the
+    gathered batches (about 2.5 GB) dropped first."""
+    from simka_tpu_torch.config import SimkaConfig
+    from simka_tpu_torch.core.distances import compute_all_matrices
+    from simka_tpu_torch.core.output import write_all_matrices
+    from simka_tpu_torch.core.pipeline import compute_statistics
+    from simka_tpu_torch.io.dsl import parse_input_file
+    from simka_tpu_torch.io.packed import PackedReadSource
+
+    out = os.path.join(tmp, "ooc_8_restart")
+    lines = []
+
+    def restart() -> dict:
+        datasets = parse_input_file(inp8)
+        ids = [d.id for d in datasets]
+        observer = {"base_bytes": torch.cuda.memory_allocated()}
+        t0 = time.perf_counter()
+        stats = compute_statistics(
+            [PackedReadSource(d.banks) for d in datasets], ids,
+            SimkaConfig(kmer_size=21, abundance_min=2, verbose=False),
+            torch.device("cuda", 0), log=lines.append, observer=observer)
+        t1 = time.perf_counter()
+        os.makedirs(out, exist_ok=True)
+        write_all_matrices(out, compute_all_matrices(stats), ids)
+        observer.update(statistics_s=t1 - t0,
+                        output_s=time.perf_counter() - t1)
+        return observer
+
+    saved = os.environ.get("SIMKA_TPU_HBM_MB")
+    os.environ["SIMKA_TPU_HBM_MB"] = "20000"
+    try:
+        rec, o = cli_run("restart 8 samples", [], out, recorder, run=restart)
+    finally:
+        if saved is None:
+            del os.environ["SIMKA_TPU_HBM_MB"]
+        else:
+            os.environ["SIMKA_TPU_HBM_MB"] = saved
+    held = o["restart_held_bytes"] - o["base_bytes"]
+    trip = next(m for m in lines if "restarting out-of-core" in m)
+    if o["route"] != "restart" or o["sweep_ranges"] < 2:
+        raise AssertionError(f"restart 8 samples: route {o['route']}, "
+                             f"{o.get('sweep_ranges')} hash ranges")
+    if held > 256 << 20:
+        raise AssertionError(f"restart 8 samples: {held} B of the in-memory "
+                             "run still allocated at the restart")
+    if csv_texts(out) != yardsticks["default k=21"]:
+        raise AssertionError("restart 8 samples: CSVs differ from phase 7's "
+                             "default run")
+    say(f"full restart, 8 samples, compute_statistics under "
+        f"SIMKA_TPU_HBM_MB=20000: {trip}; {held} B more allocated at the "
+        f"restart than before the run; out-of-core on the "
+        f"{o['spill_tier']} tier, {o['sweep_ranges']} hash ranges, "
+        f"{o['spectrum_rows']} spectrum rows; wall {rec['wall_s']:.3f} s "
+        f"(statistics {o['statistics_s']:.3f} s, the out-of-core part: "
+        + ", ".join(f"{key} {v:.4f}" for key, v in
+                    sorted(o["stage_timers"].items()))
+        + f"; output {o['output_s']:.3f} s); compact launches "
+        f"{rec['launches']} (kernel kept total == n on each); peak device "
+        f"memory {rec['peak_gib']:.2f} GiB; CSVs == phase 7's default run")
+
+
+def compaction_at_path_shapes(shapes: dict, join_rows: int, range_shape,
+                              dev, seed: int) -> tuple:
     """Phase 9; returns (max_abs_err, timings at the k=21 join shape,
-    at the extraction-batch shape and at the -out-tmp spectra join's
-    abundance filter)."""
+    at the extraction-batch shape, at the -out-tmp spectra join's
+    abundance filter and at the sweep's largest range extraction)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     saved = compact.launches
@@ -757,8 +1026,21 @@ def compaction_at_path_shapes(shapes: dict, join_rows: int, dev,
     err = max(err, compare(cols, kept, fills))
     extract = time_compaction("at an extraction batch (i64 word, frac "
                               "0.979)", cols, kept, fills, 20)
+    del cols, kept
+    torch.cuda.empty_cache()
+    # the sweep's range extraction: every resident spectrum row, one
+    # range kept
+    dtypes, E, n = range_shape
+    cols, kept, fills = rows(E, n / E, gen, dev, dtypes)
+    fills = (-1,) * (len(dtypes) - 2) + (0, 0)
+    err = max(err, compare(cols, kept, fills))
+    ranged = time_compaction(
+        f"at the sweep's range extraction ({len(dtypes) - 2} i64 words, i32 "
+        f"sid, i32 count, frac {n / E:.4f})", cols, kept, fills, 5)
+    del cols, kept
+    torch.cuda.empty_cache()
     compact.launches = saved
-    return err, join, extract, spectra
+    return err, join, extract, spectra, ranged
 
 
 def main() -> int:
@@ -796,12 +1078,14 @@ def main() -> int:
             small_gpu_vs_cpu(tmp, args.seed)
             determinism(dev, args.seed)
             rec.check_totals()
-            paths, inp8, inp9, yardstick = full_size(tmp, args.seed, rec)
-            out_tmp_run = out_tmp_full_size(tmp, inp8, inp9, yardstick, rec,
+            paths, inp8, inp9, yardsticks = full_size(tmp, args.seed, rec)
+            out_tmp_run = out_tmp_full_size(tmp, inp8, inp9, yardsticks, rec,
                                             dev)
+            sweep_run = out_of_core_full_size(tmp, args.seed, inp8, inp9,
+                                              yardsticks, rec)
     main_run = paths["default k=21"]
-    c_err, join, extract, spectra = compaction_at_path_shapes(
-        rec.shapes, main_run["instances"], dev, args.seed)
+    c_err, join, extract, spectra, ranged = compaction_at_path_shapes(
+        rec.shapes, main_run["instances"], rec.range_shape, dev, args.seed)
     err = max(err, c_err)
 
     # compact_rows at the join shape in the path's exact-length form;
@@ -813,6 +1097,7 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": main_run["launches"],
         "launches_out_tmp": out_tmp_run["launches"],
+        "launches_sweep": sweep_run["launches"],
         "max_abs_err": err,
         **{k: join[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "fill_ms", "fill_bound_ms",
@@ -821,6 +1106,9 @@ def main() -> int:
                                                  "bound_ms", "library_ms")},
         **{f"spectra_join_{k}": spectra[k] for k in ("ms", "plain_ms",
                                                       "bound_ms", "fill_ms")},
+        **{f"sweep_extract_{k}": ranged[k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "fill_ms",
+            "plain_fill_ms", "fill_bound_ms")},
     }]
     gram = probe["gram"]
     kernels.append({

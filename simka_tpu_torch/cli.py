@@ -38,8 +38,8 @@ def build_simka_parser() -> argparse.ArgumentParser:
     p.add_argument("-simple-dist", action="store_true", help="compute all simple distances")
     p.add_argument("-complex-dist", action="store_true", help="compute all complex distances")
     p.add_argument("-nb-cores", type=int, default=0, help="accepted for compatibility")
-    p.add_argument("-max-memory", type=int, default=5000, help="max memory (MB): the -out-tmp join's budget")
-    p.add_argument("-sweep-ranges", type=int, default=0, help="out-of-core hash ranges (not ported)")
+    p.add_argument("-max-memory", type=int, default=5000, help="max memory (MB): one join's budget; a larger join takes the out-of-core hash-range sweep")
+    p.add_argument("-sweep-ranges", type=int, default=0, help="with -out-tmp: force the out-of-core sweep over N hash ranges (0: only past -max-memory)")
     p.add_argument("-verbose", type=int, default=1, help="verbosity")
     p.add_argument("-n-shards", type=int, default=0, help="k-mer-space shards (only 0 or 1: one device)")
     p.add_argument("-data-info", action="store_true", help="compute (and display) input information only")

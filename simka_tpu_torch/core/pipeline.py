@@ -5,13 +5,24 @@ unpack, canonical k-mers, compaction of the valid windows, repartition
 histogram -> one join over the concatenated instance stream -> host
 statistics, distances and csv.gz.
 
+Out-of-core (``compute_statistics_out_of_core``), for runs past the
+device plan: taken up front when the estimated instances (the input
+files' sizes x the k-mer windows per byte of their first reads)
+exceed it, or on restart when the in-memory ingest outgrows it. One
+pipelined stream counts every sample's spectrum, spilled per k-mer
+hash range on the device or in host memory; the hash ranges are then
+joined one at a time and their statistics folded exactly
+(``core.sweep``).
+
 With -out-tmp (the checkpoint path): per sample, its spectrum from a
 checkpoint whose key matches, or counted (the same per-batch
 extraction, then ``ops.spectrum``) and checkpointed under
 <tmp>/count/ -> the repartition histogram of its distinct solid
 k-mers; then the spectra concatenated -> one join from spectra ->
 statistics, distances, csv.gz; <tmp>/count/ is removed unless
--keep-tmp.
+-keep-tmp. Past the reference's spill rule (the spectra's join over
+-max-memory or the device plan), or with -sweep-ranges, the spectra go
+to <tmp>/sweep/ per hash range and the join is the sweep.
 
 Lengths are exact throughout: each batch keeps exactly its valid
 windows, so the stream that reaches the join holds only real
@@ -19,9 +30,8 @@ instances (no padding classes, no invalid-window sentinel rows).
 
 Every distance (default, -simple-dist, -complex-dist), k from 1 to
 127 and the -kmer-shannon-index filter run. Outside this slice, and
-raising NotImplementedError (see ROADMAP.md, queue 1): the out-of-core
-sweep, for runs beyond the device plan or the -max-memory budget and
-for -sweep-ranges (item 10), and more than one device (item 12).
+raising NotImplementedError (see ROADMAP.md, queue 1): more than one
+device (item 12), the sweep over several devices included.
 """
 
 from __future__ import annotations
@@ -42,18 +52,17 @@ from simka_tpu_torch.core.stats import SimkaStatistics
 from simka_tpu_torch.io.dsl import check_input_validity, parse_input_file
 
 N_HIST_BUCKETS = 16
+# a sample's kept windows are counted into a partial spectrum each time
+# this many reads' worth (x 32 windows) are gathered
+STREAM_BATCH_READS = 1 << 20
 
 
 def check_slice(config: SimkaConfig) -> None:
     """Raise NotImplementedError for options the port does not run."""
-    todo = []
-    if config.sweep_ranges > 0:
-        todo.append("-sweep-ranges out-of-core (ROADMAP queue 1, item 10)")
     if config.n_shards > 1:
-        todo.append("-n-shards > 1 (ROADMAP queue 1, item 12)")
-    if todo:
         raise NotImplementedError(
-            "not ported to simka_tpu_torch yet: " + "; ".join(todo)
+            "not ported to simka_tpu_torch yet: -n-shards > 1 (ROADMAP "
+            "queue 1, item 12)"
         )
 
 
@@ -213,23 +222,86 @@ def compute_statistics(
     log=None,
     observer: Optional[dict] = None,
 ) -> SimkaStatistics:
-    """Statistics of every dataset on one device, fully in memory.
+    """Statistics of every dataset on one device, in memory while the
+    instances fit the device plan.
 
     ``dataset_seqs[s]``: a PackedReadSource, a list of read byte
-    strings, or a zero-arg provider callable returning an iterator.
+    strings, or a zero-arg provider callable returning an iterator
+    (re-iterable: a run past the plan reads them again).
     Every k-mer instance stays on ``device`` from extraction through
     the join, and reads stream through in O(batch) host memory; a
     worker thread parses and packs batch i+2 and another ships batch
-    i+1 while the device extracts batch i.
+    i+1 while the device extracts batch i. When the instances outgrow
+    the device plan mid-ingest (DeviceBudgetExceeded), the gathered
+    batches are dropped and the run restarts out-of-core
+    (``compute_statistics_out_of_core``), as ``simka_tpu`` does.
 
-    ``observer``, when given, receives ``stage_timers`` and
-    ``repartition_instances`` (instances per hash bucket).
+    ``observer``, when given, receives ``stage_timers``,
+    ``repartition_instances`` (instances per hash bucket in memory,
+    distinct solid k-mers out-of-core) and ``route``; on a restart also
+    ``restart_held_bytes``, the device memory still allocated when the
+    out-of-core run begins.
     """
-    from simka_tpu_torch.core.budget import instance_rows_budget
+    from simka_tpu_torch.core.budget import DeviceBudgetExceeded
+
+    check_slice(config)
+    try:
+        stats = _compute_statistics_in_memory(
+            dataset_seqs, dataset_ids, config, device, batch_reads, log,
+            observer)
+    except DeviceBudgetExceeded as e:
+        # the restart runs after the handler, once the traceback's
+        # frames, and the batches they reference, are gone
+        reason = str(e)
+    else:
+        if observer is not None:
+            observer["route"] = "in-memory"
+        return stats
+    if log is not None:
+        log(f"device plan: {reason}; restarting out-of-core")
+    if observer is not None:
+        observer["route"] = "restart"
+        observer["restart_held_bytes"] = (
+            torch.cuda.memory_allocated(device) if device.type == "cuda"
+            else 0)
+    return compute_statistics_out_of_core(
+        dataset_seqs, dataset_ids, config, device, batch_reads, log=log,
+        observer=observer,
+    )
+
+
+def _shipper(device: torch.device, timers: dict):
+    """The ingest's H2D stage: a host batch of ``_packed_batch_stream``
+    shipped to ``device``, its time added to ``timers['h2d_s']``."""
+
+    def ship(item):
+        sample, packed, vb, n_valid = item
+        t0 = time.perf_counter()
+        out = (
+            sample,
+            torch.from_numpy(packed).to(device),
+            torch.from_numpy(vb).to(device),
+            n_valid,
+        )
+        timers["h2d_s"] += time.perf_counter() - t0
+        return out
+
+    return ship
+
+
+def _compute_statistics_in_memory(
+    dataset_seqs, dataset_ids, config, device, batch_reads, log, observer,
+) -> SimkaStatistics:
+    """``compute_statistics``'s in-memory run; raises
+    DeviceBudgetExceeded, with every gathered batch dropped, once the
+    instances exceed the device plan."""
+    from simka_tpu_torch.core.budget import (
+        DeviceBudgetExceeded,
+        instance_rows_budget,
+    )
     from simka_tpu_torch.ops.countjoin import count_join_stats
     from simka_tpu_torch.ops.kmers import n_words
 
-    check_slice(config)
     k = config.kmer_size
     nw = n_words(k)
     nb_reads = [0] * len(dataset_seqs)
@@ -248,17 +320,7 @@ def compute_statistics(
         dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads, timers
     )
 
-    def ship(item):
-        sample, packed, vb, n_valid = item
-        t0 = time.perf_counter()
-        out = (
-            sample,
-            torch.from_numpy(packed).to(device),
-            torch.from_numpy(vb).to(device),
-            n_valid,
-        )
-        timers["h2d_s"] += time.perf_counter() - t0
-        return out
+    ship = _shipper(device, timers)
 
     def consume(sample, packed, vb, n_valid):
         t0 = time.perf_counter()
@@ -271,10 +333,11 @@ def compute_statistics(
         state["rows"] += sid.shape[0]
         timers["extract_dispatch_s"] += time.perf_counter() - t0
         if state["rows"] > rows_budget:
-            raise NotImplementedError(
+            batches.clear()
+            sids.clear()
+            raise DeviceBudgetExceeded(
                 f"{state['rows']} k-mer instances exceed the device "
-                f"plan of {rows_budget} rows; the out-of-core sweep is "
-                "not ported yet (ROADMAP queue 1, item 10)"
+                f"plan of {rows_budget} rows"
             )
 
     _pipelined_ingest(stream, ship, consume)
@@ -310,6 +373,188 @@ def compute_statistics(
     if observer is not None:
         observer["stage_timers"] = timers
         observer["repartition_instances"] = hist.cpu().numpy()
+    return stats
+
+
+SPILL_TIERS = ("device", "ram", "disk")
+
+
+def compute_statistics_out_of_core(
+    dataset_seqs,
+    dataset_ids: List[str],
+    config: SimkaConfig,
+    device: torch.device,
+    batch_reads: int = 1 << 17,
+    log=None,
+    observer: Optional[dict] = None,
+    tier: Optional[str] = None,
+) -> SimkaStatistics:
+    """Out-of-core statistics on one device (``simka_tpu``'s
+    ``_compute_statistics_out_of_core``): per-sample spectra, spilled
+    per hash range, then the sweep (``core.sweep``).
+
+    The count phase is one pipelined stream over every sample, as in
+    memory: parse/pack || H2D || per batch the kept windows, gathered
+    per sample (``_SpectrumGather``). A sample's spectrum is made and
+    spilled once its last batch is consumed (at the next sample's first
+    batch, or the stream's end) while the next batches parse; the host
+    tiers cut it per range on the device, copy it and store it on a
+    worker thread (``partition_on_device``). Each sample's solid total
+    and repartition histogram (``spill_stats``) stay on the device
+    until the stream ends.
+
+    The spill tier is ``tier`` when given ("device", "ram", or "disk",
+    which needs ``config.output_tmp_dir``; the -out-tmp command spills
+    to disk through ``compute_statistics_checkpointed``). Otherwise the
+    device tier when the estimated instances' (``budget.
+    estimate_total_instances`` with k) spectrum bytes fit a third of
+    the device plan (the resident spectra then share the device with
+    each range's join, whose budget shrinks to 3/5), else host memory.
+    Ranges are provisioned from the worse of the first sample's
+    spectrum x N x 1.3 and that estimate, since they cannot be split
+    once spilling starts. The spill is removed at the end.
+
+    ``observer``, when given, receives ``stage_timers``,
+    ``repartition_instances`` (distinct solid k-mers per hash bucket, as
+    ``simka_tpu``'s), ``sweep_ranges``, ``spill_tier``, ``spectrum_rows``
+    and ``per_sample`` (rows, spectrum and spill seconds).
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    from simka_tpu_torch.core.budget import (
+        COUNT_BYTES,
+        WORD_BYTES,
+        device_budget_bytes,
+        estimate_total_instances,
+        spectrum_rows_budget,
+    )
+    from simka_tpu_torch.core.sweep import (
+        DeviceSpill,
+        RamSpill,
+        SpectrumSpill,
+        partition_on_device,
+        sweep_join_stats,
+    )
+    from simka_tpu_torch.ops.kmers import n_words
+
+    k = config.kmer_size
+    n = len(dataset_ids)
+    nw = n_words(k)
+    est_rows = (estimate_total_instances(dataset_seqs, k)
+                if all(hasattr(s, "banks") for s in dataset_seqs) else None)
+    if tier is None:
+        fits = (est_rows is not None
+                and est_rows * (WORD_BYTES * nw + COUNT_BYTES)
+                <= device_budget_bytes(device) // 3)
+        tier = "device" if fits else "ram"
+    if tier not in SPILL_TIERS:
+        raise ValueError(f"spill tier {tier!r} is not one of {SPILL_TIERS}")
+    if tier == "disk" and not config.output_tmp_dir:
+        raise ValueError("the disk spill tier needs an -out-tmp directory")
+    budget_rows = spectrum_rows_budget(device, nw, config.max_memory_mb)
+    if tier == "device":
+        budget_rows = max(budget_rows * 3 // 5, 1)
+
+    nb_reads = [0] * n
+    timers = dict.fromkeys(("parse_pack_s", "h2d_s", "extract_dispatch_s",
+                            "spectrum_s", "spill_s"), 0.0)
+    solid = torch.zeros(n, dtype=torch.int64, device=device)
+    hist = torch.zeros(N_HIST_BUCKETS, dtype=torch.int64, device=device)
+    per_sample = [{"id": i} for i in dataset_ids]
+    gather = _SpectrumGather(k, device, STREAM_BATCH_READS * 32)
+    state = {"sample": 0, "spill": None}
+    spills = []  # the host tiers' spill futures
+
+    def make_spill(rows: int):
+        projected = max(int(rows * n * 1.3), 1)
+        if est_rows is not None:
+            projected = max(projected, est_rows)
+        n_ranges = max(1, -(-projected // budget_rows))
+        if tier == "device":
+            spill = DeviceSpill(n_ranges, k)
+        elif tier == "ram":
+            spill = RamSpill(n_ranges, k, device)
+        else:
+            spill = SpectrumSpill(config.output_tmp_dir, n_ranges, k, device)
+        if log is not None:
+            log(f"out-of-core sweep: {n_ranges} hash ranges "
+                f"({type(spill).__name__}, projected {projected} rows, "
+                f"budget {budget_rows}/range)")
+        return spill
+
+    def spill_host(spill, s, spectrum):
+        t0 = time.perf_counter()
+        spill.spill_parts(s, partition_on_device(*spectrum, k,
+                                                 spill.n_ranges))
+        per_sample[s]["spill_s"] = round(time.perf_counter() - t0, 4)
+
+    def finish(s):  # every batch of sample s is consumed
+        t0 = time.perf_counter()
+        words, counts = gather.spectrum()
+        sd, hd = spill_stats(words, counts, k, config.abundance_min,
+                             config.abundance_max)
+        solid[s] = sd
+        hist.add_(hd)
+        if state["spill"] is None:
+            state["spill"] = make_spill(counts.shape[0])
+        t1 = time.perf_counter()
+        per_sample[s].update(rows=counts.shape[0],
+                             spectrum_s=round(t1 - t0, 4))
+        timers["spectrum_s"] += t1 - t0
+        if tier == "device":
+            state["spill"].spill_sample(s, words, counts)
+            timers["spill_s"] += time.perf_counter() - t1
+        else:
+            spills.append(spill_ex.submit(
+                spill_host, state["spill"], s, (words, counts)))
+
+    def consume(sample, packed, vb, n_valid):
+        while state["sample"] < sample:  # samples without a batch too
+            finish(state["sample"])
+            state["sample"] += 1
+        t0 = time.perf_counter()
+        gather.add(kept_windows(packed, vb, k, n_valid,
+                                config.min_kmer_shannon_index))
+        timers["extract_dispatch_s"] += time.perf_counter() - t0
+
+    stream = _packed_batch_stream(
+        dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads, timers
+    )
+    t_count = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as spill_ex:
+        _pipelined_ingest(stream, _shipper(device, timers), consume)
+        while state["sample"] < n:
+            finish(state["sample"])
+            state["sample"] += 1
+        for f in spills:
+            f.result()
+    spill = state["spill"]
+    if spill is None:
+        raise ValueError("no datasets")
+    # the one read of the count phase's per-sample statistics
+    solid_np, hist_np = solid.cpu().numpy(), hist.cpu().numpy()
+    # the host tiers' spill overlaps the count: count_s spans both
+    timers["count_s"] = time.perf_counter() - t_count
+    if tier != "device":
+        timers["spill_s"] = sum(p.get("spill_s", 0.0) for p in per_sample)
+    js = sweep_join_stats(
+        spill, n, config.abundance_min, config.abundance_max, solid_np,
+        k=k, device=device, simple=config.simple_dist,
+        complex_=config.complex_dist,
+        log=log if log is not None else (lambda m: None), timers=timers,
+    )
+    spill.cleanup()
+    stats = SimkaStatistics.from_join_stats(
+        js.to_numpy(), dataset_ids, k, np.asarray(nb_reads, np.int64),
+        config.simple_dist, config.complex_dist,
+    )
+    if observer is not None:
+        observer.update(
+            stage_timers=timers, repartition_instances=hist_np,
+            sweep_ranges=spill.n_ranges, spill_tier=tier,
+            spectrum_rows=int(sum(p["rows"] for p in per_sample)),
+            per_sample=per_sample,
+        )
     return stats
 
 
@@ -375,11 +620,50 @@ def compute_statistics_from_spectra(
     )
 
 
+class _SpectrumGather:
+    """One sample's kept windows, counted into a partial spectrum each
+    time ``flush_rows`` of them are gathered (which bounds the device
+    memory by the gather instead of the sample), the partials merged
+    into its spectrum at the end."""
+
+    def __init__(self, k: int, device: torch.device, flush_rows: int):
+        from simka_tpu_torch.ops.kmers import n_words
+
+        self.k, self.nw, self.device = k, n_words(k), device
+        self.flush_rows = flush_rows
+        self.parts: List[list] = []  # per batch: its k-mer word columns
+        self.partials = []
+        self.rows = 0
+
+    def _flush(self):
+        from simka_tpu_torch.ops.spectrum import count_spectrum
+
+        self.partials.append(count_spectrum(
+            _concat_columns(self.parts, self.nw, self.device), self.k))
+        self.rows = 0
+
+    def add(self, words) -> None:
+        self.parts.append(list(words))
+        self.rows += words[0].shape[0]
+        if self.rows >= self.flush_rows:
+            self._flush()
+
+    def spectrum(self):
+        """(words, counts) of the windows added since the last call."""
+        from simka_tpu_torch.ops.spectrum import merge_spectra
+
+        if self.parts or not self.partials:
+            self._flush()
+        spectrum = merge_spectra(self.partials)
+        self.partials = []
+        return spectrum
+
+
 def count_dataset_spectrum(
     seqs,
     k: int,
     device: torch.device,
-    stream_batch_reads: int = 1 << 20,
+    stream_batch_reads: int = STREAM_BATCH_READS,
     min_kmer_shannon_index: float = 0.0,
 ):
     """Count phase for one sample on ``device`` (``simka_tpu``'s
@@ -390,24 +674,13 @@ def count_dataset_spectrum(
     extracted as in the in-memory path (``kept_windows``, pipelined as
     there); each time the kept windows gathered reach
     ``stream_batch_reads * 32`` rows they are counted into a partial
-    spectrum, and the partials are merged at the end, bounding the
-    device memory by the gather instead of the sample.
+    spectrum, and the partials are merged at the end (``_SpectrumGather``).
 
     Returns (words, counts, n_reads): the sample's spectrum on
     ``device`` (``ops.spectrum``) and its read count.
     """
-    from simka_tpu_torch.ops.kmers import n_words
-    from simka_tpu_torch.ops.spectrum import count_spectrum, merge_spectra
-
-    nw = n_words(k)
     nb_reads = [0]
-    parts: List[list] = []  # per batch: its k-mer word columns
-    partials = []
-    rows = [0]
-
-    def flush():
-        partials.append(count_spectrum(_concat_columns(parts, nw, device), k))
-        rows[0] = 0
+    gather = _SpectrumGather(k, device, stream_batch_reads * 32)
 
     def ship(item):
         _, packed, vb, n_valid = item
@@ -415,31 +688,16 @@ def count_dataset_spectrum(
                 torch.from_numpy(vb).to(device), n_valid)
 
     def consume(packed, vb, n_valid):
-        words = kept_windows(packed, vb, k, n_valid, min_kmer_shannon_index)
-        parts.append(list(words))
-        rows[0] += words[0].shape[0]
-        if rows[0] >= stream_batch_reads * 32:
-            flush()
+        gather.add(kept_windows(packed, vb, k, n_valid,
+                                min_kmer_shannon_index))
 
     stream = _packed_batch_stream(
         [seqs], [""], k, nb_reads, None, min(stream_batch_reads, 1 << 17),
         {"parse_pack_s": 0.0},
     )
     _pipelined_ingest(stream, ship, consume)
-    if parts or not partials:
-        flush()
-    words, counts = merge_spectra(partials)
+    words, counts = gather.spectrum()
     return words, counts, nb_reads[0]
-
-
-def _mix_hash_np(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
-    """Host copy of ops.kmers.mix_hash (numpy, uint32 wraparound)."""
-    with np.errstate(over="ignore"):
-        h = (hi ^ np.uint32(0x9E3779B9)) * np.uint32(0x85EBCA6B)
-        h = h ^ (h >> np.uint32(13))
-        h = (h ^ lo) * np.uint32(0xC2B2AE35)
-        h = h ^ (h >> np.uint32(16))
-    return h
 
 
 def repartition_histogram(
@@ -452,17 +710,37 @@ def repartition_histogram(
     (``simka_tpu``'s ``repartition_histogram``, the reference's
     printCountInfo, src/SimkaPotara.hpp:785-811), over host spectra of
     uint32 words. The in-memory path's histogram counts instances."""
+    from simka_tpu_torch.ops.kmers import mix_hash_np
+
     hist = np.zeros(n_buckets, np.int64)
     for words, counts in spectra_iter:
         h = words[0]
         for w in words[1:]:
-            h = _mix_hash_np(h, w)
+            h = mix_hash_np(h, w)
         keep = (counts >= abundance_min) & (counts <= abundance_max)
         hist += np.bincount(
             (h[keep] % np.uint32(n_buckets)).astype(np.int64),
             minlength=n_buckets,
         )
     return hist
+
+
+def spill_stats(words, counts, k: int, abundance_min: int,
+                abundance_max: int):
+    """One spectrum's post-filter solid total and its distinct solid
+    k-mers per repartition bucket, on the spectrum's device and with
+    no sync (``simka_tpu``'s ``_spill_stats_device``: the device form
+    of ``filtered_solid_per_bank`` and ``repartition_histogram``).
+    Returns (scalar int64, [N_HIST_BUCKETS] int64) tensors."""
+    from simka_tpu_torch.ops.kmers import mix_hash_words, uint32_words
+
+    c = counts.to(torch.int64)
+    keep = (c >= abundance_min) & (c <= abundance_max)
+    solid = torch.where(keep, c, 0).sum()
+    h = mix_hash_words(uint32_words(tuple(words), k))
+    bucket = torch.where(keep, h % N_HIST_BUCKETS, N_HIST_BUCKETS)
+    hist = torch.bincount(bucket, minlength=N_HIST_BUCKETS + 1)
+    return solid, hist[:N_HIST_BUCKETS]
 
 
 def count_one_dataset(
@@ -541,30 +819,64 @@ def compute_statistics_checkpointed(
     metrics, log,
 ) -> SimkaStatistics:
     """The -out-tmp path (``simka_tpu``'s ``run_simka`` with
-    ``output_tmp_dir``, without its out-of-core sweep): per sample its
-    checkpointed or counted spectrum, the repartition histogram of its
-    distinct solid k-mers and the reference's spill decision; then the
-    join from the spectra. Fills ``metrics``' count and merge stages
-    and counters (the reference's keys, plus ``spectrum_rows``,
-    ``memory_budget_bytes`` and ``per_sample`` step times)."""
+    ``output_tmp_dir``, one device): per sample its checkpointed or
+    counted spectrum and the repartition histogram of its distinct
+    solid k-mers; then the join from the spectra.
+
+    The reference's spill rule routes to the out-of-core sweep: at the
+    first sample where the spectrum rows so far x the reference's row
+    bytes x 8 exceed the budget (-max-memory and the device plan), or
+    from the first sample with -sweep-ranges. There the samples held so
+    far are cut per hash range on the device and spilled to
+    ``<tmp>/sweep/`` (``SpectrumSpill``; ``choose_n_ranges`` of the
+    projected rows, raised where one range's join would outgrow the
+    device plan) and their host copies freed, every later sample is
+    spilled as it comes, and the merge is the sweep
+    (``sweep_join_stats``); ``<tmp>/sweep/`` is removed unless
+    -keep-tmp.
+
+    Fills ``metrics``' count and merge stages and counters (the
+    reference's keys, plus ``spectrum_rows``, ``memory_budget_bytes``,
+    ``per_sample`` step times and, after a sweep, ``sweep_ranges`` and
+    the seconds ``sweep_range_load_s``, ``sweep_range_join_s``,
+    ``sweep_partition_s`` and ``sweep_write_s``)."""
     from simka_tpu_torch.core.budget import (
         JOIN_WORKING_SET_FACTOR,
         device_budget_bytes,
+        spectrum_rows_budget,
     )
     from simka_tpu_torch.core.checkpoint import CountCheckpoint
-    from simka_tpu_torch.ops.kmers import n_uint32_words
+    from simka_tpu_torch.core.sweep import (
+        SpectrumSpill,
+        choose_n_ranges,
+        filtered_solid_per_bank,
+        sweep_join_stats,
+    )
+    from simka_tpu_torch.ops.kmers import n_uint32_words, n_words
 
     ids = [d.id for d in datasets]
+    k = config.kmer_size
     ckpt = CountCheckpoint(config.output_tmp_dir)
     # the reference's rule, over the row bytes of its uint32 layout, so
     # both packages route an input alike: the join must fit both the
     # -max-memory declaration and the device plan
-    row_bytes = 4 * (n_uint32_words(config.kmer_size) + 2)
+    nw32 = n_uint32_words(k)
+    row_bytes = 4 * (nw32 + 2)
     budget = min(max(config.max_memory_mb, 1) * 1_000_000,
                  device_budget_bytes(device))
     spectra, nb_reads, per_sample = [], [], []
     rows_so_far = 0
     hist = np.zeros(N_HIST_BUCKETS, np.int64)
+    solid = np.zeros(len(datasets), np.int64)
+    spill = None
+
+    def spill_one(s, words, counts):
+        t0 = time.perf_counter()
+        spill.spill_sample(s, words, counts)
+        solid[s] = filtered_solid_per_bank(
+            [counts], config.abundance_min, config.abundance_max)[0]
+        per_sample[s]["spill_s"] = round(time.perf_counter() - t0, 4)
+
     with metrics.stage("count"):
         for i, d in enumerate(datasets):
             log(f"count [{i + 1}/{len(datasets)}] {d.id}")
@@ -577,25 +889,41 @@ def compute_statistics_checkpointed(
             )
             if resumed:
                 metrics.count("datasets_resumed", 1)
-            rows_so_far += len(counts)
-            need = rows_so_far * row_bytes * JOIN_WORKING_SET_FACTOR
-            log(f"{rows_so_far} spectrum rows so far: {need} B of a "
-                f"{budget} B budget")
-            if need > budget:
-                raise NotImplementedError(
-                    f"{rows_so_far} spectrum rows x {row_bytes} B x "
-                    f"{JOIN_WORKING_SET_FACTOR} exceed the budget of "
-                    f"{budget} B (-max-memory and the device plan): the "
-                    "reference would take the out-of-core sweep, which is "
-                    "not ported yet (ROADMAP queue 1, item 10)"
-                )
-            spectra.append((words, counts))
-            nb_reads.append(n)
-            metrics.count("kmer_instances", int(counts.sum()))
             per_sample.append({
                 "id": d.id, "resumed": resumed, "rows": len(counts),
                 **{name: round(v, 4) for name, v in timers.items()},
             })
+            rows_so_far += len(counts)
+            need = rows_so_far * row_bytes * JOIN_WORKING_SET_FACTOR
+            log(f"{rows_so_far} spectrum rows so far: {need} B of a "
+                f"{budget} B budget")
+            if spill is None and (config.sweep_ranges > 0 or need > budget):
+                # the projected join outgrows the budget: the hash-range
+                # sweep (the reference's disk partitions,
+                # SimkaPotara.hpp:713-723), projected from the mean
+                # sample so far
+                projected = int(rows_so_far * len(datasets) * 1.3 / (i + 1))
+                # the reference's count, raised where a range's join in
+                # the port's rows would outgrow the device plan
+                n_ranges = max(
+                    choose_n_ranges(projected, nw32, config.max_memory_mb,
+                                    config.sweep_ranges),
+                    -(-projected // spectrum_rows_budget(device, n_words(k),
+                                                         None)))
+                spill = SpectrumSpill(config.output_tmp_dir, n_ranges, k,
+                                      device)
+                log(f"out-of-core sweep: {n_ranges} hash ranges "
+                    f"(projected {projected} rows)")
+                for s, (w, c) in enumerate(spectra):
+                    spill_one(s, w, c)
+                    spectra[s] = None  # frees the host copy
+            if spill is not None:
+                spill_one(i, words, counts)
+                spectra.append(None)
+            else:
+                spectra.append((words, counts))
+            nb_reads.append(n)
+            metrics.count("kmer_instances", int(counts.sum()))
         metrics.count("reads", int(sum(nb_reads)))
         metrics.set("repartition_histogram", hist.tolist())
     metrics.set("spectrum_rows", rows_so_far)
@@ -608,15 +936,34 @@ def compute_statistics_checkpointed(
     log(f"count phase: {int(sum(nb_reads))} reads in "
         f"{metrics.timings['count']:.2f}s")
     with metrics.stage("merge"):
-        stats = compute_statistics_from_spectra(
-            spectra, ids, nb_reads, config, device
-        )
+        if spill is None:
+            stats = compute_statistics_from_spectra(
+                spectra, ids, nb_reads, config, device
+            )
+        else:
+            metrics.set("sweep_ranges", spill.n_ranges)
+            timers = {}
+            js = sweep_join_stats(
+                spill, len(ids), config.abundance_min, config.abundance_max,
+                solid, k=k, device=device, simple=config.simple_dist,
+                complex_=config.complex_dist, log=log, timers=timers,
+            )
+            stats = SimkaStatistics.from_join_stats(
+                js.to_numpy(), ids, k, np.asarray(nb_reads, np.int64),
+                config.simple_dist, config.complex_dist,
+            )
+            timers.update(partition_s=spill.partition_s,
+                          write_s=spill.write_s)
+            for name, v in timers.items():
+                metrics.set(f"sweep_{name}", round(v, 4))
+            if not config.keep_tmp:
+                spill.cleanup()
     log(f"merge: {metrics.timings['merge']:.2f}s")
     return stats
 
 
 def run_simka(
-    config: SimkaConfig, device: str = "cuda"
+    config: SimkaConfig, device: str = "cuda", tier: Optional[str] = None,
 ) -> Dict[str, np.ndarray]:
     """The `simka` tool: input file -> distance matrices on disk, on
     ``device`` ("cuda" or "cpu"; "cuda" without a GPU raises).
@@ -624,12 +971,26 @@ def run_simka(
     With ``output_tmp_dir`` set, per-sample spectra are checkpointed
     there and reused on resume (the reference's sentinel-file system,
     SimkaPotara.hpp:838-842); ``keep_tmp`` preserves them so later runs
-    can add datasets without recounting.
+    can add datasets without recounting. Without it, a run whose
+    estimated instances (the files' sizes x the k-mer windows per byte
+    of their first reads) exceed the device plan goes out-of-core up
+    front (``compute_statistics_out_of_core``), and one that outgrows
+    the plan mid-ingest restarts there (``compute_statistics``).
+    ``tier`` ("device" or "ram"; refused with ``output_tmp_dir``) sends
+    the run out-of-core on that spill tier whatever the estimate.
     """
+    from simka_tpu_torch.core.budget import (
+        estimate_total_instances,
+        instance_rows_budget,
+    )
     from simka_tpu_torch.io.packed import PackedReadSource
+    from simka_tpu_torch.ops.kmers import n_words
     from simka_tpu_torch.utils.metrics import Metrics
 
     check_slice(config)
+    if tier is not None and config.output_tmp_dir:
+        raise ValueError("a spill tier applies to the in-memory command; "
+                         "-out-tmp spills to <tmp>/sweep/")
     dev = resolve_device(device)
     metrics = Metrics()
     t0 = time.time()
@@ -676,12 +1037,32 @@ def run_simka(
             for d in datasets
         ]
         observer: dict = {}
+        est = estimate_total_instances(datasets, config.kmer_size)
+        plan_rows = instance_rows_budget(dev, n_words(config.kmer_size))
         with metrics.stage("count"):
-            stats = compute_statistics(
-                providers, ids, config, dev,
-                log=log if config.verbose else None,
-                observer=observer,
-            )
+            if tier is not None or est > plan_rows:
+                # clearly past the device plan: straight out-of-core
+                # (the mid-ingest guard would catch it anyway, after up
+                # to a plan's worth of wasted ingest)
+                log(f"estimated ~{est} instances, device plan {plan_rows} "
+                    "rows: out-of-core route")
+                observer["route"] = "up-front"
+                stats = compute_statistics_out_of_core(
+                    providers, ids, config, dev,
+                    log=log if config.verbose else None,
+                    observer=observer, tier=tier,
+                )
+            else:
+                stats = compute_statistics(
+                    providers, ids, config, dev,
+                    log=log if config.verbose else None,
+                    observer=observer,
+                )
+        metrics.set("route", observer["route"])
+        for key in ("sweep_ranges", "spill_tier", "spectrum_rows",
+                    "per_sample"):
+            if key in observer:
+                metrics.set(key, observer[key])
         for name, v in observer["stage_timers"].items():
             metrics.set(f"stage_{name}", round(v, 4))
         total = int(np.sum(stats.dataset_nb_reads))

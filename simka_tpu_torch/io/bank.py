@@ -311,6 +311,34 @@ def _estimate_file_reads(
     sample. The role of gatb Bank::estimate
     (src/core/SimkaAlgorithm.cpp:428-433).
     """
+    records, complete, data_bytes, est_total_bytes = _head_records(
+        path, sample_bytes)
+    n_pass = sum(
+        1
+        for r in records
+        if sequence_passes(r, min_read_size, min_read_shannon_index)
+    )
+    if complete:
+        return n_pass
+    if not records:
+        return 0
+    return int(n_pass * est_total_bytes / data_bytes)
+
+
+def windows_per_byte(path: str, k: int, sample_bytes: int = 1 << 17) -> float:
+    """k-mer windows per (decompressed) byte of a FASTA/FASTQ file:
+    sum(max(L - k + 1, 0)) over the complete records of its first
+    ``sample_bytes``, over those bytes (headers, newlines and qualities
+    included). 0.0 for an empty file."""
+    records, _, data_bytes, _ = _head_records(path, sample_bytes)
+    windows = sum(max(len(r) - k + 1, 0) for r in records)
+    return windows / data_bytes if data_bytes else 0.0
+
+
+def _head_records(path: str, sample_bytes: int):
+    """(the complete records of the first ``sample_bytes``
+    (decompressed), whether that is the whole file, the bytes parsed,
+    the file's estimated decompressed size)."""
     import zlib
 
     size = os.path.getsize(path)
@@ -353,27 +381,28 @@ def _estimate_file_reads(
             complete = fh.read(1) == b""
             est_total_bytes = float(size)
     if not data:
-        return 0
+        return [], complete, 0, est_total_bytes
     buf = io.BufferedReader(io.BytesIO(data))
     first = data[:1]
     if first == b">":
-        records = list(_iter_fasta(buf))
+        parse = _iter_fasta(buf)
     elif first == b"@":
-        records = list(_iter_fastq(buf))
+        parse = _iter_fastq(buf, path)
     else:
         raise ValueError(f"{path}: unrecognized sequence format")
+    records = []
+    try:
+        for r in parse:
+            records.append(r)
+    except ValueError:
+        if complete:
+            raise
+        # a FASTQ record cut by the sample raises; the records before
+        # it are whole
+        return records, complete, len(data), est_total_bytes
     if not complete and records:
         records = records[:-1]  # the tail record may be truncated
-    n_pass = sum(
-        1
-        for r in records
-        if sequence_passes(r, min_read_size, min_read_shannon_index)
-    )
-    if complete:
-        return n_pass
-    if not records:
-        return 0
-    return int(n_pass * est_total_bytes / len(data))
+    return records, complete, len(data), est_total_bytes
 
 
 def estimate_dataset_reads(

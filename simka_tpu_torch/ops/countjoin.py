@@ -35,7 +35,12 @@ word for k <= 31). Two sort paths, chosen as in the reference:
 
 ``join_stats_from_spectra`` starts from counted rows instead (the
 -out-tmp path's per-sample spectra): the abundance filter compacts
-them first, then the same sort and pair sums follow.
+them first, then the same sort and pair sums follow. Its raw form
+(``_raw_join_from_spectra``) keeps chord as its int64 sum and KL as
+its limb sums, so the out-of-core sweep (``core.sweep``) adds the
+stats of its hash ranges exactly and converts them once (``_finish``);
+there ``solid_override`` gives every range the whole samples' solid
+totals.
 """
 
 from __future__ import annotations
@@ -231,14 +236,23 @@ def _kl_from_limbs(sums: torch.Tensor) -> torch.Tensor:
     return torch.tensor(vals, dtype=torch.float64, device=sums.device)
 
 
-def stats_from_rows(
+def _raw_stats_from_rows(
     words, sid, count, *, n_banks: int, simple: bool = False,
-    complex_: bool = False,
+    complex_: bool = False, solid_override=None,
 ) -> JoinStats:
     """Per-bank totals, segments and pair sums over solid rows in
     (k-mer, sample)-ascending order (``_stats_from_rows`` with
     ``_pair_accumulate``; the simple and complex channels only when
-    asked for)."""
+    asked for), in the raw form that sums exactly: every field as in
+    ``JoinStats`` except ``chord_ninj``, still its int64 sum, and
+    ``kullback_leibler``, its [N * N, 1 + KL_FRAC_LIMBS] int64 limb
+    sums. Raw stats of disjoint k-mer sets add field by field
+    (``max_count`` by max); ``_finish`` converts them once.
+
+    ``solid_override``: [N] int64 per-bank solid totals to use as K in
+    the Whittaker and KL terms instead of these rows' own (the sweep's
+    whole-sample totals, ``simka_tpu``'s ``solid_override``); the
+    returned ``solid_per_bank`` stays these rows' own."""
     N = n_banks
     dev = sid.device
     i64, f64 = torch.int64, torch.float64
@@ -252,6 +266,7 @@ def stats_from_rows(
     distinct_per_bank = per_bank(torch.ones_like(c64))
     solid_per_bank = per_bank(c64)
     chord_n2_per_bank = per_bank(c64 * c64)
+    K = solid_per_bank if solid_override is None else solid_override.to(dev)
 
     newk = _first_of_run(*words)
     seg = torch.cumsum(newk, 0)
@@ -269,7 +284,7 @@ def stats_from_rows(
     flat = {name: torch.zeros(N * N, dtype=i64, device=dev) for name in names}
     kl = torch.zeros((N * N, 1 + KL_FRAC_LIMBS), dtype=i64, device=dev)
     # the global per-bank totals of the Whittaker and KL terms
-    Kf = solid_per_bank.to(f64)
+    Kf = K.to(f64)
     for d in range(1, d_max):
         pair = (seg[d:] == seg[:-d]).nonzero().squeeze(1)
         a, b = sid[pair], sid[pair + d]
@@ -322,20 +337,53 @@ def stats_from_rows(
         shared_kmers_ba=pairs("ba"),
         shared_distinct=pairs("distinct"),
         bray_numerator=pairs("bray"),
-        chord_ninj=pairs("chord").to(f64),
+        chord_ninj=pairs("chord"),
         hellinger=pairs("hellinger"),
         whittaker=pairs("whittaker"),
         whittaker_all=(
-            _whittaker_all(sid, c64, solid_per_bank, N) if complex_
+            _whittaker_all(sid, c64, K, N) if complex_
             else pairs("whittaker_all")
         ),
         whittaker_s12=pairs("s12"),
-        kullback_leibler=(
-            _kl_from_limbs(kl).view(N, N) if complex_
-            else torch.zeros((N, N), dtype=f64, device=dev)
-        ),
+        kullback_leibler=kl,
         max_count=(c64.max() if n else torch.zeros((), dtype=i64, device=dev)),
     )
+
+
+def _add_raw(a: JoinStats, b: JoinStats) -> JoinStats:
+    """Raw stats of two disjoint k-mer sets as one (the reference's
+    SimkaStatistics::operator+=, SimkaDistance.cpp:156-213): every
+    field summed, ``max_count`` a max."""
+    return JoinStats(*(
+        torch.maximum(x, y) if name == "max_count" else x + y
+        for name, x, y in zip(JoinStats._fields, a, b)
+    ))
+
+
+def _finish(raw: JoinStats, complex_: bool) -> JoinStats:
+    """Raw stats as ``JoinStats``: chord converted to f64 once, KL's
+    limb sums rounded once."""
+    N = raw.solid_per_bank.shape[0]
+    kl = raw.kullback_leibler
+    return raw._replace(
+        chord_ninj=raw.chord_ninj.to(torch.float64),
+        kullback_leibler=(
+            _kl_from_limbs(kl).view(N, N) if complex_
+            else torch.zeros((N, N), dtype=torch.float64, device=kl.device)
+        ),
+    )
+
+
+def stats_from_rows(
+    words, sid, count, *, n_banks: int, simple: bool = False,
+    complex_: bool = False, solid_override=None,
+) -> JoinStats:
+    """``JoinStats`` of solid rows in (k-mer, sample)-ascending order
+    (``_raw_stats_from_rows``, converted)."""
+    return _finish(_raw_stats_from_rows(
+        words, sid, count, n_banks=n_banks, simple=simple,
+        complex_=complex_, solid_override=solid_override,
+    ), complex_)
 
 
 def count_join_stats(
@@ -421,6 +469,7 @@ def join_stats_from_spectra(
     kmer_bits: int,
     simple: bool = False,
     complex_: bool = False,
+    solid_override=None,
 ) -> JoinStats:
     """All sufficient statistics of pre-counted per-sample spectra
     (``simka_tpu``'s ``join_stats_from_spectra``, and its split form,
@@ -433,7 +482,23 @@ def join_stats_from_spectra(
     ``count_join_stats``; ``counts`` int32. Rows with a count outside
     [abundance_min, abundance_max] are dropped by the stable
     compaction, the rest sorted by (k-mer, sample).
+    ``solid_override`` as in ``_raw_stats_from_rows`` (one hash range
+    of the sweep, ``core.sweep``).
     """
+    return _finish(_raw_join_from_spectra(
+        words, sid, counts, abundance_min, abundance_max, n_banks=n_banks,
+        kmer_bits=kmer_bits, simple=simple, complex_=complex_,
+        solid_override=solid_override,
+    ), complex_)
+
+
+def _raw_join_from_spectra(
+    words, sid, counts, abundance_min: int, abundance_max: int, *,
+    n_banks: int, kmer_bits: int, simple: bool, complex_: bool,
+    solid_override=None,
+) -> JoinStats:
+    """``join_stats_from_spectra`` in the raw form of
+    ``_raw_stats_from_rows``."""
     from simka_tpu_torch.ops.compact import compact_rows
 
     words = _checked_rows(words, sid, n_banks, kmer_bits)
@@ -451,7 +516,7 @@ def join_stats_from_spectra(
     else:
         order = _lex_order((*words, sid))
         words, sid = tuple(w[order] for w in words), sid[order]
-    return stats_from_rows(
+    return _raw_stats_from_rows(
         words, sid, counts[order], n_banks=n_banks, simple=simple,
-        complex_=complex_,
+        complex_=complex_, solid_override=solid_override,
     )

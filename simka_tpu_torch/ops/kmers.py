@@ -30,6 +30,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 SENTINEL = 0xFFFFFFFF  # every uint32 word of an invalid window
@@ -280,4 +281,15 @@ def mix_hash_words(words32: Words) -> torch.Tensor:
     h = words32[0]
     for w in words32[1:]:
         h = mix_hash(h, w)
+    return h
+
+
+def mix_hash_np(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """Host copy of ``mix_hash`` on numpy uint32 arrays (uint32
+    wraparound)."""
+    with np.errstate(over="ignore"):
+        h = (hi ^ np.uint32(0x9E3779B9)) * np.uint32(0x85EBCA6B)
+        h = h ^ (h >> np.uint32(13))
+        h = (h ^ lo) * np.uint32(0xC2B2AE35)
+        h = h ^ (h >> np.uint32(16))
     return h

@@ -71,9 +71,14 @@ def write_community(
     n_frac: float = 0.001,
     fastq_samples: int = 0,
     motif_genomes: int = 0,
+    first: int = 0,
 ) -> str:
     """Write one file per sample plus ``input.txt``; return its path.
 
+    Sample s is the same in every community of a seed that has it, so
+    ``first`` > 0 writes only samples ``first`` .. ``n_samples - 1`` (the
+    ones before are drawn, not written, nor listed in ``input.txt``): a
+    larger community grows from a smaller one's files.
     The first ``fastq_samples`` samples are FASTQ, the rest FASTA. The
     first ``motif_genomes`` genomes are low-complexity tandem repeats,
     for the k-mer Shannon filter, of a motif cycling through three
@@ -92,6 +97,8 @@ def write_community(
     for s in range(n_samples):
         fastq = s < fastq_samples
         reads = sample_reads(rng, genomes, reads_per_sample, read_len, n_frac)
+        if s < first:
+            continue
         path = os.path.join(out_dir, f"S{s}." + ("fastq" if fastq else "fasta"))
         with open(path, "wb") as f:
             f.write(_records(reads, fastq))

@@ -5,9 +5,9 @@ Jensen-Shannon matrix to one unit of its 6th decimal, as in
 test_torch_cli_channels.py) and the metrics counters equal. Then:
 resume, checkpoints written by either package loaded by the other,
 recounts where the count key changes, adding a dataset, -keep-tmp, the
-reference's spill rule, a sample left empty by the read filter, the
-checkpoint files field for field against simka_tpu's, and which count
-failures are retried."""
+reference's spill rule into the sweep, a sample left empty by the read
+filter, the checkpoint files field for field against simka_tpu's, and
+which count failures are retried."""
 
 import glob
 import os
@@ -189,26 +189,28 @@ def test_count_dir_removed_without_keep_tmp(community, tmp_path):  # noqa: F811
 
 
 def test_spill_rule_routes_like_the_reference(community, tmp_path):  # noqa: F811
-    """The port raises where simka_tpu would take its out-of-core sweep
-    (rows x 16 B x 8 > -max-memory at k=21), before any CSV, and runs
-    in memory one megabyte above."""
+    """The port takes the out-of-core sweep where simka_tpu takes it
+    (rows x 16 B x 8 > -max-memory at k=21), with as many hash ranges,
+    and joins in memory one megabyte above, as the reference; the CSVs
+    equal the in-memory run's either way."""
     inp = community[3]
     _, m = _port(inp, tmp_path / "probe", 21, "-out-tmp",
                  str(tmp_path / "probe_tmp"))
     over = m["spectrum_rows"] * 16 * 8 // 1_000_000
     assert over >= 1
-    out = tmp_path / "over"
-    with pytest.raises(NotImplementedError, match="out-of-core sweep"):
-        _port(inp, out, 21, "-out-tmp", str(tmp_path / "t1"),
-              "-max-memory", str(over))
-    assert not glob.glob(os.path.join(str(out), "*.csv.gz"))
-    _port(inp, tmp_path / "fits", 21, "-out-tmp", str(tmp_path / "t2"),
-          "-max-memory", str(over + 1))
-    for mm, sweeps in ((over, True), (over + 1, False)):
+    mem_csv = _port(inp, tmp_path / "mem", 21)[0]
+    out = tmp_path / "ref"
+    for mm in (over, over + 1):
+        got_csv, got_m = _port(inp, tmp_path / f"port{mm}", 21, "-out-tmp",
+                               str(tmp_path / f"t{mm}"), "-max-memory",
+                               str(mm))
+        assert got_csv == mem_csv
         run_ref(RefConfig(input_filename=inp, output_dir=str(out / str(mm)),
                           output_tmp_dir=str(tmp_path / f"r{mm}"),
                           max_memory_mb=mm, verbose=False, n_shards=1))
-        assert ("sweep_ranges" in _outputs(str(out / str(mm)))[1]) == sweeps
+        ref_m = _outputs(str(out / str(mm)))[1]
+        assert got_m.get("sweep_ranges") == ref_m.get("sweep_ranges")
+        assert ("sweep_ranges" in got_m) == (mm == over)
 
 
 def test_sample_emptied_by_the_read_filter(tmp_path):

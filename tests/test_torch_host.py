@@ -198,6 +198,7 @@ def test_mix_hash_np_and_repartition_histogram_match():
     from simka_tpu.parallel.sharded import _mix_hash_np as ref_mix
 
     import simka_tpu_torch.core.pipeline as port_pipeline
+    from simka_tpu_torch.ops.kmers import mix_hash_np
 
     rng = np.random.default_rng(3)
 
@@ -206,7 +207,7 @@ def test_mix_hash_np_and_repartition_histogram_match():
             np.uint32)
 
     a, b = u32(5000), u32(5000)
-    np.testing.assert_array_equal(port_pipeline._mix_hash_np(a, b),
+    np.testing.assert_array_equal(mix_hash_np(a, b),
                                   ref_mix(a, b))
     spectra = [((u32(n), u32(n), u32(n)),
                 rng.integers(1, 9, size=n).astype(np.int64))
@@ -215,3 +216,53 @@ def test_mix_hash_np_and_repartition_histogram_match():
         port_pipeline.repartition_histogram(spectra, 2, 6),
         ref_pipeline.repartition_histogram(spectra, 2, 6),
     )
+
+
+def test_sweep_planning_copies_match(tmp_path, banks, monkeypatch):
+    """core/budget.py's estimate_total_instances and core/sweep.py's
+    choose_n_ranges and filtered_solid_per_bank against their
+    originals, and spectrum_rows_budget at equal budgets: a k=21 row is
+    16 bytes in both packages (one int64 word against two uint32
+    words, then the sample id and the count)."""
+    import gzip
+
+    import torch
+
+    import simka_tpu.core.budget as ref_budget
+    import simka_tpu.core.sweep as ref_sweep
+    import simka_tpu_torch.core.budget as port_budget
+    import simka_tpu_torch.core.sweep as port_sweep
+
+    gz = tmp_path / "g.fasta.gz"
+    with open(banks[0][0], "rb") as f, gzip.open(gz, "wb") as g:
+        g.write(f.read())
+    datasets = port_dsl.parse_input_file(_input_file(
+        tmp_path, banks[0] + [str(gz), str(tmp_path / "missing.fasta")],
+        banks[1]))
+    assert port_budget.estimate_total_instances(datasets) == (
+        ref_budget.estimate_total_instances(datasets)) > 0
+    for rows in (0, 1, 7812, 7813, 10**9):
+        for nw32 in (2, 3, 5):
+            for mm in (1, 5000):
+                for req in (0, 3):
+                    assert port_sweep.choose_n_ranges(rows, nw32, mm, req) == (
+                        ref_sweep.choose_n_ranges(rows, nw32, mm, req))
+    rng = np.random.default_rng(4)
+    counts = [rng.integers(1, 12, size=n).astype(np.int64) for n in (0, 50, 9)]
+    for amin, amax in ((0, 10**9), (2, 6)):
+        np.testing.assert_array_equal(
+            port_sweep.filtered_solid_per_bank(counts, amin, amax),
+            ref_sweep.filtered_solid_per_bank(counts, amin, amax))
+    for hbm in ("0.5", "3", "80000"):
+        monkeypatch.setenv("SIMKA_TPU_HBM_MB", hbm)
+        for mm in (1, 100, 5000):
+            assert port_budget.spectrum_rows_budget(
+                torch.device("cpu"), 1, mm) == (
+                ref_budget.spectrum_rows_budget(2, mm))
+
+
+def _input_file(tmp_path, *groups):
+    inp = tmp_path / "input.txt"
+    inp.write_text("".join(f"S{i}: {' , '.join(g)}\n"
+                           for i, g in enumerate(groups)))
+    return str(inp)

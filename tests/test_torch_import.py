@@ -15,6 +15,7 @@ def test_port_imports_no_jax():
         "simka_tpu_torch.cli, simka_tpu_torch.ops.countjoin, "
         "simka_tpu_torch.ops.compact, simka_tpu_torch.ops._kernels, "
         "simka_tpu_torch.ops.spectrum, simka_tpu_torch.core.checkpoint, "
+        "simka_tpu_torch.core.sweep, simka_tpu_torch.core.budget, "
         "simka_tpu_torch.io.packed, simka_tpu_torch.io.native, "
         "simka_tpu_torch.profiling.probes, simka_tpu_torch.profiling.trace\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "

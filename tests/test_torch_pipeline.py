@@ -3,8 +3,9 @@ simka_tpu.core.pipeline.run_simka (single-device path, n_shards=1) on
 the same simulated community files. The decompressed CSV text must be
 byte-equal and so must the repartition histogram; options outside the
 port's slice must raise NotImplementedError; -data-info gives the same
-read counts. The optional distances and
-the k-mer Shannon filter are in test_torch_cli_channels.py."""
+read counts. The optional distances and the k-mer Shannon filter are
+in test_torch_cli_channels.py, the out-of-core sweep in
+test_torch_sweep.py."""
 
 import glob
 import gzip
@@ -76,13 +77,15 @@ def test_cli_matches_reference(community, tmp_path, n, k, amin):
 
 @pytest.mark.parametrize(
     "flags",
-    [["-out-tmp", "tmp", "-sweep-ranges", "2"],
-     ["-coordinator", "localhost:1234"], ["-sweep-ranges", "2"],
-     ["-n-shards", "2"], ["-out-tmp", "tmp", "-max-memory", "1"]],
+    [["-out-tmp", "tmp", "-sweep-ranges", "2", "-n-shards", "2"],
+     ["-coordinator", "localhost:1234"], ["-sweep-ranges", "2", "-n-shards",
+                                          "4"],
+     ["-n-shards", "2"], ["-out-tmp", "tmp", "-max-memory", "1",
+                          "-n-shards", "8"]],
 )
 def test_options_outside_the_slice_raise(community, tmp_path, flags):
-    """The out-of-core sweep (forced, or where the reference's spill rule
-    takes it), several devices and several hosts."""
+    """Several devices (alone, or under the out-of-core sweep, forced or
+    where the reference's spill rule takes it) and several hosts."""
     flags = [str(tmp_path / f) if f == "tmp" else f for f in flags]
     out = str(tmp_path / "out")
     with pytest.raises(NotImplementedError):
@@ -124,8 +127,21 @@ def test_device_cuda_without_gpu_raises(community, tmp_path, monkeypatch):
     assert not glob.glob(os.path.join(str(tmp_path), "*.csv.gz"))
 
 
-def test_device_plan_overflow_raises(community, tmp_path, monkeypatch):
+def test_device_plan_overflow_raises(community, monkeypatch):
+    """Past the device plan the in-memory ingest raises
+    DeviceBudgetExceeded, having dropped its batches, before the
+    allocator would fail; compute_statistics restarts out-of-core from
+    it (tests/test_torch_sweep.py)."""
+    from simka_tpu_torch.config import SimkaConfig
+    from simka_tpu_torch.core.budget import DeviceBudgetExceeded
+    from simka_tpu_torch.core.pipeline import _compute_statistics_in_memory
+    from simka_tpu_torch.io.dsl import parse_input_file
+    from simka_tpu_torch.io.packed import PackedReadSource
+
     monkeypatch.setenv("SIMKA_TPU_HBM_MB", "0.01")
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        port_main(["-in", community[3], "-out", str(tmp_path), "-verbose",
-                   "0", "-device", "cpu"])
+    datasets = parse_input_file(community[3])
+    with pytest.raises(DeviceBudgetExceeded, match="device plan"):
+        _compute_statistics_in_memory(
+            [PackedReadSource(d.banks) for d in datasets],
+            [d.id for d in datasets], SimkaConfig(verbose=False),
+            torch.device("cpu"), 1 << 17, None, None)
