@@ -16,8 +16,11 @@ Phases (each raises on failure; nothing is caught):
      probe kernel against its plain version (DMA routes printed), the
      launch count of each of the four groups over that run; then per
      probe the kernel's CUDA-event time around the Python call, its
-     device time from torch.profiler (device events only, as
-     profiling/trace.py counts them), the plain version's time and,
+     device time from torch.profiler (the summed durations of the
+     trace's events of the hand kernels' own names, kept only when the
+     trace holds one for each launch counted; every event name of the
+     first probe's and of the bf16 product's calls printed), the plain
+     version's time and,
      where one torch call computes the same function, that call's
      times (for the bf16 products torch.mm(out_dtype=float32) on the
      operands cast beforehand); the bf16 product twice, bit-identical;
@@ -64,10 +67,11 @@ Phases (each raises on failure; nothing is caught):
      stream_batch_reads 2^18 (four partial spectra and their merge)
      equals the default call (one spectrum) word for word;
   9. the compaction kernel against its plain version in both forms at
-     the column layouts phases 5-8 and 10 gave it, each at the largest
-     E it saw (at least 2^24 rows for 5 to 7 columns; 6 columns, k in
-     94..124, added); then timed, both forms beside the least time the
-     card could take (bytes over 3.35 TB/s) and, for one column,
+     the column layouts phases 5-8, 10 and 11 gave it, each at the
+     largest E it saw up to 2^29 rows (at least 2^24 rows for 5 to 7
+     columns; 6 columns, k in 94..124, added); then timed, both forms
+     beside the least time the card could take (bytes over 3.35 TB/s)
+     and, for one column,
      torch.masked_select: at the join shape of the k=21 run, at an
      extraction batch (2^17 reads x 80 windows, kept 0.979), at the
      -out-tmp spectra join (word, sample id, count) and at the sweep's
@@ -88,14 +92,45 @@ Phases (each raises on failure; nothing is caught):
      Per run: route, spill tier, hash ranges, the count stage (parse,
      H2D, extraction, per-sample spectra, spill), the sweep (range
      extraction or load, joins), output, compaction launches (kept
-     total == n on each), peak device memory and spectrum rows.
+     total == n on each), peak device memory and spectrum rows;
+ 11. SimkaMin's sketch: (a) the MurmurHash3 kernel (csrc/minhash.cu)
+     against its plain version bit for bit (hashes, keep mask, valid and
+     kept counts) at E in {1, 4095, 2^20+3, 2^24} x validity {0, 0.5, 1}
+     x keep bound {all, 2^60}, edge words 0 and 2^62-1, and a misaligned
+     view; (b) small communities, `min sketch` on cuda and on cpu with
+     byte-equal sketch files: k 21 and 31 with and without -filter,
+     -filter-bloom at k=21, every sketch full; each route forced once
+     (batched with the prefilter, the bail to per-sample, one sample,
+     streaming with and without -filter, -filter's cut counted), all
+     equal; `min info` text and `min append` bytes equal; (c) phase 7's
+     8 samples through `min sketch` (the CLI's min_main with an
+     observer): -nb-kmers 100000 and 1000000 twice each (batched,
+     prefiltered, identical bytes), -filter at 100000 (the bail to
+     per-sample), the per-sample route's file == the batched one, one
+     sample streamed (stream_threshold 2^22) == its one-shot sketch, and
+     that sample on the CPU == the card's; then one -filter sample past
+     the card's default streaming threshold (the 8 files three times
+     over): the streaming route, cut at least once, == the same with the
+     threshold at 2^26, and its members and counts but the largest ==
+     the sketch without -filter; per run wall, route, prefilter
+     fraction, stages, instances, kept instances, -filter cuts,
+     hash-kernel and compaction launches (kept total == n on each), peak
+     device memory; (d) at the first full-size batch of a sample: the
+     hash kernel's time around the call and on the device (as the
+     probes'; every event name of the call printed) against its
+     plain version and bound (bytes or 32-bit integer instructions),
+     then at 2^24; the compaction at the prefilter's shape (the int64
+     hash, the run's own keep mask) in both forms beside its plain
+     version, bound and torch.masked_select.
 
 Prints, before the last line, the kernels' JSON record (per kernel:
 launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
 bound_by, library_ms -- null where no one torch call computes the same
-function -- launches_out_tmp and launches_sweep, the compaction's
-launches in phase 8's run 1 and in phase 10's 16-sample run, and extra
-fields) and the card's nvidia-smi line; the last
+function -- launches_out_tmp, launches_sweep and launches_sketch, the
+compaction's launches in phase 8's run 1, in phase 10's 16-sample run
+and in phase 11's -nb-kmers 100000 run, whose hash-kernel launches are
+murmur_kmers' launches, and extra fields) and the card's nvidia-smi
+line; the last
 line is the JSON result. Exits non-zero without a result when no CUDA
 device is present.
 """
@@ -117,6 +152,8 @@ import numpy as np
 import torch
 
 from simka_tpu_torch.core import sweep
+from simka_tpu_torch.minhash import device as minhash
+from simka_tpu_torch.minhash.sketch import STAGES
 from simka_tpu_torch.ops import _kernels, compact
 from simka_tpu_torch.profiling import probes, trace
 
@@ -130,6 +167,17 @@ UNBOUNDED = {"mat_abundance_whittaker.csv.gz"}
 # published peaks of one H100 SXM (NVIDIA's H100 datasheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+# 32-bit integer instructions: 64 integer lanes an SM, a quarter of the
+# datasheet's 67 TFLOP/s float32 rate (128 lanes, an FMA two operations)
+INT32_OPS_PER_S = 67e12 / 4
+# the hash kernel's 32-bit integer instructions a window (csrc/minhash.cu)
+MURMUR_INT_OPS = 66
+MURMUR_REPLACES = "simka_tpu/minhash/device.py:50"
+# the hand kernels' __global__ names in csrc/ (compact.cu, minhash.cu,
+# probes.cu): a device time counts only the trace's events of these
+HAND_KERNELS = ("compact_onepass", "murmur_kmers", "probe_")
+SKETCH_SIZES = (100_000, 1_000_000)  # `min sketch` and `min pipeline`
+PHASE9_MAX_ROWS = 1 << 29
 EXTRACT_ROWS = (1 << 17) * 80  # a 2^17-read batch of 100 bp reads, k=21
 # the -out-tmp join's abundance filter at k=21: (word, sample id, count)
 SPECTRA_JOIN = (torch.int64, torch.int32, torch.int32)
@@ -166,9 +214,9 @@ def rows(E: int, frac: float, gen: torch.Generator, dev, dtypes=None):
     return tuple(cols), kept, tuple(fills)
 
 
-def bound(nbytes: float, ops: float = 0.0):
+def bound(nbytes: float, ops: float = 0.0, ops_rate: float = BF16_OPS_PER_S):
     """(least ms the card could take, "bytes" or "operations")."""
-    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_rate * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
 
 
@@ -271,20 +319,50 @@ def kernel_vs_plain(dev) -> int:
     return err
 
 
-def device_ms(fn, reps: int = 20):
-    """Device time of one call of fn: the union of its device events
-    under torch.profiler (profiling/trace.py's count), over reps calls;
-    None when the trace shows no device event."""
+def traced(fn, reps: int, launches=None):
+    """(the device events (start, end, name) of reps calls of fn under
+    torch.profiler, after one call outside it; the kernel launches the
+    zero-arg reader ``launches`` counted meanwhile, or None)."""
     fn()
     torch.cuda.synchronize()
+    n0 = launches() if launches else 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    intervals = trace.device_intervals(prof.events())
-    return trace.union_us(intervals) / 1e3 / reps if intervals else None
+    return (trace.device_intervals(prof.events()),
+            launches() - n0 if launches else None)
+
+
+def device_ms(fn, reps: int = 20, only=HAND_KERNELS, launches=None):
+    """Device time of one call of fn: the summed durations of its device
+    events whose name holds one of ``only`` (default: the hand kernels'
+    own; None: every event) under torch.profiler, over reps calls (one
+    stream: the events do not overlap). None when the trace shows no
+    such event or, given the wrapper's launch counter ``launches``,
+    fewer events than launches: the trace lost some of the kernels that
+    ctypes launched."""
+    events, n = traced(fn, reps, launches)
+    intervals = [iv for iv in events
+                 if only is None or any(k in iv[2] for k in only)]
+    if not intervals or (n is not None and len(intervals) != n):
+        return None
+    return sum(e - s for s, e, _ in intervals) / 1e3 / reps
+
+
+def trace_names(tag: str, fn, launches, reps: int = 3) -> None:
+    """Print every device event name of reps calls of fn under
+    torch.profiler, with its count and summed time, the union of the
+    events' intervals and the hand-kernel launches counted meanwhile:
+    what the trace saw."""
+    events, n = traced(fn, reps, launches)
+    rows = trace.top_events(events, n=len(events))
+    say(f"trace of {tag}, {reps} calls, {n} hand-kernel launches: "
+        + ("; ".join(f"{name} x{c} {t:.1f} us" for t, c, name in rows)
+           or "no device event")
+        + f"; union {trace.union_us(events):.1f} us")
 
 
 def library_call(p, args):
@@ -320,6 +398,11 @@ def probe_bound(p, args):
     return bound(nbytes, ops)
 
 
+def probe_launches() -> int:
+    """Kernel launches of every probe group so far."""
+    return sum(probes.launches.values())
+
+
 def probe_phase(dev, seed: int) -> dict:
     """Phase 4: the probe path, then each probe's times; returns per
     group, and for the bf16 product ("gram"), {launches, max_abs_err,
@@ -350,11 +433,16 @@ def probe_phase(dev, seed: int) -> dict:
         lib = library_call(p, args)
         t = {
             "ms": time_ms(lambda: p.fn(*args), reps=20),
-            "device_ms": device_ms(lambda: p.fn(*args)),
+            "device_ms": device_ms(lambda: p.fn(*args),
+                                   launches=probe_launches),
             "plain_ms": time_ms(lambda: p.plain(*args), reps=20),
             "library_ms": None if lib is None else time_ms(lib, reps=20),
-            "library_device_ms": None if lib is None else device_ms(lib),
+            "library_device_ms": (None if lib is None
+                                  else device_ms(lib, only=None)),
         }
+        if p is probes.PROBES[0]:
+            trace_names(f"probe {p.name}", lambda: p.fn(*args),
+                        probe_launches)
         t["bound_ms"], by = probe_bound(p, args)
         g = groups[p.group]
         g["bound_by"] = "bytes" if g.get("bound_by", "bytes") == by == \
@@ -362,6 +450,8 @@ def probe_phase(dev, seed: int) -> dict:
         for k in keys:  # a group's sum is None once a probe lacks the time
             g[k] = None if g[k] is None or t[k] is None else g[k] + t[k]
         if p.name == "gram_bf16_normal":  # ka at its shape, normal values
+            trace_names(f"probe {p.name}", lambda: p.fn(*args),
+                        probe_launches)
             gram.update(t)
             gram["bound_ms"], gram["bound_by"] = probe_bound(p, args)
             a, b = p.fn(*args), p.fn(*args)
@@ -999,6 +1089,9 @@ def compaction_at_path_shapes(shapes: dict, join_rows: int, range_shape,
     for dtypes, E in sorted(shapes.items(), key=lambda kv: len(kv[0])):
         if len(dtypes) >= 5:
             E = max(E, 1 << 24)
+        # phase 11c's 24-file sample cuts and folds about 0.8 G rows; the
+        # kernel and its plain version side by side do not fit there
+        E = min(E, PHASE9_MAX_ROWS)
         cols, kept, fills = rows(E, 0.37, gen, dev, dtypes)
         err = max(err, compare(cols, kept, fills))
         names = "+".join(str(d).split(".")[-1] for d in dtypes)
@@ -1043,6 +1136,416 @@ def compaction_at_path_shapes(shapes: dict, join_rows: int, range_shape,
     return err, join, extract, spectra, ranged
 
 
+# ---- phase 11: SimkaMin's sketch ----------------------------------------
+
+
+def murmur_compare(words, valid, seed: int, thresh: int) -> None:
+    """The hash kernel against its plain version on the same inputs:
+    hashes, keep mask and (valid, kept) counts bit for bit."""
+    got = minhash.hash_kmer_words(words, valid, seed, thresh)
+    want = minhash.hash_kmer_words_plain(words, valid, seed, thresh)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("hashes", "keep", "counts"), got, want):
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(
+                f"murmur kernel != plain ({name}) at E={words.shape[0]}, "
+                f"valid {float(valid.float().mean()):.2f}, thresh {thresh}")
+
+
+def murmur_vs_plain(dev, seed: int) -> int:
+    """Phase 11a; returns the max abs error, 0 (anything else raises)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    saved = minhash.launches
+    for E in (1, 4095, (1 << 20) + 3, 1 << 24):
+        words = torch.randint(0, 1 << 62, (E,), generator=gen, device=dev)
+        words[0] = 0
+        words[-1] = (1 << 62) - 1
+        for frac in (0.0, 0.5, 1.0):
+            valid = torch.rand(E, generator=gen, device=dev) < frac
+            for thresh in (minhash.FULL64, 1 << 60):
+                murmur_compare(words, valid, seed, thresh)
+        del words, valid
+    # a view one element in: misaligned, so the scalar loop
+    words = torch.randint(0, 1 << 62, (4097,), generator=gen, device=dev)
+    valid = torch.rand(4097, generator=gen, device=dev) < 0.5
+    murmur_compare(words[1:], valid[1:], 100, 1 << 61)
+    minhash.launches = saved
+    torch.cuda.empty_cache()
+    say("murmur kernel == plain at every shape, validity and bound "
+        "(hashes, keep mask, counts; max_abs_err 0)")
+    return 0
+
+
+def time_murmur(tag: str, words, valid, seed: int, thresh: int,
+                reps: int = 20) -> dict:
+    """The hash kernel's and its plain version's times on the same
+    inputs, and the bound: 8 + 1 bytes read and 8 + 1 written a window
+    (the counts' 16 beside them), or MURMUR_INT_OPS 32-bit integer
+    instructions a window at INT32_OPS_PER_S."""
+    E = words.shape[0]
+    saved = minhash.launches
+    r = {
+        "ms": time_ms(lambda: minhash.hash_kmer_words(words, valid, seed,
+                                                      thresh), reps),
+        "plain_ms": time_ms(lambda: minhash.hash_kmer_words_plain(
+            words, valid, seed, thresh), 3),
+        "library_ms": None,  # no one torch call computes MurmurHash3
+        "device_ms": device_ms(lambda: minhash.hash_kmer_words(
+            words, valid, seed, thresh), reps, only=("murmur_kmers",),
+            launches=lambda: minhash.launches),
+    }
+    trace_names(f"the hash wrapper {tag}",
+                lambda: minhash.hash_kmer_words(words, valid, seed, thresh),
+                lambda: minhash.launches)
+    minhash.launches = saved
+    r["bound_ms"], r["bound_by"] = bound(18 * E + 16, MURMUR_INT_OPS * E,
+                                         INT32_OPS_PER_S)
+    say(f"murmur {tag} E={E}: kernel {r['ms']:.4f} ms around the call, "
+        f"{fmt(r['device_ms'])} on the device, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}; bytes {18 * E / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+        f"integer instructions "
+        f"{MURMUR_INT_OPS * E / INT32_OPS_PER_S * 1e3:.4f} ms)")
+    return r
+
+
+def sketch_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def min_cli(argv: list) -> dict:
+    """One `min` command through the CLI's min_main; its metrics."""
+    from simka_tpu_torch.minhash.cli import min_main
+
+    obs = {}
+    if min_main(argv, observer=obs) != 0:
+        raise AssertionError(f"min {argv[0]} failed")
+    return obs
+
+
+def min_info(path: str) -> str:
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        min_cli(["info", "-in", path])
+    return buf.getvalue()
+
+
+def small_sketch_gpu_vs_cpu(tmp: str, seed: int) -> None:
+    """Phase 11b."""
+    from simka_tpu_torch.minhash.pipeline import sketch_command
+    from simka_tpu_torch.minhash.sketch_file import SketchFile
+    from simka_tpu_torch.utils.community import write_community
+
+    inp = write_community(
+        os.path.join(tmp, "small_min"), seed=seed + 3, n_samples=4,
+        n_genomes=5, genome_len=20_000, reads_per_sample=3_000,
+        n_frac=0.01, fastq_samples=2,
+    )
+    one = os.path.join(tmp, "small_min", "input1.txt")
+    with open(inp) as f, open(one, "w") as g:
+        g.write(f.readline())
+    s = 500  # every sketch fills, -filter's too
+    saved = minhash.launches
+    minhash.launches = 0
+    files = {}
+    for tag, flags in (("k=21", ["-kmer-size", "21"]),
+                       ("k=21 -filter", ["-kmer-size", "21", "-filter"]),
+                       ("k=31", ["-kmer-size", "31"]),
+                       ("k=31 -filter", ["-kmer-size", "31", "-filter"]),
+                       ("k=21 -filter-bloom", ["-kmer-size", "21",
+                                               "-filter-bloom",
+                                               "-max-memory", "64"])):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"min_{tag.replace(' ', '_')}_{dev}.bin")
+            m = min_cli(["sketch", "-in", inp, "-out", path, "-nb-kmers",
+                         str(s), "-device", dev, *flags])
+            out[dev] = (sketch_bytes(path), m)
+            files[(tag, dev)] = path
+        (g, gm), (c, cm) = out["cuda"], out["cpu"]
+        if g != c:
+            raise AssertionError(f"small min sketch {tag}: cuda != cpu")
+        sizes = [len(SketchFile(files[(tag, "cuda")]).read_slot(i)[0])
+                 for i in range(4)]
+        if sizes != [s] * 4:
+            raise AssertionError(f"small min sketch {tag}: sketch sizes "
+                                 f"{sizes}, not all {s}")
+        say(f"small min sketch {tag}: cuda == cpu ({len(g)} B), route "
+            f"{gm['sketch_route']} ({gm.get('sketch_route_reason', '-')}), "
+            f"prefilter fraction {gm.get('prefilter_fraction', '-')}, "
+            f"{gm['kept_instances']} of {gm['instances']} instances kept")
+    # each route forced, on both devices, against the batched file
+    want = {False: sketch_bytes(files[("k=21", "cpu")]),
+            True: sketch_bytes(files[("k=21 -filter", "cpu")])}
+    for tag, route, kw, inp_r in (
+            ("bail to per-sample", ["one-shot"] * 4,
+             dict(instance_limit=1000), inp),
+            ("streaming", ["streaming"] * 4,
+             dict(instance_limit=0, stream_threshold=20_000), inp),
+            ("-filter streaming", ["streaming"] * 4,
+             dict(use_filter=True, instance_limit=0,
+                  stream_threshold=20_000), inp),
+            ("one sample", ["one-shot"], {}, one)):
+        for dev in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"min_route_{dev}.bin")
+            m = sketch_command(inp_r, path, 21, s, 100, verbose=False,
+                               device=dev, **kw)
+            got = sketch_bytes(path)
+            cuts = 4 if kw.get("use_filter") else 0
+            if m["sketch_route"] != "per-sample" or m[
+                    "sample_routes"] != route or m["filter_cuts"] != cuts:
+                raise AssertionError(f"small min sketch {tag} ({dev}): route "
+                                     f"{m['sketch_route']} "
+                                     f"{m['sample_routes']}, "
+                                     f"{m['filter_cuts']} -filter cuts")
+            if inp_r == inp and got != want[kw.get("use_filter", False)]:
+                raise AssertionError(f"small min sketch {tag} ({dev}): the "
+                                     "file differs from the batched one")
+            if inp_r == one:
+                first = SketchFile(files[("k=21", "cpu")]).read_slot(0)
+                mine = SketchFile(path).read_slot(0)
+                if not all(np.array_equal(a, b) for a, b in zip(first, mine)):
+                    raise AssertionError(f"small min sketch {tag} ({dev}): "
+                                         "!= the batched file's sample 0")
+                files[("one", dev)] = got
+        say(f"small min sketch route {tag}: {m['sketch_route']}, "
+            f"{m['sample_routes']}, {m['filter_cuts']} -filter cuts: cuda "
+            "== cpu == the batched file")
+    if files[("one", "cuda")] != files[("one", "cpu")]:
+        raise AssertionError("small min sketch one sample: cuda != cpu")
+    # info and append: the same path for each device's files
+    texts, appended = {}, {}
+    for dev in ("cuda", "cpu"):
+        a = os.path.join(tmp, "min_info_a.bin")
+        b = os.path.join(tmp, "min_info_b.bin")
+        shutil.copy(files[("k=21", dev)], a)
+        shutil.copy(files[("k=21 -filter", dev)], b)
+        min_cli(["append", "-in1", a, "-in2", b])
+        texts[dev], appended[dev] = min_info(a), sketch_bytes(a)
+    if texts["cuda"] != texts["cpu"] or appended["cuda"] != appended["cpu"]:
+        raise AssertionError("small min info / append: cuda != cpu")
+    if "Nb datasets: 8" not in texts["cuda"]:
+        raise AssertionError(f"min append: {texts['cuda']!r}")
+    if minhash.launches <= 0:
+        raise AssertionError("small min sketches never launched the hash "
+                             "kernel")
+    say(f"small min info and append: cuda == cpu (8 datasets, "
+        f"{len(appended['cuda'])} B); hash kernel launches "
+        f"{minhash.launches}")
+    minhash.launches = saved
+
+
+def sketch_run(tag: str, argv: list, out: str, recorder) -> tuple:
+    """One `min sketch` on the card through min_main, with the hash
+    kernel's and the compaction's launch counts and the peak memory
+    reset before it; returns (record, metrics)."""
+    minhash.launches = 0
+    rec, m = cli_run(tag, [], out, recorder, run=lambda: min_cli(argv))
+    rec["murmur_launches"] = minhash.launches
+    if minhash.launches <= 0:
+        raise AssertionError(f"{tag}: the run never launched the hash kernel")
+    stages = ", ".join(f"{k} {m[k]:.4f}" for k in STAGES)
+    say(f"full {tag}: wall {rec['wall_s']:.3f} s; route {m['sketch_route']} "
+        f"({m.get('sketch_route_reason', '-')}; samples "
+        f"{m['sample_routes'] or '-'}); prefilter fraction "
+        f"{m.get('prefilter_fraction', '-')}; stages {stages}; instances "
+        f"{m['instances']}, kept {m['kept_instances']}; hash kernel "
+        f"launches {rec['murmur_launches']}, compact launches "
+        f"{rec['launches']} (kernel kept total == n on each); peak device "
+        f"memory {rec['peak_gib']:.2f} GiB")
+    return rec, m
+
+
+def sketch_full_size(tmp: str, inp8: str, recorder, dev) -> dict:
+    """Phase 11c; returns the -nb-kmers 100000 run's record."""
+    from simka_tpu_torch.io.dsl import parse_input_file
+    from simka_tpu_torch.io.packed import PackedReadSource
+    from simka_tpu_torch.minhash.pipeline import sketch_command
+    from simka_tpu_torch.minhash.sketch import compute_sketch
+    from simka_tpu_torch.minhash.sketch_file import SketchFile
+
+    first, files = None, {}
+    for s in SKETCH_SIZES:
+        got = []
+        for r in range(2):
+            out = os.path.join(tmp, f"full_min_{s}_{r}.bin")
+            rec, m = sketch_run(
+                f"min sketch -nb-kmers {s} run {r}",
+                ["sketch", "-in", inp8, "-out", out, "-nb-kmers", str(s),
+                 "-device", "cuda"], out, recorder)
+            if m["sketch_route"] != "batched" or not (
+                    m["prefilter_fraction"] < 0.25):
+                raise AssertionError(f"min sketch {s}: route "
+                                     f"{m['sketch_route']}, prefilter "
+                                     f"{m['prefilter_fraction']}")
+            first = first or rec
+            got.append(sketch_bytes(out))
+            files[s] = out
+        if got[0] != got[1]:
+            raise AssertionError(f"min sketch {s}: the two runs differ")
+        say(f"full min sketch -nb-kmers {s}: both runs identical")
+    out = os.path.join(tmp, "full_min_filter.bin")
+    rec, m = sketch_run("min sketch -filter -nb-kmers 100000",
+                        ["sketch", "-in", inp8, "-out", out, "-filter",
+                         "-device", "cuda"], out, recorder)
+    if m["sketch_route"] != "per-sample" or m["sample_routes"] != [
+            "one-shot"] * 8 or not m.get("sketch_route_reason",
+                                         "").startswith("stream"):
+        raise AssertionError(f"min sketch -filter: route {m['sketch_route']}"
+                             f" ({m.get('sketch_route_reason')})")
+    out = os.path.join(tmp, "full_min_per_sample.bin")
+    minhash.launches = 0
+    rec, m = cli_run("per-sample route", [], out, recorder,
+                     run=lambda: sketch_command(inp8, out, 21, SKETCH_SIZES[0],
+                                                100, verbose=False,
+                                                instance_limit=0))
+    if m["sketch_route"] != "per-sample" or sketch_bytes(out) != sketch_bytes(
+            files[SKETCH_SIZES[0]]):
+        raise AssertionError("min sketch per-sample route: the file differs "
+                             "from the batched one")
+    say(f"full min sketch -nb-kmers 100000, per-sample route (sketch_command, "
+        f"instance_limit=0): == the batched file; wall {rec['wall_s']:.3f} "
+        f"s, samples {m['sample_routes']}, hash kernel launches "
+        f"{minhash.launches}, compact launches {rec['launches']}, peak "
+        f"{rec['peak_gib']:.2f} GiB")
+    # one sample: streamed, one-shot, on the CPU
+    d = parse_input_file(inp8)[0]
+    sketches = {}
+    for tag, kw in (("one-shot", {}),
+                    ("streaming", dict(stream_threshold=1 << 22)),
+                    ("cpu", dict(device="cpu"))):
+        obs = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sketches[tag] = compute_sketch(
+            PackedReadSource(d.banks, encoding="gatb"), 21, SKETCH_SIZES[0],
+            100, observer=obs, **kw)
+        wall = time.perf_counter() - t0
+        recorder.check_totals()
+        route = ["streaming" if tag == "streaming" else "one-shot"]
+        if obs["sample_routes"] != route:
+            raise AssertionError(f"full min sketch of {d.id} ({tag}): route "
+                                 f"{obs['sample_routes']}")
+        say(f"full min sketch of {d.id} ({tag}): {obs['sample_routes']}, "
+            f"wall {wall:.3f} s, {obs['instances']} instances")
+    batched = SketchFile(files[SKETCH_SIZES[0]]).read_slot(0)
+    for tag, (h, c) in sketches.items():
+        if not (np.array_equal(h, batched[0]) and np.array_equal(c,
+                                                                 batched[1])):
+            raise AssertionError(f"full min sketch of {d.id} ({tag}) != the "
+                                 "batched file's slot 0")
+    say(f"full min sketch of {d.id}: streaming == one-shot == cpu == the "
+        "batched file's slot 0")
+    return first
+
+
+def filter_past_threshold(tmp: str, inp8: str, recorder, dev) -> dict:
+    """Phase 11c's last part: one -filter sample past the card's default
+    streaming threshold (phase 7's 8 files three times over, one sample,
+    every k-mer seen at least three times), through the CLI: the
+    streaming route, cut at least once. The same sample with the
+    threshold forced to 2^26 (cut earlier) gives the same file; without
+    -filter (the O(s) fold) the members and every count but the
+    largest member's (the heap quirk, whose entry differs) are the
+    same. Returns the CLI run's record and metrics."""
+    from simka_tpu_torch.io.dsl import parse_input_file
+    from simka_tpu_torch.minhash.pipeline import sketch_command
+    from simka_tpu_torch.minhash.sketch import _sketch_stream_threshold
+    from simka_tpu_torch.minhash.sketch_file import SketchFile
+
+    files = [f for d in parse_input_file(inp8) for g in d.banks for f in g]
+    inp = os.path.join(tmp, "input_min_big.txt")
+    with open(inp, "w") as f:
+        f.write("big: " + ", ".join(files * 3) + "\n")
+    threshold = _sketch_stream_threshold(dev)
+    out = os.path.join(tmp, "full_min_big_filter.bin")
+    rec, m = sketch_run("min sketch -filter of one sample of 24 files",
+                        ["sketch", "-in", inp, "-out", out, "-filter",
+                         "-device", "cuda"], out, recorder)
+    if not (m["sample_routes"] == ["streaming"] and m["filter_cuts"] >= 1
+            and m["instances"] > threshold
+            and m["kept_instances"] < m["instances"]):
+        raise AssertionError(f"min sketch -filter past the threshold "
+                             f"{threshold}: routes {m['sample_routes']}, "
+                             f"{m['filter_cuts']} cuts, {m['instances']} "
+                             f"instances, {m['kept_instances']} kept")
+    say(f"full min sketch -filter of one 24-file sample: "
+        f"{m['instances']} instances past the threshold {threshold}, "
+        f"{m['filter_cuts']} cuts, {m['kept_instances']} kept")
+    runs = {}
+    for tag, use_filter, kw in (
+            ("-filter, threshold 2^26", True, dict(stream_threshold=1 << 26)),
+            ("no -filter", False, {})):
+        path = os.path.join(tmp, "full_min_big.bin")
+        minhash.launches = 0
+        r, mm = cli_run(f"min sketch {tag} of one 24-file sample", [], path,
+                        recorder, run=lambda: sketch_command(
+                            inp, path, 21, SKETCH_SIZES[0], 100, use_filter,
+                            verbose=False, **kw))
+        if mm["sample_routes"] != ["streaming"]:
+            raise AssertionError(f"min sketch {tag}: {mm['sample_routes']}")
+        runs[tag] = (sketch_bytes(path), SketchFile(path).read_slot(0))
+        say(f"full min sketch {tag} of one 24-file sample: wall "
+            f"{r['wall_s']:.3f} s, {mm['filter_cuts']} cuts, "
+            f"{mm['kept_instances']} of {mm['instances']} kept, hash kernel "
+            f"launches {minhash.launches}, compact launches {r['launches']}, "
+            f"peak {r['peak_gib']:.2f} GiB")
+    if runs["-filter, threshold 2^26"][0] != sketch_bytes(out):
+        raise AssertionError("min sketch -filter: the cut schedule changed "
+                             "the file")
+    (h, c), (h2, c2) = SketchFile(out).read_slot(0), runs["no -filter"][1]
+    if not (len(h) == SKETCH_SIZES[0] and np.array_equal(h, h2)
+            and np.array_equal(c[:-1], c2[:-1])):
+        raise AssertionError("min sketch -filter of the 24-file sample: "
+                             "members or counts differ from the fold's")
+    say("full min sketch of one 24-file sample: -filter at the default "
+        "threshold == at 2^26; members and counts but the largest == "
+        "without -filter")
+    return rec, m
+
+
+def sketch_shapes(inp8: str, dev, seed: int) -> tuple:
+    """Phase 11d: (the hash kernel's times at one full-size batch and at
+    2^24, the compaction's at the prefilter's shape)."""
+    from simka_tpu_torch.io.dsl import parse_input_file
+    from simka_tpu_torch.io.packed import PackedReadSource
+    from simka_tpu_torch.minhash.sketch import prefilter_threshold
+
+    srcs = [PackedReadSource(d.banks, encoding="gatb")
+            for d in parse_input_file(inp8)]
+    thresh, frac = prefilter_threshold(srcs, SKETCH_SIZES[0], False)
+    packed, vb, n_reads, _ = next(srcs[0].iter_packed(1 << 15, k=21))
+    words, valid = minhash.gatb_words(torch.from_numpy(packed).to(dev),
+                                      torch.from_numpy(vb).to(dev), 21)
+    batch = time_murmur(f"at a full-size batch ({n_reads} reads x "
+                        f"{words.shape[0] // packed.shape[0]} windows)",
+                        words, valid, 100, thresh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    big = 1 << 24
+    w24 = torch.randint(0, 1 << 42, (big,), generator=gen, device=dev)
+    v24 = torch.rand(big, generator=gen, device=dev) < 0.97
+    at_2e24 = time_murmur("at 2^24", w24, v24, 100, thresh, 10)
+    del w24, v24
+    saved = minhash.launches, compact.launches
+    h, keep, _ = minhash.hash_kmer_words(words, valid, 100, thresh)
+    cols, fills = (h,), (minhash.FULL64,)
+    compare(cols, keep, fills)
+    kept = float(keep.float().mean())
+    prefilter = time_compaction(
+        f"at the sketch prefilter (i64 hash, kept {kept:.4f} of the batch's "
+        f"windows, keep bound {frac:.4f} of the hash range)",
+        cols, keep, fills, 20)
+    minhash.launches, compact.launches = saved
+    torch.cuda.empty_cache()
+    return batch, at_2e24, prefilter
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1083,6 +1586,13 @@ def main() -> int:
                                             dev)
             sweep_run = out_of_core_full_size(tmp, args.seed, inp8, inp9,
                                               yardsticks, rec)
+            m_err = murmur_vs_plain(dev, args.seed)
+            small_sketch_gpu_vs_cpu(tmp, args.seed)
+            rec.check_totals()
+            sketch_main = sketch_full_size(tmp, inp8, rec, dev)
+            filter_past_threshold(tmp, inp8, rec, dev)
+            murmur_batch, murmur_2e24, prefilter = sketch_shapes(
+                inp8, dev, args.seed)
     main_run = paths["default k=21"]
     c_err, join, extract, spectra, ranged = compaction_at_path_shapes(
         rec.shapes, main_run["instances"], rec.range_shape, dev, args.seed)
@@ -1109,6 +1619,23 @@ def main() -> int:
         **{f"sweep_extract_{k}": ranged[k] for k in (
             "ms", "plain_ms", "bound_ms", "library_ms", "fill_ms",
             "plain_fill_ms", "fill_bound_ms")},
+        "launches_sketch": sketch_main["launches"],
+        **{f"sketch_prefilter_{k}": prefilter[k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "fill_ms",
+            "plain_fill_ms", "fill_bound_ms")},
+    }, {
+        "name": "murmur_kmers",
+        "route": "cuda",
+        "source": "simka_tpu_torch/csrc/minhash.cu",
+        "replaces": MURMUR_REPLACES,
+        "launches": sketch_main["murmur_launches"],
+        "max_abs_err": m_err,
+        **{k: murmur_batch[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "device_ms")},
+        **{f"{k}_2e24": murmur_2e24[k] for k in ("ms", "plain_ms",
+                                                 "bound_ms", "bound_by",
+                                                 "device_ms")},
     }]
     gram = probe["gram"]
     kernels.append({

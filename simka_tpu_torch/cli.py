@@ -1,11 +1,14 @@
-"""Command-line interface of the port: the `simka` tool, exact mode.
+"""Command-line interface of the port: the `simka` tool in exact mode,
+and SimkaMin's `min sketch`, `min info` and `min append`
+(``minhash/cli.py``).
 
 The flags are ``simka_tpu.cli``'s, plus ``-device {cuda,cpu}``
 (default cuda; asking for cuda without a GPU is an error, never a
 silent CPU run). Options outside the port's slice raise
 NotImplementedError naming their ROADMAP item.
 
-Run as: python -m simka_tpu_torch.cli -in input.txt -out dir [-device cuda]
+Run as: python -m simka_tpu_torch.cli [min <subcommand>] -in input.txt
+-out dir [-device cuda]
 """
 
 from __future__ import annotations
@@ -94,12 +97,11 @@ def simka_main(argv) -> int:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] == "min":
-        raise NotImplementedError(
-            "SimkaMin ('min') is not ported to simka_tpu_torch yet "
-            "(ROADMAP queue 1, item 11)"
-        )
     try:
+        if argv and argv[0] == "min":
+            from simka_tpu_torch.minhash.cli import min_main
+
+            return min_main(argv[1:])
         return simka_main(argv)
     except (FileNotFoundError, ValueError) as e:
         print(f"simka-tpu-torch: error: {e}", file=sys.stderr)

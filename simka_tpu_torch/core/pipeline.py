@@ -93,13 +93,15 @@ def _iter_read_chunks(seqs, batch_reads: int):
 
 
 def _packed_batch_stream(
-    dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads, timers
+    dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads, timers,
+    encoding="acgt",
 ):
     """Yield (sample_id, packed, validbits, n_valid) host batches for
     every dataset: the native parse+filter+2-bit-pack single pass when
     the source is a PackedReadSource (io/packed.py), the Python
-    encode+pack otherwise. ``n_valid`` is the exact count of valid
-    k-mer windows when the native parser knows it, else None.
+    encode+pack otherwise, in the base codes of ``encoding``. ``n_valid``
+    is the exact count of valid k-mer windows when the native parser
+    knows it, else None.
 
     Stage time accumulates in ``timers['parse_pack_s']``."""
     from simka_tpu_torch.io.packed import host_pack_chunk
@@ -112,7 +114,7 @@ def _packed_batch_stream(
             batches = src.iter_packed(batch_reads, k=k)
         else:
             batches = (
-                (*host_pack_chunk(chunk, k), len(chunk), None)
+                (*host_pack_chunk(chunk, k, encoding), len(chunk), None)
                 for chunk in _iter_read_chunks(src, batch_reads)
             )
         for packed, vb, n, n_valid in batches:

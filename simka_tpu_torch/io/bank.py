@@ -472,3 +472,19 @@ def encode_batch(
 
 def count_file_reads(path: str) -> int:
     return sum(1 for _ in iter_sequences(path))
+
+
+# gatb-core's base codes (SimkaMin's hash input): A=0, C=1, T=2, G=3,
+# our A=0, C=1, G=2, T=3 remapped
+_GATB_REMAP = np.array([0, 1, 3, 2], dtype=np.uint8)
+
+
+def encode_batch_gatb(
+    seqs: List[bytes], max_len: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """``encode_batch`` in gatb-core's base codes (``simka_tpu``'s
+    ``minhash.sketch.encode_batch_gatb``); invalid stays INVALID_CODE."""
+    codes, lengths = encode_batch(seqs, max_len=max_len)
+    valid = codes < 4
+    codes[valid] = _GATB_REMAP[codes[valid]]
+    return codes, lengths

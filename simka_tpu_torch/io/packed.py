@@ -16,7 +16,11 @@ from typing import Iterator, Tuple
 
 import numpy as np
 
-from simka_tpu_torch.io.bank import encode_batch, iter_dataset_reads
+from simka_tpu_torch.io.bank import (
+    encode_batch,
+    encode_batch_gatb,
+    iter_dataset_reads,
+)
 
 
 def pack_codes_host(codes):
@@ -41,15 +45,12 @@ def pack_codes_host(codes):
 
 def host_pack_chunk(chunk, k: int, encoding: str = "acgt"):
     """Python fallback of the native packed batch: encode + 2-bit pack
-    one list of reads."""
-    if encoding != "acgt":
-        raise NotImplementedError(
-            f"encoding {encoding!r}: the gatb encoding serves SimkaMin, "
-            "which is not ported yet (ROADMAP queue 1, item 11)"
-        )
+    one list of reads, in our base codes (``"acgt"``) or gatb-core's
+    (``"gatb"``, SimkaMin's hash input)."""
+    enc = encode_batch_gatb if encoding == "gatb" else encode_batch
     max_len = max((len(s) for s in chunk), default=k)
     width = -(-max(max_len, k) // 8) * 8
-    codes, _ = encode_batch(chunk, max_len=width)
+    codes, _ = enc(chunk, max_len=width)
     pad_b = -(-len(chunk) // 256) * 256 - len(chunk)
     if pad_b:
         codes = np.concatenate(

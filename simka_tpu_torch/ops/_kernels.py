@@ -1,10 +1,11 @@
 """Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-The kernels have a plain C interface: ``nvcc`` compiles them into one
-shared library at first use, in the git-ignored build directory
-``simka_tpu_torch/_build``, and ctypes
-loads it. Nothing is built or imported when this module is imported:
-the CPU tests import every module, and the CPU has no ``nvcc``.
+The kernels have a plain C interface: at first use ``nvcc`` compiles
+each source into an object, all of them at once, then links the
+objects into one shared library in the git-ignored build directory
+``simka_tpu_torch/_build``, and ctypes loads it. Nothing is built or
+imported when this module is imported: the CPU tests import every
+module, and the CPU has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -21,10 +22,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 _LIB_NAME = "libsimka_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -44,26 +43,56 @@ def _nvcc() -> str:
     )
 
 
+def sources() -> list:
+    """The kernel sources, ``csrc/*.cu``."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def compile_library(out: str, defines=(), verbose: bool = False) -> None:
+    """Compile every ``csrc/*.cu`` with ``defines`` and link them into
+    the shared library ``out``: one ``nvcc`` a source, all started
+    together, then one link."""
+    srcs = sources()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *COMPILE_FLAGS, *defines, "-Xptxas", "-v", "-c",
+                 "-o", o, s],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(srcs, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(s, p.returncode, log) for s, p, log in
+                  zip(srcs, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{os.path.basename(s)} ({rc}):\n{log}"
+                for s, rc, log in failed))
+        proc = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", out, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        if verbose:
+            print("".join(logs) + proc.stdout + proc.stderr, flush=True)
+
+
 def build(verbose: bool = False) -> str:
     """Compile ``csrc/*.cu`` into the build directory when the library
     is missing or older than a source; return the library's path."""
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     lib_path = os.path.join(BUILD_DIR, _LIB_NAME)
-    newest = max(os.path.getmtime(s) for s in sources)
+    newest = max(os.path.getmtime(s) for s in sources())
     if os.path.exists(lib_path) and os.path.getmtime(lib_path) >= newest:
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        compile_library(tmp, verbose=verbose)
+    except BaseException:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
+        raise
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -82,10 +111,13 @@ def lib():
             vp = ctypes.c_void_p
             handle.simka_compact_tile_rows.restype = ctypes.c_int64
             handle.simka_compact_tile_rows.argtypes = []
-            i32, i64 = ctypes.c_int, ctypes.c_int64
+            i32, i64, u64 = ctypes.c_int, ctypes.c_int64, ctypes.c_uint64
             for name, args in (
                 ("simka_compact_rows", [vp, i64, i32, vp, vp, vp, vp, i64,
                                         i32, vp, vp]),
+                # csrc/minhash.cu
+                ("simka_murmur_kmers", [vp, vp, i64, u64, u64, vp, vp, vp,
+                                        vp]),
                 # csrc/probes.cu
                 ("simka_probe_scale_f32", [vp, vp, i64, ctypes.c_float, vp]),
                 ("simka_probe_map_i32", [i32, vp, vp, i64, i32, vp, vp]),

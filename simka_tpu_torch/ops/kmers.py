@@ -20,9 +20,11 @@ loads the other's (``uint32_words`` on save, ``from_uint32_words`` on
 load).
 
 Base codes: A=0, C=1, G=2, T=3, invalid = 255; complement is
-``code ^ 3``. The canonical k-mer is min(forward, reverse complement);
-when the two are equal the forward word is kept (the same k-mer
-either way).
+``code ^ 3``. SimkaMin hashes k-mers in gatb-core's codes (A=0, C=1,
+T=2, G=3), whose complement is ``code ^ 2``: the extraction takes the
+mask as ``comp_xor``. The canonical k-mer is min(forward, reverse
+complement); when the two are equal the forward word is kept (the same
+k-mer either way).
 """
 
 from __future__ import annotations
@@ -84,8 +86,9 @@ def _word_spans(k: int):
     return spans
 
 
-def canonical_kmers(codes: torch.Tensor, k: int):
-    """Canonical k-mers of every window of a [B, L] code batch.
+def canonical_kmers(codes: torch.Tensor, k: int, comp_xor: int = 3):
+    """Canonical k-mers of every window of a [B, L] code batch, the
+    complement of a base code being ``code ^ comp_xor``.
 
     Returns (words, valid): ``n_words(k)`` [B, W] int64 words, most
     significant first, and the [B, W] bool validity, W = L - k + 1. A
@@ -112,7 +115,7 @@ def canonical_kmers(codes: torch.Tensor, k: int):
         r = torch.zeros_like(f)
         for i in range(lo, hi):
             f = (f << 2) | c[:, i : i + W]
-            r = (r << 2) | (c[:, k - 1 - i : k - 1 - i + W] ^ 3)
+            r = (r << 2) | (c[:, k - 1 - i : k - 1 - i + W] ^ comp_xor)
         fwd.append(f)
         rc.append(r)
     if len(fwd) == 1:
@@ -180,14 +183,14 @@ def from_uint32_words(words32: Words, k: int) -> Words:
     return tuple(reversed(out))
 
 
-def extract_canonical_kmers(codes: torch.Tensor, k: int):
+def extract_canonical_kmers(codes: torch.Tensor, k: int, comp_xor: int = 3):
     """Canonical k-mers of a [B, L] uint8 code batch as (hi, lo, valid)
     (``simka_tpu``'s ``extract_canonical_kmers``, k <= 31): [B, W]
     int64 tensors of uint32 values, SENTINEL in both at invalid
     windows, and the [B, W] bool validity."""
     if k > 31:
         raise ValueError(f"k={k}: (hi, lo) holds k <= 31")
-    words, valid = canonical_kmers(codes, k)
+    words, valid = canonical_kmers(codes, k, comp_xor)
     hi, lo = uint32_words(words, k, valid)
     return hi, lo, valid
 
@@ -201,7 +204,7 @@ def extract_canonical_kmers_multi(codes: torch.Tensor, k: int):
 
 def extract_packed(
     packed: torch.Tensor, validbits: torch.Tensor, k: int,
-    multi: bool = False,
+    comp_xor: int = 3, multi: bool = False,
 ) -> Words:
     """Unpack a packed batch and extract canonical k-mers.
 
@@ -212,7 +215,7 @@ def extract_packed(
     codes = unpack_codes(packed, validbits)
     if multi:
         return extract_canonical_kmers_multi(codes, k)[0]
-    hi, lo, _ = extract_canonical_kmers(codes, k)
+    hi, lo, _ = extract_canonical_kmers(codes, k, comp_xor)
     return hi, lo
 
 

@@ -100,3 +100,24 @@ def words_from_host(words32: Sequence[np.ndarray], k: int,
         .to(torch.int64) & 0xFFFFFFFF
         for w in words32
     ), k)
+
+
+def hash_spectrum(h: torch.Tensor):
+    """Distinct 64-bit hashes of a stream and, for each, its count and
+    its first and second occurrence positions (``simka_tpu``'s
+    ``hash_spectrum``; SimkaMin's -filter cut on the streaming route).
+
+    ``h``: [E] int64 holding uint64 hashes; any value is a hash. Returns
+    (hashes ascending unsigned, counts, first, second), [n] int64 each.
+    For a hash seen once ``second`` is the reference's value there, the
+    next row's position (its own at the last row); callers read it only
+    at count >= 2. One stable sort of the order key keeps each run's
+    positions ascending.
+    """
+    sign = -(1 << 63)
+    E = h.shape[0]
+    key, pos = torch.sort(h ^ sign, stable=True)
+    starts = _first_of_run(key).nonzero().squeeze(1)
+    ends = torch.cat([starts[1:], starts.new_full((1,), E)])
+    second = pos[torch.clamp(starts + 1, max=E - 1)] if E else pos
+    return key[starts] ^ sign, ends - starts, pos[starts], second

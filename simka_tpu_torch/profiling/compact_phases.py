@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import sys
 import tempfile
 
@@ -54,12 +53,7 @@ def _build(tmp: str) -> str:
     from simka_tpu_torch.ops import _kernels
 
     out = os.path.join(tmp, "libsimka_kernels.so")
-    subprocess.run(
-        [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-DSIMKA_COMPACT_STAMPS",
-         "-o", out, os.path.join(_kernels.CSRC, "compact.cu"),
-         os.path.join(_kernels.CSRC, "probes.cu")],
-        check=True,
-    )
+    _kernels.compile_library(out, defines=("-DSIMKA_COMPACT_STAMPS",))
     return out
 
 

@@ -266,3 +266,102 @@ def _input_file(tmp_path, *groups):
     inp.write_text("".join(f"S{i}: {' , '.join(g)}\n"
                            for i, g in enumerate(groups)))
     return str(inp)
+
+
+def test_murmur_copy_matches():
+    import simka_tpu.minhash.murmur as ref_murmur
+    import simka_tpu_torch.minhash.murmur as port_murmur
+
+    rng = np.random.default_rng(6)
+    vals = rng.integers(0, 1 << 64, size=5000, dtype=np.uint64)
+    vals[:3] = [0, (1 << 64) - 1, 1 << 63]
+    for seed in (0, 100, (1 << 32) - 1):
+        np.testing.assert_array_equal(port_murmur.murmur3_u64(vals, seed),
+                                      ref_murmur.murmur3_u64(vals, seed))
+
+
+def test_sketch_file_copy_matches(tmp_path):
+    """sketch_file.py: files written by either package read in the
+    other, and create / write_slot / write_ids / append / info give the
+    same bytes and text."""
+    import simka_tpu.minhash.sketch_file as ref_sf
+    import simka_tpu_torch.minhash.sketch_file as port_sf
+
+    rng = np.random.default_rng(7)
+    slots = [np.sort(rng.integers(1, 1 << 64, size=n, dtype=np.uint64))
+             for n in (40, 0, 17)]
+    counts = [rng.integers(1, 99, size=len(h)).astype(np.uint32)
+              for h in slots]
+    files = {}
+    for name, mod in (("port", port_sf), ("ref", ref_sf)):
+        for part, rows in (("a", (0, 1, 2)), ("b", (2, 0))):
+            path = str(tmp_path / f"{name}_{part}.sketch")
+            sf = mod.SketchFile.create(path, 21, 40, 100, len(rows))
+            for i, r in enumerate(rows):
+                sf.write_slot(i, slots[r], counts[r])
+            sf.write_ids([f"S{r}" for r in rows])
+            files[(name, part)] = path
+        mod.SketchFile(files[(name, "a")]).append(
+            mod.SketchFile(files[(name, "b")]))
+    with open(files[("port", "a")], "rb") as f, \
+            open(files[("ref", "a")], "rb") as g:
+        assert f.read() == g.read()
+    for reader, writer in ((port_sf, "ref"), (ref_sf, "port")):
+        sf = reader.SketchFile(files[(writer, "a")])
+        assert sf.ids() == ["S0", "S1", "S2", "S2", "S0"]
+        for i, r in enumerate((0, 1, 2, 2, 0)):
+            h, c = sf.read_slot(i)
+            np.testing.assert_array_equal(h, slots[r])
+            np.testing.assert_array_equal(c, counts[r])
+    assert port_sf.SketchFile(files[("ref", "a")]).info().replace(
+        "ref_a", "port_a") == ref_sf.SketchFile(files[("port", "a")]).info()
+
+
+def test_bloom_copy_matches():
+    import simka_tpu.minhash.bloom as ref_bloom
+    import simka_tpu_torch.minhash.bloom as port_bloom
+
+    for mm, cores in ((8000, 1), (8000, 4), (0, 1), (100, 0)):
+        assert port_bloom.bloom_bits_from_config(mm, cores) == (
+            ref_bloom.bloom_bits_from_config(mm, cores))
+    h = np.array([50, 50, 10, 10, 30, 30, 50, 30, 10], dtype=np.uint64)
+    v = np.array([0, 0, 1, 1, 2, 2, 0, 2, 1], dtype=np.uint64)
+    rng = np.random.default_rng(8)
+    vals = rng.integers(0, 1 << 40, size=300, dtype=np.uint64)
+    pick = rng.integers(0, 300, size=4000)
+    for hashes, values, s, bits in (
+            (h, v, 2, 1 << 20),
+            (vals[pick] * np.uint64(2654435761), vals[pick], 50, 10000),
+            (vals[pick] ^ np.uint64(12345), vals[pick], 10**6, 4096)):
+        got = port_bloom.replay_sketch_bloom(hashes, values, s, bits)
+        want = ref_bloom.replay_sketch_bloom(hashes, values, s, bits)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    # the streaming form, fed in pieces
+    rp = port_bloom.BloomReplay(50, 10000)
+    for part in np.array_split(np.arange(4000), 5):
+        rp.feed(vals[pick][part] * np.uint64(2654435761), vals[pick][part])
+    want = ref_bloom.replay_sketch_bloom(vals[pick] * np.uint64(2654435761),
+                                         vals[pick], 50, 10000)
+    for g, w in zip(rp.result(), want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_gatb_encoding_copies_match():
+    """io/bank.py's encode_batch_gatb against minhash/sketch.py's, and
+    io/packed.py's gatb host_pack_chunk against the reference's."""
+    from simka_tpu.minhash.sketch import encode_batch_gatb as ref_enc
+    from simka_tpu_torch.io.bank import encode_batch_gatb
+
+    rng = np.random.default_rng(9)
+    bases = np.frombuffer(b"ACGTNacgtn", np.uint8)
+    reads = [bytes(rng.choice(bases, size=int(rng.integers(5, 90))))
+             for _ in range(70)]
+    for width in (None, 48, 96):
+        for g, w in zip(encode_batch_gatb(reads, width),
+                        ref_enc(reads, width)):
+            np.testing.assert_array_equal(g, w)
+    for k in (15, 21, 31):
+        for g, w in zip(port_packed.host_pack_chunk(reads, k, "gatb"),
+                        ref_packed.host_pack_chunk(reads, k, "gatb")):
+            np.testing.assert_array_equal(g, w)

@@ -17,7 +17,11 @@ def test_port_imports_no_jax():
         "simka_tpu_torch.ops.spectrum, simka_tpu_torch.core.checkpoint, "
         "simka_tpu_torch.core.sweep, simka_tpu_torch.core.budget, "
         "simka_tpu_torch.io.packed, simka_tpu_torch.io.native, "
-        "simka_tpu_torch.profiling.probes, simka_tpu_torch.profiling.trace\n"
+        "simka_tpu_torch.profiling.probes, simka_tpu_torch.profiling.trace, "
+        "simka_tpu_torch.minhash.cli, simka_tpu_torch.minhash.pipeline, "
+        "simka_tpu_torch.minhash.sketch, simka_tpu_torch.minhash.device, "
+        "simka_tpu_torch.minhash.bloom, simka_tpu_torch.minhash.murmur, "
+        "simka_tpu_torch.minhash.sketch_file\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'simka_tpu' "
         "or m.startswith('simka_tpu.'))\n"
@@ -40,6 +44,8 @@ def test_port_builds_only_its_own_sources():
 
     port = os.path.join(REPO, "simka_tpu_torch") + os.sep
     for path in (native.SRC, native.BUILD_DIR, _kernels.CSRC,
-                 _kernels.BUILD_DIR):
+                 _kernels.BUILD_DIR, *_kernels.sources()):
         assert os.path.abspath(path).startswith(port), path
     assert os.path.exists(native.SRC)
+    names = [os.path.basename(s) for s in _kernels.sources()]
+    assert {"compact.cu", "minhash.cu", "probes.cu"} <= set(names)

@@ -115,8 +115,10 @@ def test_data_info_matches_reference(community, capsys):
 
 
 def test_min_subcommand_raises():
+    """`min sketch`, `info` and `append` run (tests/test_torch_sketch.py);
+    the `min` subcommands of ROADMAP item 11b still raise."""
     with pytest.raises(NotImplementedError):
-        port_main(["min", "sketch"])
+        port_main(["min", "distance", "-in1", "a", "-in2", "b", "-out", "c"])
 
 
 def test_device_cuda_without_gpu_raises(community, tmp_path, monkeypatch):
