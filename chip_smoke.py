@@ -121,7 +121,27 @@ Phases (each raises on failure; nothing is caught):
      plain version and bound (bytes or 32-bit integer instructions),
      then at 2^24; the compaction at the prefilter's shape (the int64
      hash, the run's own keep mask) in both forms beside its plain
-     version, bound and torch.masked_select.
+     version, bound and torch.masked_select;
+ 12. SimkaMin's distance: (a) the sketch-pair kernel
+     (csrc/min_distance.cu) against its plain version, tallies bit for
+     bit, on every pair of small lists (an empty sketch, lengths 1 and
+     unequal, identical and disjoint sketches, the all-ones hash as a
+     member, hashes with the top bit set; each also == the host walk)
+     and on 100 in-memory sketches of 1,000,000 (ascending distinct
+     uint64 over the full range, ~28% from a shared pool, counts
+     1-255; 4,950 pairs; == the host walk on 50 seeded pairs), timed
+     there; (b) small communities, `min pipeline` (k 21 and 31, with and
+     without -filter, resident route, one pair launch) then `min
+     update` on cuda and on cpu, every file equal; `min distance`
+     whole, in 3 tiles of 2 x 2 and across two files, `export` and
+     `matrix-update`, cuda == cpu, tiles == whole; (c) phase 7's 8
+     samples through `min pipeline` at -nb-kmers 100000 and 1000000:
+     the resident route, sketch.bin == phase 11c's `min sketch` file,
+     the matrices == the host walk over it; `min update` with the 9th
+     sample == a joint 9-sample pipeline (every file); per run wall,
+     stages, route, kernel launches, peak memory; then the kernel at
+     the 1,000,000 run's sketches (28 pairs) against its plain
+     version, the host walk and its bound.
 
 Prints, before the last line, the kernels' JSON record (per kernel:
 launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
@@ -129,7 +149,10 @@ bound_by, library_ms -- null where no one torch call computes the same
 function -- launches_out_tmp, launches_sweep and launches_sketch, the
 compaction's launches in phase 8's run 1, in phase 10's 16-sample run
 and in phase 11's -nb-kmers 100000 run, whose hash-kernel launches are
-murmur_kmers' launches, and extra fields) and the card's nvidia-smi
+murmur_kmers' launches; min_pair_distance's launches are phase 12c's
+`min pipeline -nb-kmers 1000000`'s, its times at that run's sketches,
+wide_* at phase 12a's 100 x 1,000,000; extra fields) and the card's
+nvidia-smi
 line; the last
 line is the JSON result. Exits non-zero without a result when no CUDA
 device is present.
@@ -153,6 +176,7 @@ import torch
 
 from simka_tpu_torch.core import sweep
 from simka_tpu_torch.minhash import device as minhash
+from simka_tpu_torch.minhash import device_distance as dd
 from simka_tpu_torch.minhash.sketch import STAGES
 from simka_tpu_torch.ops import _kernels, compact
 from simka_tpu_torch.profiling import probes, trace
@@ -174,9 +198,14 @@ INT32_OPS_PER_S = 67e12 / 4
 MURMUR_INT_OPS = 66
 MURMUR_REPLACES = "simka_tpu/minhash/device.py:50"
 # the hand kernels' __global__ names in csrc/ (compact.cu, minhash.cu,
-# probes.cu): a device time counts only the trace's events of these
-HAND_KERNELS = ("compact_onepass", "murmur_kmers", "probe_")
+# min_distance.cu, probes.cu): a device time counts only the trace's
+# events of these
+HAND_KERNELS = ("compact_onepass", "murmur_kmers", "min_pair_tallies",
+                "probe_")
 SKETCH_SIZES = (100_000, 1_000_000)  # `min sketch` and `min pipeline`
+PAIR_REPLACES = "simka_tpu/minhash/device_distance.py:85"
+WIDE_N, WIDE_S = 100, 1_000_000  # phase 12a's in-memory sketches
+HOST_WALK_PAIRS = 50
 PHASE9_MAX_ROWS = 1 << 29
 EXTRACT_ROWS = (1 << 17) * 80  # a 2^17-read batch of 100 bp reads, k=21
 # the -out-tmp join's abundance filter at k=21: (word, sample id, count)
@@ -371,6 +400,12 @@ def library_call(p, args):
     k6's one-hot built, outside the timed call). Timed here only: the
     port never calls it."""
     x = args[-1]
+    if p.name.startswith("dma_align"):
+        # the window the kernel copies: DMA_LEN elements from off to off+37
+        o = int(args[0].reshape(-1)[0])
+        src = x[o:o + probes.DMA_LEN]
+        dst = torch.zeros_like(x)[o + 37:o + 37 + probes.DMA_LEN]
+        return lambda: dst.copy_(src)
     if p.name in ("basic_2d_vmem", "basic_1d_vmem", "reshape_f32"):
         return lambda: torch.mul(x, 2)
     if p.name in ("reshape_i32", "reshape_2d_i32"):
@@ -463,6 +498,25 @@ def probe_phase(dev, seed: int) -> dict:
             f"{t['plain_ms']:.4f} ms; one torch call {fmt(t['library_ms'])} "
             f"({fmt(t['library_device_ms'])} on the device); bound "
             f"{t['bound_ms']:.6f} ms")
+    # kd's predicate alone: the one-CTA max-reduce to a device flag
+    # against torch.amax over the same [2048, 128] f32 input
+    (x,) = probes.probe_inputs(next(p for p in probes.PROBES
+                                    if p.name == "cond_gram_normal"), seed,
+                               dev)
+    kernel = lambda: probes._max_positive("mosaic_features", x)
+    amax = lambda: torch.amax(x)
+    pred = {
+        "max_pred_ms": time_ms(kernel, reps=20),
+        "max_pred_device_ms": device_ms(kernel, only=("probe_max_positive",),
+                                        launches=probe_launches),
+        "max_pred_library_ms": time_ms(amax, reps=20),
+        "max_pred_library_device_ms": device_ms(amax, only=None),
+    }
+    groups["mosaic_features"].update(pred)
+    say(f"kd's max predicate: kernel {pred['max_pred_ms']:.4f} ms around "
+        f"the call, {fmt(pred['max_pred_device_ms'])} on the device; "
+        f"torch.amax {pred['max_pred_library_ms']:.4f} ms "
+        f"({fmt(pred['max_pred_library_device_ms'])} on the device)")
     probes.launches.update(saved[0])  # timing launches are not the path's
     probes.gram_launches = saved[1]
     for name, g in groups.items():
@@ -1546,6 +1600,377 @@ def sketch_shapes(inp8: str, dev, seed: int) -> tuple:
     return batch, at_2e24, prefilter
 
 
+# ---- phase 12: SimkaMin's distance ---------------------------------------
+
+
+def pair_compare(tag: str, d1, d2, ii, jj) -> torch.Tensor:
+    """The pair kernel against its plain version on the same inputs,
+    tallies bit for bit; returns the kernel's tallies."""
+    (o1, l1, h1, c1), (o2, l2, h2, c2) = d1, d2
+    got = dd.pair_tallies(h1, c1, o1, l1, h2, c2, o2, l2, ii, jj)
+    want = dd.pair_tallies_plain(h1, c1, o1, l1, h2, c2, o2, l2, ii, jj)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = (got != want).any(1).nonzero()[:5].flatten().tolist()
+        raise AssertionError(f"pair kernel != plain ({tag}), first bad pairs "
+                             f"{bad}")
+    return got
+
+
+def host_walk(sk1, sk2, ii, jj) -> np.ndarray:
+    """[P, 2] float32 (jaccard, braycurtis) of the host walk
+    (minhash/distance.py::sketch_pair_distance) on pairs (ii, jj) of
+    the host sketch lists ``sk1`` and ``sk2`` (callables i -> sketch),
+    one pair a worker thread (numpy's sorts release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from simka_tpu_torch.minhash.distance import sketch_pair_distance
+
+    walk = lambda ij: sketch_pair_distance(*sk1(int(ij[0])),
+                                           *sk2(int(ij[1])))
+    with ThreadPoolExecutor(os.cpu_count() or 4) as ex:
+        return np.array(list(ex.map(walk, zip(ii, jj))),
+                        np.float64).astype(np.float32).reshape(-1, 2)
+
+
+def host_walk_check(tag: str, sk1, sk2, ii, jj, tallies) -> None:
+    """The kernel's distances (from its tallies) against the host walk
+    on pairs (ii, jj)."""
+    got = np.stack([x.cpu().numpy()
+                    for x in dd.distances_from_tallies(tallies)], 1)
+    want = host_walk(sk1, sk2, ii, jj)
+    bad = np.nonzero((got != want).any(1))[0]
+    if len(bad):
+        p = bad[0]
+        raise AssertionError(
+            f"pair distances ({tag}) pair ({ii[p]}, {jj[p]}): kernel "
+            f"{got[p].tolist()} != host walk {want[p].tolist()}")
+
+
+def edge_sketches(seed: int) -> dict:
+    """Phase 12a's small cases as host (hashes uint64, counts uint32)
+    lists, every pair of each list compared."""
+    rng = np.random.default_rng([seed, 12])
+    ones = np.uint64(2**64 - 1)
+    pool = rng.integers(0, 2**64, 4000, dtype=np.uint64)
+
+    def sk(m, lo=0, hi=2**64, frac=0.5):
+        h = np.unique(np.concatenate([
+            rng.integers(lo, hi, m, dtype=np.uint64),
+            pool[rng.integers(0, len(pool), int(m * frac))]]))
+        return h, rng.integers(1, 256, len(h)).astype(np.uint32)
+
+    empty = (np.empty(0, np.uint64), np.empty(0, np.uint32))
+    one = lambda v: (np.array([v], np.uint64), np.array([3], np.uint32))
+    low, high = sk(3000, 0, 2**62, 0), sk(2000, 2**62, 2**63, 0)
+    with_ones = [(np.unique(np.append(h, ones)),
+                  rng.integers(1, 256, len(h) + 1).astype(np.uint32))
+                 for h, _ in (sk(m) for m in (1, 40, 2500))]
+    return {
+        "an empty sketch": [empty, sk(100), empty, sk(3)],
+        "lengths 1 and unequal": [one(pool[0]), one(pool[1]), sk(1),
+                                  sk(5000), sk(17), sk(700)],
+        "identical and disjoint": [low, low, high, sk(900)],
+        "the all-ones hash as a member": with_ones + [one(ones), sk(60)],
+        "hashes with the top bit set": [sk(m, 2**63, 2**64) for m in
+                                        (10, 300, 2999)] + [sk(400)],
+    }
+
+
+def wide_sketches(n: int, s: int, gen, dev):
+    """n sketches of exactly s ascending distinct uint64 hashes (int64
+    bits, the full range) in the exact-length layout on ``dev``: the s
+    smallest of 0.45 s draws from a shared pool of s / 2 hashes and
+    0.75 s of the sample's own (about 28% from the pool), counts
+    1..255."""
+    full = dict(generator=gen, device=dev, dtype=torch.int64)
+    pool = torch.randint(-2**63, 2**63 - 1, (s // 2,), **full)
+    hs = []
+    for _ in range(n):
+        drawn = pool[torch.randint(0, s // 2, (int(0.45 * s),), **full)]
+        own = torch.randint(-2**63, 2**63 - 1, (int(0.75 * s),), **full)
+        key = torch.unique(torch.cat([drawn, own]) ^ minhash.SIGN)[:s]
+        if key.shape[0] != s:
+            raise AssertionError(f"wide sketch of {key.shape[0]} < {s}")
+        hs.append(key ^ minhash.SIGN)
+    lens = torch.full((n,), s, dtype=torch.int64, device=dev)
+    counts = torch.randint(1, 256, (n * s,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    return (torch.cumsum(lens, 0) - lens, lens, torch.cat(hs), counts)
+
+
+def time_pairs(tag: str, d, ii, jj, t, reps: int, plain_reps: int) -> dict:
+    """The pair kernel's time around the call and on the device (CUDA
+    events around its launch alone: the traces hold no event of it),
+    its plain version's, and the bound from this run's tallies ``t``:
+    each pair reads the processed + shared_distinct members the walk
+    needs (12 B each), the two last hashes for t_exh, its indices,
+    offsets and lengths, and writes its four tallies."""
+    (o, ln, h, c) = d
+    args = (h, c, o, ln, h, c, o, ln, ii, jj)
+    fn = lambda: dd.pair_tallies(*args)
+    saved = dd.launches
+    r = {
+        "ms": time_ms(fn, reps),
+        "device_ms": time_ms(lambda: dd._pair_tallies_cuda(*args), reps),
+        "plain_ms": time_ms(lambda: dd.pair_tallies_plain(*args), plain_reps),
+        "library_ms": None,  # no one torch call computes the tallies
+    }
+    trace_names(f"the pair wrapper {tag}", fn, lambda: dd.launches, reps=1)
+    dd.launches = saved
+    members = int((t[:, 0] + t[:, 1]).sum())
+    r["bytes"] = members * 12 + len(ii) * (2 * 8 + 2 * 4 + 2 * 16 + 4 * 8)
+    r["bound_ms"], r["bound_by"] = bound(r["bytes"])
+    say(f"pair tallies {tag} ({len(ii)} pairs): kernel {r['ms']:.4f} ms "
+        f"around the call, {r['device_ms']:.4f} ms on the device (events "
+        f"around the launch), plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bytes']} B: {members} members the "
+        f"walk needs)")
+    return r
+
+
+def pair_vs_plain(dev, seed: int) -> tuple:
+    """Phase 12a: the pair kernel against its plain version on every
+    small case and on WIDE_N in-memory sketches of WIDE_S, the latter's
+    distances against the host walk on HOST_WALK_PAIRS seeded pairs;
+    returns (max_abs_err, the wide shape's times)."""
+    saved = dd.launches
+    for tag, sk in edge_sketches(seed).items():
+        d = dd.ship_sketches(sk, dev)
+        ii, jj = (torch.from_numpy(a).to(dev)
+                  for a in dd.sketch_pairs(len(sk), len(sk), False))
+        t = pair_compare(tag, d, d, ii, jj)
+        host_walk_check(tag, sk.__getitem__, sk.__getitem__,
+                        ii.cpu().numpy(), jj.cpu().numpy(), t)
+        say(f"pair kernel == plain == host walk: {tag} "
+            f"({len(sk)} x {len(sk)} pairs, lengths "
+            f"{[len(h) for h, _ in sk]})")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    d = wide_sketches(WIDE_N, WIDE_S, gen, dev)
+    ii, jj = (torch.from_numpy(a).to(dev)
+              for a in dd.sketch_pairs(WIDE_N, WIDE_N, True))
+    torch.cuda.synchronize()
+    say(f"wide sketches: {WIDE_N} x {WIDE_S} made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t = pair_compare(f"{WIDE_N} x {WIDE_S}", d, d, ii, jj)
+    o, _, h, c = d
+    host = lambda i: (h[i * WIDE_S:(i + 1) * WIDE_S].cpu().numpy().view(
+        np.uint64), c[i * WIDE_S:(i + 1) * WIDE_S].cpu().numpy().view(
+        np.uint32))
+    pick = np.random.default_rng(seed).choice(len(ii), HOST_WALK_PAIRS,
+                                              replace=False)
+    t0 = time.perf_counter()
+    host_walk_check(f"{WIDE_N} x {WIDE_S}", host, host,
+                    ii.cpu().numpy()[pick], jj.cpu().numpy()[pick],
+                    t[torch.from_numpy(pick).to(dev)])
+    shared = float((t[:, 1].double() / t[:, 0].double()).mean())
+    say(f"pair kernel == plain at {WIDE_N} x {WIDE_S} ({len(ii)} pairs, "
+        f"mean shared share of processed {shared:.4f}); == host walk on "
+        f"{HOST_WALK_PAIRS} pairs ({time.perf_counter() - t0:.1f} s)")
+    dd.launches = saved
+    wide = time_pairs(f"at {WIDE_N} x {WIDE_S}", d, ii, jj, t, 3, 1)
+    del d, t
+    torch.cuda.empty_cache()
+    return 0, wide
+
+
+def run_files(out: str) -> dict:
+    """Every file under a `min` output dir: .bin bytes, CSV text."""
+    files = {}
+    for p in sorted(glob.glob(os.path.join(out, "**", "*"), recursive=True)):
+        if os.path.isfile(p):
+            files[os.path.relpath(p, out)] = (
+                gzip.open(p, "rt").read() if p.endswith(".gz")
+                else sketch_bytes(p))
+    return files
+
+
+def small_min_distance_gpu_vs_cpu(tmp: str, seed: int) -> None:
+    """Phase 12b."""
+    from simka_tpu_torch.utils.community import write_community
+
+    root = os.path.join(tmp, "small_min_dist")
+    inp5 = write_community(root, seed=seed + 5, n_samples=5, n_genomes=5,
+                           genome_len=20_000, reads_per_sample=3_000,
+                           n_frac=0.01, fastq_samples=2)
+    with open(inp5) as f:
+        lines = f.readlines()
+    inp, new = os.path.join(root, "input4.txt"), os.path.join(root, "new.txt")
+    with open(inp, "w") as f:
+        f.writelines(lines[:4])
+    with open(new, "w") as f:
+        f.writelines(lines[4:])
+    saved = dd.launches
+    for tag, flags in (("k=21", ["-kmer-size", "21"]),
+                       ("k=21 -filter", ["-kmer-size", "21", "-filter"]),
+                       ("k=31", ["-kmer-size", "31"]),
+                       ("k=31 -filter", ["-kmer-size", "31", "-filter"])):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"min_pipe_{tag.replace(' ', '_')}_{dev}")
+            dd.launches = 0
+            m = min_cli(["pipeline", "-in", inp, "-out", out, "-nb-kmers",
+                         "500", "-device", dev, *flags])
+            if m["min_route"] != "resident" or m["pair_launches"] != (
+                    1 if dev == "cuda" else 0) or dd.launches != m[
+                    "pair_launches"]:
+                raise AssertionError(f"small min pipeline {tag} ({dev}): "
+                                     f"route {m['min_route']}, "
+                                     f"{m['pair_launches']} pair launches")
+            filt = ["-filter"] if "-filter" in flags else []
+            min_cli(["update", "-in", new, "-out", out, "-device", dev,
+                     *filt])
+            got[dev] = run_files(out)
+        if got["cuda"] != got["cpu"] or len(got["cuda"]) != 5:
+            raise AssertionError(f"small min pipeline + update {tag}: cuda "
+                                 f"!= cpu ({sorted(got['cuda'])})")
+        say(f"small min pipeline {tag} + update: cuda == cpu "
+            f"({sorted(got['cuda'])}; resident route, 1 pair launch)")
+    # distance whole, in tiles and across two files; export and
+    # matrix-update on the results
+    x = os.path.join(tmp, "min_dist_old.bin")
+    y = os.path.join(tmp, "min_dist_new.bin")
+    for path, samples in ((x, inp), (y, new)):
+        min_cli(["sketch", "-in", samples, "-out", path, "-nb-kmers", "500",
+                 "-device", "cuda"])
+    runs = {
+        "whole": [[]],
+        "tiles": [["-n-i", "2", "-n-j", "2"],
+                  ["-start-j", "2", "-n-i", "2", "-n-j", "2"],
+                  ["-start-i", "2", "-start-j", "2", "-n-i", "2"]],
+    }
+    got = {}
+    for dev in ("cuda", "cpu"):
+        for tag, calls in runs.items():
+            out = os.path.join(tmp, f"min_dist_{tag}_{dev}")
+            for call in calls:
+                min_cli(["distance", "-in1", x, "-in2", x, "-out", out,
+                         "-device", dev, *call])
+            got[tag, dev] = run_files(out)
+        for tag, a, b in (("evn", x, y), ("nvn", y, y)):
+            out = os.path.join(tmp, f"min_dist_{tag}_{dev}")
+            min_cli(["distance", "-in1", a, "-in2", b, "-out", out,
+                     "-device", dev])
+            got[tag, dev] = run_files(out)
+        csv = os.path.join(tmp, f"min_dist_csv_{dev}")
+        min_cli(["export", "-in", os.path.join(tmp, f"min_dist_whole_{dev}"),
+                 "-in1", x, "-in2", x, "-out", csv])
+        got["export", dev] = run_files(csv)
+        grown = os.path.join(tmp, f"min_dist_grown_{dev}")
+        shutil.copytree(os.path.join(tmp, f"min_dist_whole_{dev}"), grown)
+        min_cli(["matrix-update", "-in", grown, "-in-evn",
+                 os.path.join(tmp, f"min_dist_evn_{dev}"), "-in-nvn",
+                 os.path.join(tmp, f"min_dist_nvn_{dev}"), "-n-old", "4",
+                 "-n-new", "1"])
+        got["matrix-update", dev] = run_files(grown)
+    for tag in ("whole", "tiles", "evn", "nvn", "export", "matrix-update"):
+        if got[tag, "cuda"] != got[tag, "cpu"] or not got[tag, "cuda"]:
+            raise AssertionError(f"small min {tag}: cuda != cpu")
+    if got["tiles", "cuda"] != got["whole", "cuda"]:
+        raise AssertionError("small min distance: tiles != whole")
+    say("small min distance (whole, 3 tiles, two files), export, "
+        "matrix-update: cuda == cpu; tiles == whole")
+    dd.launches = saved
+
+
+def min_pipeline_run(tag: str, argv: list, out: str, recorder) -> tuple:
+    """One `min pipeline` or `min update` on the card through min_main,
+    with every kernel's launch count and the peak memory reset before
+    it; returns (record, metrics)."""
+    minhash.launches = 0
+    dd.launches = 0
+    rec, m = cli_run(tag, [], out, recorder, run=lambda: min_cli(argv))
+    rec["murmur_launches"] = minhash.launches
+    rec["pair_launches"] = dd.launches
+    if minhash.launches <= 0 or dd.launches <= 0:
+        raise AssertionError(f"{tag}: hash kernel launches "
+                             f"{minhash.launches}, pair kernel launches "
+                             f"{dd.launches}")
+    stages = ", ".join(f"{k} {m[k]:.4f}" for k in (*STAGES, "distance_s")
+                       if k in m)
+    say(f"full {tag}: wall {rec['wall_s']:.3f} s; route "
+        f"{m.get('min_route', '-')} (sketch {m['sketch_route']}); stages "
+        f"{stages}; instances {m['instances']}, kept "
+        f"{m['kept_instances']}; launches: pair kernel "
+        f"{rec['pair_launches']}, hash kernel {rec['murmur_launches']}, "
+        f"compaction {rec['launches']} (kept total == n on each); peak "
+        f"device memory {rec['peak_gib']:.2f} GiB")
+    return rec, m
+
+
+def min_pipeline_full_size(tmp: str, inp8: str, inp9: str, recorder,
+                           dev) -> tuple:
+    """Phase 12c; returns (the -nb-kmers 1000000 run's record, the
+    kernel's times at that run's sketches)."""
+    from simka_tpu_torch.minhash.distance import MATRIX_NAMES
+    from simka_tpu_torch.minhash.sketch_file import SketchFile
+
+    recs = {}
+    for s in SKETCH_SIZES:
+        out = os.path.join(tmp, f"full_min_pipe_{s}")
+        rec, m = min_pipeline_run(
+            f"min pipeline -nb-kmers {s}",
+            ["pipeline", "-in", inp8, "-out", out, "-nb-kmers", str(s),
+             "-device", "cuda"], out, recorder)
+        if m["min_route"] != "resident" or m["sketch_route"] != "batched":
+            raise AssertionError(f"min pipeline {s}: route {m['min_route']},"
+                                 f" sketch {m['sketch_route']}")
+        path = os.path.join(out, "sketch", "sketch.bin")
+        if sketch_bytes(path) != sketch_bytes(
+                os.path.join(tmp, f"full_min_{s}_0.bin")):
+            raise AssertionError(f"min pipeline {s}: sketch.bin != phase "
+                                 "11c's min sketch file")
+        t0 = time.perf_counter()
+        sf = SketchFile(path)
+        sk = [sf.read_slot(i) for i in range(8)]
+        ii, jj = dd.sketch_pairs(8, 8, True)
+        walked = host_walk(sk.__getitem__, sk.__getitem__, ii, jj)
+        for name, w in zip(MATRIX_NAMES, walked.T):
+            want = np.zeros((8, 8), np.float32)
+            want[ii, jj] = want[jj, ii] = w
+            got = np.fromfile(os.path.join(out, "distance", name + ".bin"),
+                              np.float32).reshape(8, 8)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"min pipeline {s}: {name} != the host "
+                                     "walk over its sketch file")
+        check_matrices(csv_texts(out), 8)
+        say(f"full min pipeline -nb-kmers {s}: resident route; sketch.bin "
+            f"== phase 11c's file; matrices == the host walk over it "
+            f"({time.perf_counter() - t0:.1f} s)")
+        recs[s] = (rec, out, sk)
+    # update with the 9th sample == a joint 9-sample pipeline
+    s = SKETCH_SIZES[-1]
+    upd = os.path.join(tmp, "full_min_update")
+    shutil.copytree(recs[s][1], upd)
+    new = os.path.join(tmp, "input_min_9th.txt")
+    with open(inp9) as f, open(new, "w") as g:
+        g.write(f.readlines()[8])
+    min_pipeline_run(f"min update (+ the 9th sample) -nb-kmers {s}",
+                     ["update", "-in", new, "-out", upd, "-device", "cuda"],
+                     upd, recorder)
+    joint = os.path.join(tmp, "full_min_joint")
+    min_pipeline_run(f"min pipeline of 9 samples -nb-kmers {s}",
+                     ["pipeline", "-in", inp9, "-out", joint, "-nb-kmers",
+                      str(s), "-device", "cuda"], joint, recorder)
+    if run_files(upd) != run_files(joint):
+        raise AssertionError("min update with the 9th sample != the joint "
+                             "9-sample pipeline")
+    say("full min update with the 9th sample == the joint 9-sample "
+        "pipeline (matrices, sketch.bin, CSVs)")
+    # the kernel at this run's shape: its 8 sketches of s
+    d = dd.ship_sketches(recs[s][2], dev)
+    ii, jj = (torch.from_numpy(a).to(dev) for a in dd.sketch_pairs(8, 8, True))
+    t = pair_compare(f"min pipeline -nb-kmers {s}", d, d, ii, jj)
+    host_walk_check(f"min pipeline -nb-kmers {s}", recs[s][2].__getitem__,
+                    recs[s][2].__getitem__, ii.cpu().numpy(),
+                    jj.cpu().numpy(), t)
+    times = time_pairs(f"at min pipeline -nb-kmers {s} (8 samples)", d, ii,
+                       jj, t, 10, 3)
+    return recs[s][0], times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1593,6 +2018,11 @@ def main() -> int:
             filter_past_threshold(tmp, inp8, rec, dev)
             murmur_batch, murmur_2e24, prefilter = sketch_shapes(
                 inp8, dev, args.seed)
+            p_err, wide = pair_vs_plain(dev, args.seed)
+            small_min_distance_gpu_vs_cpu(tmp, args.seed)
+            rec.check_totals()
+            pipe_main, pipe_times = min_pipeline_full_size(tmp, inp8, inp9,
+                                                           rec, dev)
     main_run = paths["default k=21"]
     c_err, join, extract, spectra, ranged = compaction_at_path_shapes(
         rec.shapes, main_run["instances"], rec.range_shape, dev, args.seed)
@@ -1636,6 +2066,18 @@ def main() -> int:
         **{f"{k}_2e24": murmur_2e24[k] for k in ("ms", "plain_ms",
                                                  "bound_ms", "bound_by",
                                                  "device_ms")},
+    }, {
+        "name": "min_pair_distance",
+        "route": "cuda",
+        "source": "simka_tpu_torch/csrc/min_distance.cu",
+        "replaces": PAIR_REPLACES,
+        "launches": pipe_main["pair_launches"],
+        "max_abs_err": p_err,
+        **{k: pipe_times[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms",
+                                      "device_ms")},
+        **{f"wide_{k}": wide[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "device_ms")},
     }]
     gram = probe["gram"]
     kernels.append({
@@ -1656,6 +2098,7 @@ def main() -> int:
             **{k: g[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "device_ms", "library_device_ms")},
+            **{k: v for k, v in g.items() if k.startswith("max_pred_")},
         })
     say(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_all:.1f} s")

@@ -1,6 +1,5 @@
 """Command-line interface of the port: the `simka` tool in exact mode,
-and SimkaMin's `min sketch`, `min info` and `min append`
-(``minhash/cli.py``).
+and SimkaMin's `min` subcommands (``minhash/cli.py``).
 
 The flags are ``simka_tpu.cli``'s, plus ``-device {cuda,cpu}``
 (default cuda; asking for cuda without a GPU is an error, never a

@@ -459,6 +459,33 @@ def sketch_multi_prefix(h, sid, *, n_samples: int, sketch_size: int,
     return hashes, counts, n_kept, n_before
 
 
+def assemble_sketch_grid(hashes, counts, n_kept, n_before, *,
+                         sketch_size: int, base_c: int):
+    """The batched route's compacted prefixes (``sketch_multi_prefix``'s
+    outputs) as the distance's exact-length sketch layout, on their
+    device (``simka_tpu``'s ``assemble_sketch_grid``, without the
+    [N, s_pad] padding).
+
+    Returns (offsets [N] int64, lengths [N] int64, hashes [n_out] int64
+    -- the stream as it is --, counts [n_out] int32, a corrected copy):
+    sample i is rows [offsets[i], offsets[i] + lengths[i]), lengths[i] =
+    min(n_kept[i], s). A full sample's last member gets the heap-quirk
+    count max(base_c, n_before[i]), exactly as
+    ``sketch.fetch_batched_sketches`` applies it on the host.
+    """
+    dev = hashes.device
+    lens = np.minimum(np.asarray(n_kept, np.int64), sketch_size)
+    offs = np.cumsum(lens) - lens
+    fix = np.nonzero((np.asarray(n_kept) >= sketch_size) & (lens >= 1))[0]
+    counts = counts.to(torch.int32, copy=True)
+    if len(fix):
+        at = torch.from_numpy(offs[fix] + lens[fix] - 1).to(dev)
+        val = np.maximum(base_c, np.asarray(n_before, np.int64)[fix])
+        counts[at] = torch.from_numpy(val).to(dev, torch.int32)
+    return (torch.from_numpy(offs).to(dev), torch.from_numpy(lens).to(dev),
+            hashes, counts)
+
+
 def device_sketch_update(words, valid, *, seed: int, sketch_size: int):
     """One-program bottom-s sketch of a k-mer instance stream, order-free
     (``simka_tpu``'s ``device_sketch_update``: membership and total

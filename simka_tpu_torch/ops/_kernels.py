@@ -118,6 +118,8 @@ def lib():
                 # csrc/minhash.cu
                 ("simka_murmur_kmers", [vp, vp, i64, u64, u64, vp, vp, vp,
                                         vp]),
+                # csrc/min_distance.cu
+                ("simka_min_pair_tallies", [vp] * 10 + [i64, vp, vp]),
                 # csrc/probes.cu
                 ("simka_probe_scale_f32", [vp, vp, i64, ctypes.c_float, vp]),
                 ("simka_probe_map_i32", [i32, vp, vp, i64, i32, vp, vp]),

@@ -2,8 +2,9 @@
 originals in simka_tpu, so the two cannot drift: the input DSL, the
 native parser's C++ source, the packed read source (native and
 pure-Python), the CSV format, the statistics + distance formulas on one
-JoinStats, the count checkpoints (key and file format) and the
-repartition histogram of the checkpoint path with its host hash."""
+JoinStats, the count checkpoints (key and file format), the
+repartition histogram of the checkpoint path with its host hash, and
+SimkaMin's murmur hash, sketch file, Bloom replay and distance walk."""
 
 import os
 
@@ -315,6 +316,48 @@ def test_sketch_file_copy_matches(tmp_path):
             np.testing.assert_array_equal(c, counts[r])
     assert port_sf.SketchFile(files[("ref", "a")]).info().replace(
         "ref_a", "port_a") == ref_sf.SketchFile(files[("port", "a")]).info()
+
+
+def test_min_distance_copy_matches(tmp_path):
+    """minhash/distance.py: the host walk on the same pairs (empty,
+    length 1, overlapping, the all-ones hash), the all-pairs blocks
+    symmetric and rectangular, the binary matrix files and their growth
+    give the same numbers and bytes."""
+    import simka_tpu.minhash.distance as ref_d
+    import simka_tpu_torch.minhash.distance as port_d
+
+    assert port_d.MATRIX_NAMES == ref_d.MATRIX_NAMES
+    rng = np.random.default_rng(11)
+    pool = rng.integers(0, 1 << 64, size=300, dtype=np.uint64)
+    sk = [(np.empty(0, np.uint64), np.empty(0, np.uint32)),
+          (pool[:1].copy(), np.array([4], np.uint32))]
+    for n in (20, 150, 90, 200):
+        h = np.unique(np.concatenate([
+            pool[rng.integers(0, 300, n)],
+            rng.integers(0, 1 << 64, n, dtype=np.uint64),
+            np.array([2**64 - 1] if n == 90 else [], np.uint64)]))
+        sk.append((h, rng.integers(1, 1 << 32, len(h),
+                                   dtype=np.uint64).astype(np.uint32)))
+    for a in sk:
+        for b in sk:
+            assert port_d.sketch_pair_distance(*a, *b) == (
+                ref_d.sketch_pair_distance(*a, *b))
+    for s1, s2, sym in ((sk, sk, True), (sk[:3], sk[2:], False)):
+        for g, w in zip(port_d.compute_distance_block(s1, s2, sym),
+                        ref_d.compute_distance_block(s1, s2, sym)):
+            np.testing.assert_array_equal(g, w)
+    old, evn, nvn = (rng.random(shape).astype(np.float32)
+                     for shape in ((3, 3), (3, 2), (2, 2)))
+    np.testing.assert_array_equal(port_d.merge_matrices(old, evn, nvn),
+                                  ref_d.merge_matrices(old, evn, nvn))
+    files = {}
+    for name, mod in (("port", port_d), ("ref", ref_d)):
+        mat = mod.BinaryMatrix(str(tmp_path / f"{name}.bin"), 5, 5)
+        mat.write_block(2, 3, evn)
+        mat.write_block(0, 0, old)
+        files[name] = (tmp_path / f"{name}.bin").read_bytes()
+        np.testing.assert_array_equal(mat.read()[2:, 3:], evn)
+    assert files["port"] == files["ref"]
 
 
 def test_bloom_copy_matches():

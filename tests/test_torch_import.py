@@ -21,7 +21,9 @@ def test_port_imports_no_jax():
         "simka_tpu_torch.minhash.cli, simka_tpu_torch.minhash.pipeline, "
         "simka_tpu_torch.minhash.sketch, simka_tpu_torch.minhash.device, "
         "simka_tpu_torch.minhash.bloom, simka_tpu_torch.minhash.murmur, "
-        "simka_tpu_torch.minhash.sketch_file\n"
+        "simka_tpu_torch.minhash.sketch_file, "
+        "simka_tpu_torch.minhash.distance, "
+        "simka_tpu_torch.minhash.device_distance\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'simka_tpu' "
         "or m.startswith('simka_tpu.'))\n"
@@ -48,4 +50,5 @@ def test_port_builds_only_its_own_sources():
         assert os.path.abspath(path).startswith(port), path
     assert os.path.exists(native.SRC)
     names = [os.path.basename(s) for s in _kernels.sources()]
-    assert {"compact.cu", "minhash.cu", "probes.cu"} <= set(names)
+    assert {"compact.cu", "minhash.cu", "min_distance.cu",
+            "probes.cu"} <= set(names)

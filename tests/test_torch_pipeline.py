@@ -3,7 +3,7 @@ simka_tpu.core.pipeline.run_simka (single-device path, n_shards=1) on
 the same simulated community files. The decompressed CSV text must be
 byte-equal and so must the repartition histogram; options outside the
 port's slice must raise NotImplementedError; -data-info gives the same
-read counts. The optional distances and the k-mer Shannon filter are
+read counts; `min distance` gives the same matrices. The optional distances and the k-mer Shannon filter are
 in test_torch_cli_channels.py, the out-of-core sweep in
 test_torch_sweep.py."""
 
@@ -114,11 +114,33 @@ def test_data_info_matches_reference(community, capsys):
                       "-verbose", "0"]) == 0
 
 
-def test_min_subcommand_raises():
-    """`min sketch`, `info` and `append` run (tests/test_torch_sketch.py);
-    the `min` subcommands of ROADMAP item 11b still raise."""
-    with pytest.raises(NotImplementedError):
-        port_main(["min", "distance", "-in1", "a", "-in2", "b", "-out", "c"])
+def test_min_subcommand_raises(community, tmp_path):
+    """`min distance` (ROADMAP item 11b, which raised NotImplementedError
+    until it was ported) through both CLIs on one sketch file of the
+    16-sample community, whole and in two tiles: the same .bin
+    matrices."""
+    from simka_tpu.minhash.cli import min_main as ref_min
+
+    x = str(tmp_path / "x.sketch")
+    assert port_main(["min", "sketch", "-in", community[16], "-out", x,
+                      "-nb-kmers", "500", "-device", "cpu"]) == 0
+    bins = {}
+    for side, tiles in (("ref", [[]]), ("port", [[]]),
+                        ("tiles", [["-n-i", "9", "-n-j", "9"],
+                                   ["-start-j", "9", "-n-i", "9", "-n-j",
+                                    "7"],
+                                   ["-start-i", "9", "-start-j", "9",
+                                    "-n-i", "7"]])):
+        out = tmp_path / side
+        for tile in tiles:
+            argv = ["distance", "-in1", x, "-in2", x, "-out", str(out), *tile]
+            if side == "ref":
+                assert ref_min(argv) == 0
+            else:
+                assert port_main(["min", *argv, "-device", "cpu"]) == 0
+        bins[side] = {p.name: p.read_bytes() for p in sorted(out.iterdir())}
+    assert len(bins["ref"]) == 2
+    assert bins["port"] == bins["ref"] == bins["tiles"]
 
 
 def test_device_cuda_without_gpu_raises(community, tmp_path, monkeypatch):

@@ -7,9 +7,12 @@ one sample, streaming with and without -filter, underfill);
 compute_sketch, one-shot and streaming, equals the reference's host
 oracle; -filter-bloom equals the
 reference's emulation; `min info` and `min append` agree through both
-CLIs; the `min` subcommands still to port raise NotImplementedError."""
+CLIs; `min distance`, `export`, `pipeline`, `update` and
+`matrix-update` give the same files through both CLIs."""
 
+import gzip
 import os
+import shutil
 import tempfile
 
 import numpy as np
@@ -309,18 +312,56 @@ def test_min_cli_matches_reference(samples, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cmd", [
-    ["distance", "-in1", "a", "-in2", "b", "-out", "d"],
-    ["export", "-in", "d", "-in1", "a", "-in2", "b", "-out", "e"],
-    ["pipeline", "-in", "i", "-out", "o"],
-    ["update", "-in", "i", "-out", "o"],
-    ["matrix-update", "-in", "d", "-in-evn", "e", "-in-nvn", "n", "-n-old",
-     "2", "-n-new", "1"],
+    ["distance", "-in1", "{x}", "-in2", "{x}", "-out", "{out}"],
+    ["export", "-in", "{dist}", "-in1", "{x}", "-in2", "{x}", "-out",
+     "{out}"],
+    ["pipeline", "-in", "{inp}", "-out", "{out}", "-nb-kmers", "200"],
+    ["update", "-in", "{new}", "-out", "{out}"],
+    ["matrix-update", "-in", "{out}", "-in-evn", "{evn}", "-in-nvn", "{nvn}",
+     "-n-old", "2", "-n-new", "1"],
 ])
-def test_min_subcommands_still_to_port_raise(cmd):
+def test_min_subcommands_still_to_port_raise(cmd, samples, tmp_path):
+    """Each `min` subcommand of ROADMAP item 11b (which raised
+    NotImplementedError until it was ported) through both CLIs on the
+    same files: the same .bin matrices, sketch.bin and CSV text."""
+    from simka_tpu.minhash.cli import min_main as ref_min
     from simka_tpu_torch.cli import main as port_main
 
-    with pytest.raises(NotImplementedError, match="11b"):
-        port_main(["min", *cmd])
+    x, y = str(tmp_path / "x.sketch"), str(tmp_path / "y.sketch")
+    inp = _input(tmp_path, samples[:2])
+    new = tmp_path / "new.txt"
+    new.write_text(f"S2: {samples[2]}\n")
+    assert ref_min(["sketch", "-in", inp, "-out", x, "-nb-kmers", "200"]) == 0
+    assert ref_min(["sketch", "-in", str(new), "-out", y, "-nb-kmers",
+                    "200"]) == 0
+    paths = {"x": x, "inp": inp, "new": str(new)}
+    for name, a, b in (("dist", x, x), ("evn", x, y), ("nvn", y, y)):
+        paths[name] = str(tmp_path / name)
+        assert ref_min(["distance", "-in1", a, "-in2", b, "-out",
+                        paths[name]]) == 0
+    base = str(tmp_path / "base")
+    assert ref_min(["pipeline", "-in", inp, "-out", base, "-nb-kmers",
+                    "200"]) == 0
+    got = {}
+    for side in ("ref", "port"):
+        out = tmp_path / side
+        if cmd[0] == "update":
+            shutil.copytree(base, out)
+        elif cmd[0] == "matrix-update":
+            shutil.copytree(paths["dist"], out)
+        argv = [a.format(out=out, **paths) for a in cmd]
+        if side == "ref":
+            assert ref_min(argv) == 0
+        else:
+            dev = [] if cmd[0] in ("export", "matrix-update") else [
+                "-device", "cpu"]
+            assert port_main(["min", *argv, *dev]) == 0
+        got[side] = {
+            str(p.relative_to(out)): (gzip.open(p, "rt").read()
+                                      if p.suffix == ".gz" else p.read_bytes())
+            for p in sorted(out.rglob("*")) if p.is_file()}
+    assert got["ref"] and got["port"] == got["ref"]
+    assert any(k.endswith(".bin") or k.endswith(".gz") for k in got["ref"])
 
 
 def test_min_sketch_cuda_without_gpu_raises(samples, tmp_path, monkeypatch):
