@@ -14,7 +14,10 @@ Phases (each raises on failure; nothing is caught):
      their times at 2^24 and 2^27;
   4. the probe path (python -m simka_tpu_torch.profiling.probes): every
      probe kernel against its plain version (DMA routes printed), the
-     launch count of each of the four groups over that run; then per
+     launch count of each of the four groups over that run; kd's and
+     ke's max predicate on its edge inputs (probes.PREDICATE_EDGES: all
+     values <= 0, -0.0, one positive at the last element, int32
+     minimum) against the plain version; then per
      probe the kernel's CUDA-event time around the Python call, its
      device time from torch.profiler (the summed durations of the
      trace's events of the hand kernels' own names, kept only when the
@@ -123,14 +126,25 @@ Phases (each raises on failure; nothing is caught):
      hash, the run's own keep mask) in both forms beside its plain
      version, bound and torch.masked_select;
  12. SimkaMin's distance: (a) the sketch-pair kernel
-     (csrc/min_distance.cu) against its plain version, tallies bit for
-     bit, on every pair of small lists (an empty sketch, lengths 1 and
-     unequal, identical and disjoint sketches, the all-ones hash as a
-     member, hashes with the top bit set; each also == the host walk)
-     and on 100 in-memory sketches of 1,000,000 (ascending distinct
-     uint64 over the full range, ~28% from a shared pool, counts
-     1-255; 4,950 pairs; == the host walk on 50 seeded pairs), timed
-     there; (b) small communities, `min pipeline` (k 21 and 31, with and
+     (csrc/min_distance.cu, a merge path in segments of SEG = 4,096
+     merged positions) against its plain version, tallies bit for bit,
+     in one launch and in tiles of 3 pairs, on every pair of small
+     lists (an
+     empty sketch, lengths 1 and unequal, identical and disjoint
+     sketches, the all-ones hash as a member, hashes with the top bit
+     set; merged lengths about one and two segments; a shared value
+     whose A copy ends one segment and B copy opens the next, at the
+     first and second boundary; identical sketches of 4 SEG, cut off
+     at 2 min; interleaved disjoint ones, cut off at min; lengths 1
+     against 1,000,000; each also == the host walk) and on 100
+     in-memory sketches of 1,000,000 (ascending distinct uint64 over
+     the full range, ~28% from a shared pool, counts 1-255; 4,950
+     pairs; == the host walk on 50 seeded pairs), timed there beside its
+     bound (the larger of each sample's needed rows read once and the
+     merge's integer instructions), the design's L2 floor (every pair's
+     needed members staged at an L2 read rate measured in the run) and
+     the simple one-CTA-a-pair form's time from an earlier call (printed
+     only); (b) small communities, `min pipeline` (k 21 and 31, with and
      without -filter, resident route, one pair launch) then `min
      update` on cuda and on cpu, every file equal; `min distance`
      whole, in 3 tiles of 2 x 2 and across two files, `export` and
@@ -141,7 +155,7 @@ Phases (each raises on failure; nothing is caught):
      sample == a joint 9-sample pipeline (every file); per run wall,
      stages, route, kernel launches, peak memory; then the kernel at
      the 1,000,000 run's sketches (28 pairs) against its plain
-     version, the host walk and its bound.
+     version, the host walk and its bound, timed as in (a).
 
 Prints, before the last line, the kernels' JSON record (per kernel:
 launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
@@ -150,8 +164,9 @@ function -- launches_out_tmp, launches_sweep and launches_sketch, the
 compaction's launches in phase 8's run 1, in phase 10's 16-sample run
 and in phase 11's -nb-kmers 100000 run, whose hash-kernel launches are
 murmur_kmers' launches; min_pair_distance's launches are phase 12c's
-`min pipeline -nb-kmers 1000000`'s, its times at that run's sketches,
-wide_* at phase 12a's 100 x 1,000,000; extra fields) and the card's
+`min pipeline -nb-kmers 1000000`'s, its times at that run's sketches
+(l2_floor_ms: the design's L2 floor), wide_* at phase 12a's 100 x
+1,000,000; extra fields) and the card's
 nvidia-smi
 line; the last
 line is the JSON result. Exits non-zero without a result when no CUDA
@@ -205,6 +220,17 @@ HAND_KERNELS = ("compact_onepass", "murmur_kmers", "min_pair_tallies",
 SKETCH_SIZES = (100_000, 1_000_000)  # `min sketch` and `min pipeline`
 PAIR_REPLACES = "simka_tpu/minhash/device_distance.py:85"
 WIDE_N, WIDE_S = 100, 1_000_000  # phase 12a's in-memory sketches
+# the simple one-CTA-a-pair form's device times of the pair kernel (ms)
+# at phase 12a's wide shape and at `min pipeline`'s 28 pairs: an earlier
+# call on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6), printed
+# beside this run's times
+EARLIER_PAIR_MS = {"wide": 147.5494, "pipeline": 10.1479}
+# the pair merge's 32-bit integer instructions a member its walk needs:
+# a 64-bit compare and a 64-bit add, two each
+PAIR_INT_OPS = 4
+# the L2 read-rate probe: a buffer inside the H100's 50 MB L2, read this
+# many times in one launch
+L2_PROBE_BYTES, L2_PROBE_READS = 24 << 20, 128
 HOST_WALK_PAIRS = 50
 PHASE9_MAX_ROWS = 1 << 29
 EXTRACT_ROWS = (1 << 17) * 80  # a 2^17-read batch of 100 bp reads, k=21
@@ -462,6 +488,11 @@ def probe_phase(dev, seed: int) -> dict:
         g["max_abs_err"] = max(g["max_abs_err"], r["max_abs_err"])
         if "gram" in r["name"]:
             gram["max_abs_err"] = max(gram["max_abs_err"], r["max_abs_err"])
+    for probe_name, edge, _ in probes.PREDICATE_EDGES:
+        probes.compare(*probes.edge_inputs(probe_name, edge, seed, dev))
+    say("kd's and ke's predicate on its edge inputs (" + ", ".join(
+        f"{p} {e}" for p, e, _ in probes.PREDICATE_EDGES) + "): kernel == "
+        "plain")
     saved = dict(probes.launches), probes.gram_launches
     for p in probes.PROBES:
         args = probes.probe_inputs(p, seed, dev)
@@ -1603,18 +1634,43 @@ def sketch_shapes(inp8: str, dev, seed: int) -> tuple:
 # ---- phase 12: SimkaMin's distance ---------------------------------------
 
 
-def pair_compare(tag: str, d1, d2, ii, jj) -> torch.Tensor:
+def pair_compare(tag: str, d1, d2, ii, jj, tiled: bool = False
+                 ) -> torch.Tensor:
     """The pair kernel against its plain version on the same inputs,
-    tallies bit for bit; returns the kernel's tallies."""
+    tallies bit for bit; with ``tiled`` also in tiles of 3 pairs (the
+    wrapper's scratch cap made small); returns the kernel's tallies."""
     (o1, l1, h1, c1), (o2, l2, h2, c2) = d1, d2
-    got = dd.pair_tallies(h1, c1, o1, l1, h2, c2, o2, l2, ii, jj)
-    want = dd.pair_tallies_plain(h1, c1, o1, l1, h2, c2, o2, l2, ii, jj)
+    args = (h1, c1, o1, l1, h2, c2, o2, l2, ii, jj)
+    got = dd.pair_tallies(*args)
+    want = dd.pair_tallies_plain(*args)
+    forms = {"one launch": got}
+    if tiled:
+        k = pair_segments(args)
+        words = _kernels.lib().simka_min_pair_scratch_words
+        saved = dd.SCRATCH_BYTES
+        dd.SCRATCH_BYTES = 8 * words(3, k)
+        n0 = dd.launches
+        try:
+            forms["tiles of 3 pairs"] = dd._pair_tallies_cuda(*args, k_max=k)
+        finally:
+            dd.SCRATCH_BYTES = saved
+        if dd.launches - n0 != -(-len(ii) // 3):
+            raise AssertionError(f"pair kernel ({tag}): {dd.launches - n0} "
+                                 f"tiles for {len(ii)} pairs")
     torch.cuda.synchronize()
-    if got.shape != want.shape or not torch.equal(got, want):
-        bad = (got != want).any(1).nonzero()[:5].flatten().tolist()
-        raise AssertionError(f"pair kernel != plain ({tag}), first bad pairs "
-                             f"{bad}")
+    for form, t in forms.items():
+        if t.shape != want.shape or not torch.equal(t, want):
+            bad = (t != want).any(1).nonzero()[:5].flatten().tolist()
+            raise AssertionError(f"pair kernel ({form}) != plain ({tag}), "
+                                 f"first bad pairs {bad}")
     return got
+
+
+def pair_segments(args) -> int:
+    """The wrapper's bound on segments a pair for these arguments."""
+    _, _, _, len1, _, _, _, len2, ii, jj = args
+    return int(dd.segments_bound(len1, len2, ii, jj,
+                                 _kernels.lib().simka_min_pair_segment()))
 
 
 def host_walk(sk1, sk2, ii, jj) -> np.ndarray:
@@ -1649,7 +1705,9 @@ def host_walk_check(tag: str, sk1, sk2, ii, jj, tallies) -> None:
 
 def edge_sketches(seed: int) -> dict:
     """Phase 12a's small cases as host (hashes uint64, counts uint32)
-    lists, every pair of each list compared."""
+    lists, every pair of each list compared; the last five stress the
+    merge path's split into segments of SEG merged positions."""
+    seg = _kernels.lib().simka_min_pair_segment()
     rng = np.random.default_rng([seed, 12])
     ones = np.uint64(2**64 - 1)
     pool = rng.integers(0, 2**64, 4000, dtype=np.uint64)
@@ -1660,12 +1718,37 @@ def edge_sketches(seed: int) -> dict:
             pool[rng.integers(0, len(pool), int(m * frac))]]))
         return h, rng.integers(1, 256, len(h)).astype(np.uint32)
 
+    def exact(m):
+        """A sketch of exactly m members, half from the pool."""
+        h = np.unique(np.concatenate([pool, rng.integers(
+            0, 2**64, 2 * m, dtype=np.uint64)]))
+        h = np.sort(rng.choice(h, m, replace=False))
+        return h, rng.integers(1, 256, m).astype(np.uint32)
+
+    def counted(h):
+        return h, rng.integers(1, 256, len(h)).astype(np.uint32)
+
+    def straddle(before: int, after: int):
+        """A and B whose merged order alternates A, B over `before`
+        distinct values, then holds a shared value (its A copy at merged
+        position `before`, its B copy at `before` + 1), then alternates
+        over `after` more."""
+        v = np.unique(rng.integers(0, 2**64, 2 * (before + 1 + after),
+                                   dtype=np.uint64))
+        v = np.sort(rng.permutation(v)[:before + 1 + after])
+        head, shared, rest = v[:before], v[before:before + 1], v[before + 1:]
+        a = np.concatenate([head[0::2], shared, rest[0::2]])
+        b = np.concatenate([head[1::2], shared, rest[1::2]])
+        return counted(np.sort(a)), counted(np.sort(b))
+
     empty = (np.empty(0, np.uint64), np.empty(0, np.uint32))
     one = lambda v: (np.array([v], np.uint64), np.array([3], np.uint32))
     low, high = sk(3000, 0, 2**62, 0), sk(2000, 2**62, 2**63, 0)
     with_ones = [(np.unique(np.append(h, ones)),
                   rng.integers(1, 256, len(h) + 1).astype(np.uint32))
                  for h, _ in (sk(m) for m in (1, 40, 2500))]
+    big = exact(4 * seg)
+    evens = np.arange(1, 4 * seg + 1, dtype=np.uint64) * np.uint64(2**40)
     return {
         "an empty sketch": [empty, sk(100), empty, sk(3)],
         "lengths 1 and unequal": [one(pool[0]), one(pool[1]), sk(1),
@@ -1674,6 +1757,17 @@ def edge_sketches(seed: int) -> dict:
         "the all-ones hash as a member": with_ones + [one(ones), sk(60)],
         "hashes with the top bit set": [sk(m, 2**63, 2**64) for m in
                                         (10, 300, 2999)] + [sk(400)],
+        "merged lengths about one and two segments": [
+            exact(m) for m in (seg // 2 - 1, seg // 2, seg // 2 + 1,
+                               seg - 1, seg, seg + 1, 2 * seg - 1,
+                               2 * seg, 2 * seg + 1)],
+        "a shared value split by a segment boundary": [
+            *straddle(seg - 1, 3 * seg), *straddle(2 * seg - 1, 3 * seg)],
+        "identical sketches (cut-off at 2 min)": [big, big],
+        "disjoint sketches (cut-off at min)": [
+            counted(evens), counted(evens + np.uint64(1))],
+        "lengths 1 against 1,000,000": [one(pool[2]), exact(1_000_000),
+                                        one(ones)],
     }
 
 
@@ -1699,33 +1793,88 @@ def wide_sketches(n: int, s: int, gen, dev):
     return (torch.cumsum(lens, 0) - lens, lens, torch.cat(hs), counts)
 
 
-def time_pairs(tag: str, d, ii, jj, t, reps: int, plain_reps: int) -> dict:
+def needed_rows(d, ii, jj, processed) -> int:
+    """Rows of the sketch list ``d`` (both sides of the pairs) that must
+    be read at least once: per sample the longest prefix that one of its
+    pairs' walks includes (the members of rank <= processed, a prefix of
+    each list), summed; computed as the plain version ranks members."""
+    o, ln, h, c = d
+    ii, jj = ii.long(), jj.long()
+    need = torch.zeros_like(ln)
+    width = max(int(ln.max()), 1)
+    step = max(dd.PLAIN_CHUNK_ROWS // width, 1)
+    for p0 in range(0, len(ii), step):
+        sl = slice(p0, p0 + step)
+        for x, y in ((ii[sl], jj[sl]), (jj[sl], ii[sl])):
+            kx, _, vx = dd._padded(h, c, o[x], ln[x], width)
+            ky, _, _ = dd._padded(h, c, o[y], ln[y], width)
+            _, _, rank = dd._ranked(kx, vx, ky, ln[y])
+            n = (vx & (rank <= processed[sl, None])).sum(1)
+            need.scatter_reduce_(0, x, n, "amax")
+    return int(need.sum())
+
+
+def l2_read_rate(dev) -> float:
+    """Bytes a second that one torch.sum reads from L2: a float32 buffer
+    of L2_PROBE_BYTES, warm, as L2_PROBE_READS rows of a stride-0 view,
+    each row summed, in one launch. A measured rate, so at most the L2's
+    peak."""
+    x = torch.zeros(L2_PROBE_BYTES // 4, device=dev)
+    rows = x.expand(L2_PROBE_READS, -1)
+    ms = time_ms(lambda: rows.sum(1), reps=10)
+    return L2_PROBE_BYTES * L2_PROBE_READS / (ms * 1e-3)
+
+
+def time_pairs(tag: str, d, ii, jj, t, reps: int, plain_reps: int,
+               earlier_ms: float) -> dict:
     """The pair kernel's time around the call and on the device (CUDA
-    events around its launch alone: the traces hold no event of it),
-    its plain version's, and the bound from this run's tallies ``t``:
-    each pair reads the processed + shared_distinct members the walk
-    needs (12 B each), the two last hashes for t_exh, its indices,
-    offsets and lengths, and writes its four tallies."""
+    events around its launch alone), its plain version's, and its bound
+    from this run's tallies ``t``: the larger of the bytes it must move
+    (each sample's longest needed prefix read once, 12 B a member; per
+    pair the two last hashes, its indices, offsets and lengths read and
+    its four tallies written) over device memory's rate and the merge's
+    PAIR_INT_OPS 32-bit integer instructions a member the walk needs
+    (processed + shared_distinct) over INT32_OPS_PER_S. Beside it, the
+    design's own floor: it stages every pair's needed members through
+    L2 anew, at the L2 read rate measured here. ``earlier_ms``: the
+    simple form's device time at this shape, from an earlier call
+    (PERF.md section 6), printed beside, not recorded."""
     (o, ln, h, c) = d
     args = (h, c, o, ln, h, c, o, ln, ii, jj)
+    k = pair_segments(args)
     fn = lambda: dd.pair_tallies(*args)
     saved = dd.launches
     r = {
         "ms": time_ms(fn, reps),
-        "device_ms": time_ms(lambda: dd._pair_tallies_cuda(*args), reps),
+        "device_ms": time_ms(lambda: dd._pair_tallies_cuda(*args, k_max=k),
+                             reps),
         "plain_ms": time_ms(lambda: dd.pair_tallies_plain(*args), plain_reps),
         "library_ms": None,  # no one torch call computes the tallies
     }
     trace_names(f"the pair wrapper {tag}", fn, lambda: dd.launches, reps=1)
     dd.launches = saved
     members = int((t[:, 0] + t[:, 1]).sum())
-    r["bytes"] = members * 12 + len(ii) * (2 * 8 + 2 * 4 + 2 * 16 + 4 * 8)
-    r["bound_ms"], r["bound_by"] = bound(r["bytes"])
-    say(f"pair tallies {tag} ({len(ii)} pairs): kernel {r['ms']:.4f} ms "
-        f"around the call, {r['device_ms']:.4f} ms on the device (events "
-        f"around the launch), plain {r['plain_ms']:.4f} ms, bound "
-        f"{r['bound_ms']:.4f} ms ({r['bytes']} B: {members} members the "
-        f"walk needs)")
+    rows_once = needed_rows(d, ii, jj, t[:, 0])
+    r["bytes"] = rows_once * 12 + len(ii) * (2 * 8 + 2 * 4 + 2 * 16 + 4 * 8)
+    r["ops"] = members * PAIR_INT_OPS
+    r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"],
+                                         INT32_OPS_PER_S)
+    rate = l2_read_rate(h.device)
+    r["l2_floor_ms"] = members * 12 / rate * 1e3
+    share = lambda x: f"{100 * x / r['device_ms']:.1f}%"
+    say(f"pair tallies {tag} ({len(ii)} pairs, {k} segments a pair at "
+        f"most): kernel {r['ms']:.4f} ms around the call, "
+        f"{r['device_ms']:.4f} ms on the device (events around the "
+        f"launch); plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} "
+        f"ms by {r['bound_by']}, {share(r['bound_ms'])} of the device time "
+        f"(bytes {r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms: {rows_once} "
+        f"rows read once; operations {r['ops'] / INT32_OPS_PER_S * 1e3:.4f} "
+        f"ms: {members} members the walks need x {PAIR_INT_OPS}); the "
+        f"design's L2 floor {r['l2_floor_ms']:.4f} ms, "
+        f"{share(r['l2_floor_ms'])} ({members * 12} B staged at the "
+        f"measured L2 read rate {rate / 1e12:.3f} TB/s); the simple "
+        f"one-CTA-a-pair form took {earlier_ms} ms on the device at this "
+        f"shape in an earlier call (PERF.md section 6)")
     return r
 
 
@@ -1739,7 +1888,7 @@ def pair_vs_plain(dev, seed: int) -> tuple:
         d = dd.ship_sketches(sk, dev)
         ii, jj = (torch.from_numpy(a).to(dev)
                   for a in dd.sketch_pairs(len(sk), len(sk), False))
-        t = pair_compare(tag, d, d, ii, jj)
+        t = pair_compare(tag, d, d, ii, jj, tiled=True)
         host_walk_check(tag, sk.__getitem__, sk.__getitem__,
                         ii.cpu().numpy(), jj.cpu().numpy(), t)
         say(f"pair kernel == plain == host walk: {tag} "
@@ -1770,7 +1919,8 @@ def pair_vs_plain(dev, seed: int) -> tuple:
         f"mean shared share of processed {shared:.4f}); == host walk on "
         f"{HOST_WALK_PAIRS} pairs ({time.perf_counter() - t0:.1f} s)")
     dd.launches = saved
-    wide = time_pairs(f"at {WIDE_N} x {WIDE_S}", d, ii, jj, t, 3, 1)
+    wide = time_pairs(f"at {WIDE_N} x {WIDE_S}", d, ii, jj, t, 3, 1,
+                      EARLIER_PAIR_MS["wide"])
     del d, t
     torch.cuda.empty_cache()
     return 0, wide
@@ -1967,7 +2117,7 @@ def min_pipeline_full_size(tmp: str, inp8: str, inp9: str, recorder,
                     recs[s][2].__getitem__, ii.cpu().numpy(),
                     jj.cpu().numpy(), t)
     times = time_pairs(f"at min pipeline -nb-kmers {s} (8 samples)", d, ii,
-                       jj, t, 10, 3)
+                       jj, t, 10, 3, EARLIER_PAIR_MS["pipeline"])
     return recs[s][0], times
 
 
@@ -2076,8 +2226,10 @@ def main() -> int:
         **{k: pipe_times[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms",
                                       "device_ms")},
+        "l2_floor_ms": pipe_times["l2_floor_ms"],
         **{f"wide_{k}": wide[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "device_ms")},
+                                          "bound_by", "device_ms",
+                                          "l2_floor_ms")},
     }]
     gram = probe["gram"]
     kernels.append({

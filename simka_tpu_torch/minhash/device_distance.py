@@ -4,13 +4,14 @@ The reference walk (SimkaMinDistance.hpp:215-258; the host copy
 ``minhash/distance.py::sketch_pair_distance``) merges two ascending
 hash lists and stops after min(s1, s2) union elements or when a list
 runs out. As ``simka_tpu.minhash.device_distance`` shows, what it
-processes is the union elements of rank <= processed, where
+processes is the union elements x with
 
-    processed = min(min(lA, lB), rank(t_exh)),
-    t_exh     = min(A[lA - 1], B[lB - 1])   (unsigned),
-    rank(t)   = #A<=t + #B<=t - #shared<=t.
+    x <= t  and  rank(x) <= L,    t = min(A[lA - 1], B[lB - 1])
+                                  (unsigned), L = min(lA, lB),
 
-An element x at index i of its own list X (other list Y) has union rank
+rank(x) the 1-based rank in the union; ranks rise with value, so
+``processed`` = min(L, rank(t)) is the count of those elements. An
+element x at index i of its own list X (other list Y) has union rank
 ``i + 1 + #(Y < x) - #(shared elements of X before i)``: one search in
 Y and one cumulative sum of shared flags, on either side.
 
@@ -23,6 +24,20 @@ version ``pair_tallies_plain`` on CPU tensors. ``distances_from_tallies``
 turns the tallies into Jaccard and Bray-Curtis once, in float64 and
 then float32 as the host walk does, so the kernel's matrices and the
 plain version's agree bit for bit by construction.
+
+The kernel is a merge path across CTAs: each pair's merged order (A
+first on a tie, positions [0, min(#A<=t + #B<=t, 2L))) is cut into
+segments of 4,096 positions; each segment finds its start by a
+diagonal search, stages its spans of both lists in shared memory with a
+one-element halo, and takes its rank offset (the shared values before
+it) by a decoupled look-back over its pair's segments; tallies are
+64-bit atomic sums. A pair's walk needs its processed + shared_distinct
+members (12 B each); the kernel's bound is the larger of each sample's
+longest needed prefix read once from device memory and the merge's
+integer work, 4 32-bit instructions a needed member (``chip_smoke.py``
+computes it from a run's tallies). The simple form it replaced (one CTA
+a pair) took 147.55 ms at N=100 x s=1,000,000 and 10.15 ms at `min
+pipeline`'s 28 pairs of 1,000,000 (NVIDIA H100 80GB HBM3, 700 W).
 
 Sketches live in the exact-length layout: each side is (offsets [n],
 lengths [n] int64, hashes int64 -- uint64 bits --, counts int32 --
@@ -49,6 +64,10 @@ launches = 0
 
 # padded rows a side in one batch of the plain version
 PLAIN_CHUNK_ROWS = 1 << 22
+
+# the kernel's scratch (segment splits and status words) a launch at
+# most: longer pair lists go in tiles of pairs
+SCRATCH_BYTES = 1 << 26
 
 Sketch = Tuple[np.ndarray, np.ndarray]
 Layout = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -132,21 +151,45 @@ def pair_tallies_plain(h1, c1, off1, len1, h2, c2, off2, len2, ii,
 # ---- the kernel ----------------------------------------------------------
 
 
-def _pair_tallies_cuda(h1, c1, off1, len1, h2, c2, off2, len2, ii, jj):
+def segments_bound(len1, len2, ii, jj, seg: int) -> torch.Tensor:
+    """The most merge-path segments of ``seg`` positions a pair of
+    (ii, jj) can take, ceil(min(lA + lB, 2 min(lA, lB)) / seg), as a
+    device scalar (at least 1); indices are clamped into range, since
+    the caller checks them in the same host read."""
+    la = len1[ii.long().clamp(0, max(len1.shape[0] - 1, 0))]
+    lb = len2[jj.long().clamp(0, max(len2.shape[0] - 1, 0))]
+    m = torch.minimum(la + lb, 2 * torch.minimum(la, lb))
+    return ((m + seg - 1) // seg).max().clamp(min=1)
+
+
+def _pair_tallies_cuda(h1, c1, off1, len1, h2, c2, off2, len2, ii, jj,
+                       k_max: int):
+    """The kernel over the pairs, in tiles whose scratch stays within
+    ``SCRATCH_BYTES``; ``k_max`` bounds the segments a pair
+    (``segments_bound``). One launch of the entry point a tile."""
     global launches
     from simka_tpu_torch.ops import _kernels
 
     lib = _kernels.lib()
-    out = torch.empty((ii.shape[0], 4), dtype=torch.int64, device=h1.device)
-    with torch.cuda.device(h1.device):
-        code = lib.simka_min_pair_tallies(
-            *(t.data_ptr() for t in (h1, c1, off1, len1, h2, c2, off2, len2,
-                                     ii, jj)),
-            ii.shape[0], out.data_ptr(),
-            torch.cuda.current_stream(h1.device).cuda_stream,
-        )
-    _kernels.check(code, "pair_tallies")
-    launches += 1
+    dev = h1.device
+    P = ii.shape[0]
+    out = torch.empty((P, 4), dtype=torch.int64, device=dev)
+    base = lib.simka_min_pair_scratch_words(0, k_max)
+    per_pair = lib.simka_min_pair_scratch_words(1, k_max) - base
+    tile = max(1, min(P, (SCRATCH_BYTES // 8 - base) // per_pair))
+    scratch = torch.empty(lib.simka_min_pair_scratch_words(tile, k_max),
+                          dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for p0 in range(0, P, tile):
+            n = min(tile, P - p0)
+            code = lib.simka_min_pair_tallies(
+                *(t.data_ptr() for t in (h1, c1, off1, len1, h2, c2, off2,
+                                         len2)),
+                ii[p0:].data_ptr(), jj[p0:].data_ptr(), n, k_max,
+                scratch.data_ptr(), out[p0:].data_ptr(), stream)
+            _kernels.check(code, "pair_tallies")
+            launches += 1
     return out
 
 
@@ -163,7 +206,8 @@ def pair_tallies(h1, c1, off1, len1, h2, c2, off2, len2, ii,
 
     Returns [P, 4] int64 (``TALLIES``), on the inputs' device. On CUDA
     tensors this launches the kernel of ``csrc/min_distance.cu`` or
-    raises; on CPU tensors it is the plain version.
+    raises; on CPU tensors it is the plain version. One host read
+    checks the indices (and, on CUDA, bounds the segments a pair).
     """
     ts = (h1, c1, off1, len1, h2, c2, off2, len2, ii, jj)
     want = (torch.int64, torch.int32, torch.int64, torch.int64) * 2 + (
@@ -180,19 +224,28 @@ def pair_tallies(h1, c1, off1, len1, h2, c2, off2, len2, ii,
                              "and lengths, differ in length")
     if ii.shape != jj.shape:
         raise ValueError("pair_tallies: ii and jj differ in length")
-    P = ii.shape[0]
-    if P and not (0 <= int(ii.min()) and int(ii.max()) < len1.shape[0]
-                  and 0 <= int(jj.min()) and int(jj.max()) < len2.shape[0]):
-        raise ValueError("pair_tallies: a pair index is out of range")
-    if dev.type == "cpu":
-        return pair_tallies_plain(*ts)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"pair_tallies: unsupported device {dev}")
+    P = ii.shape[0]
     if P == 0:
-        return torch.empty((0, 4), dtype=torch.int64, device=dev)
-    if not all(t.is_contiguous() for t in ts):
+        return torch.zeros((0, 4), dtype=torch.int64, device=dev)
+    cuda = dev.type == "cuda"
+    if cuda and not all(t.is_contiguous() for t in ts):
         raise ValueError("pair_tallies needs contiguous tensors on CUDA")
-    return _pair_tallies_cuda(*ts)
+    read = [ii.min(), ii.max(), jj.min(), jj.max()]
+    if cuda:
+        from simka_tpu_torch.ops import _kernels
+
+        read.append(segments_bound(len1, len2, ii, jj,
+                                   _kernels.lib().simka_min_pair_segment()))
+    lo1, hi1, lo2, hi2, *k_max = torch.stack(
+        [x.long() for x in read]).tolist()
+    if not (0 <= lo1 and hi1 < len1.shape[0] and 0 <= lo2
+            and hi2 < len2.shape[0]):
+        raise ValueError("pair_tallies: a pair index is out of range")
+    if not cuda:
+        return pair_tallies_plain(*ts)
+    return _pair_tallies_cuda(*ts, k_max=k_max[0])
 
 
 def distances_from_tallies(t: torch.Tensor):

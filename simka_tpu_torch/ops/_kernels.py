@@ -109,9 +109,15 @@ def lib():
                     f"the CUDA kernel library did not build or load: {e}"
                 ) from e
             vp = ctypes.c_void_p
-            handle.simka_compact_tile_rows.restype = ctypes.c_int64
-            handle.simka_compact_tile_rows.argtypes = []
             i32, i64, u64 = ctypes.c_int, ctypes.c_int64, ctypes.c_uint64
+            for name, res, args in (
+                ("simka_compact_tile_rows", i64, []),
+                ("simka_min_pair_segment", i32, []),
+                ("simka_min_pair_scratch_words", i64, [i64, i64]),
+            ):
+                fn = getattr(handle, name)
+                fn.restype = res
+                fn.argtypes = args
             for name, args in (
                 ("simka_compact_rows", [vp, i64, i32, vp, vp, vp, vp, i64,
                                         i32, vp, vp]),
@@ -119,12 +125,13 @@ def lib():
                 ("simka_murmur_kmers", [vp, vp, i64, u64, u64, vp, vp, vp,
                                         vp]),
                 # csrc/min_distance.cu
-                ("simka_min_pair_tallies", [vp] * 10 + [i64, vp, vp]),
+                ("simka_min_pair_tallies", [vp] * 10 + [i64, i64, vp, vp,
+                                                      vp]),
                 # csrc/probes.cu
                 ("simka_probe_scale_f32", [vp, vp, i64, ctypes.c_float, vp]),
                 ("simka_probe_map_i32", [i32, vp, vp, i64, i32, vp, vp]),
                 ("simka_probe_onehot_f32", [vp, vp, i64, i32, vp]),
-                ("simka_probe_max_positive", [i32, vp, i64, vp, vp]),
+                ("simka_probe_max_positive", [i32, vp, i64, vp, vp, vp]),
                 ("simka_probe_gram_bf16", [i32, vp, vp, i64, i32, i32, vp,
                                            vp, vp]),
                 ("simka_probe_dma", [vp, i64, vp, i64, vp, i64, i64, i64,

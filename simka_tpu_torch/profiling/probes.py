@@ -123,11 +123,14 @@ def _map_i32(group, op, x, arg=0, flag=None):
 
 
 def _max_positive(group, x):
-    flag = torch.empty(1, dtype=torch.int32, device=x.device)
+    """The flag, a [1] int32 device word; the kernel's combine state is
+    the two zeroed words after it, this call's own."""
+    words = torch.zeros(3, dtype=torch.int32, device=x.device)
+    flag = words[:1]
     with torch.cuda.device(x.device):
         _launch(group, "simka_probe_max_positive",
                 int(x.dtype == torch.int32), x.data_ptr(), x.numel(),
-                flag.data_ptr(), _stream(x))
+                flag.data_ptr(), words[1:].data_ptr(), _stream(x))
     return flag
 
 
@@ -562,6 +565,45 @@ PROBES: List[Probe] = [
     *_dma_probes("dma_align", "dma_align", "run", dma_align,
                  dma_align_plain, (0, 128, 131, 777)),
 ]
+
+
+INT32_MIN = -(1 << 31)
+
+
+def _positive_last(x, v):
+    x = x.copy()
+    x.reshape(-1)[-1] = v
+    return x
+
+
+# edge inputs of kd's and ke's max predicate: (probe, edge, numpy
+# Generator -> inputs); kd's small integers keep its product exact
+PREDICATE_EDGES = [
+    ("cond_gram", "all_nonpositive",
+     lambda rng: (-np.abs(_small_ints(rng, (2048, LANES))),)),
+    ("cond_gram", "negative_zero",
+     lambda rng: (np.full((2048, LANES), -0.0, np.float32),)),
+    ("cond_gram", "positive_last",
+     lambda rng: (_positive_last(-np.abs(_small_ints(rng, (2048, LANES))),
+                                 1.0),)),
+    ("max_pred", "all_nonpositive",
+     lambda rng: (_i32(rng, (256, LANES), INT32_MIN, 1),)),
+    ("max_pred", "int32_min",
+     lambda rng: (np.full((256, LANES), INT32_MIN, np.int32),)),
+    ("max_pred", "positive_last",
+     lambda rng: (_positive_last(np.full((256, LANES), INT32_MIN, np.int32),
+                                 1),)),
+]
+
+
+def edge_inputs(probe_name: str, edge: str, seed: int, device) -> tuple:
+    """(the probe, its seeded inputs on ``device``) of one entry of
+    ``PREDICATE_EDGES``."""
+    i, make = next((i, m) for i, (p, e, m) in enumerate(PREDICATE_EDGES)
+                   if (p, e) == (probe_name, edge))
+    probe = next(p for p in PROBES if p.name == probe_name)
+    rng = np.random.default_rng([seed, len(PROBES) + i])
+    return probe, tuple(torch.from_numpy(a).to(device) for a in make(rng))
 
 
 def probe_inputs(probe: Probe, seed: int, device) -> tuple:

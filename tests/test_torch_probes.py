@@ -159,6 +159,26 @@ def test_probe_matches_pallas_interpret(scripts, name):
         assert not got.any()  # the false branch of kd's cond
 
 
+@pytest.mark.parametrize("probe,edge",
+                         [(p, e) for p, e, _ in probes.PREDICATE_EDGES])
+def test_predicate_edges_match_pallas_interpret(scripts, probe, edge):
+    """kd's and ke's max predicate on edge inputs (all values <= 0,
+    -0.0, one positive at the last element, int32 minimum): the plain
+    version against the TPU kernel in interpret mode, exactly."""
+    p, args = probes.edge_inputs(probe, edge, 0, "cpu")
+    got = p.fn(*args).numpy()
+    want, _ = _reference(scripts, probe, [a.numpy() for a in args])
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    x = args[0].numpy()
+    taken = x.astype(np.float32).max() > 0
+    assert taken == (edge == "positive_last")
+    if probe == "max_pred":
+        np.testing.assert_array_equal(got, x if taken else x * 2)
+    else:
+        assert got.any() == taken
+
+
 def test_dma_routes_at_the_probe_offsets():
     """The split the bulk copies take at test_dma_align.py's offsets,
     from a 16-byte aligned base: an int32 offset that is a multiple of
@@ -209,3 +229,8 @@ def test_probe_kernels_match_plain_on_cuda():
     results = probes.run_all("cuda", seed=1, strict=True, log=None)
     assert all(r["ok"] for r in results)
     assert all(probes.launches[g] > before[g] for g in probes.GROUPS)
+    # the predicate's edge inputs through the grid-wide reduce
+    before = probes.launches["mosaic_features"]
+    for probe, edge, _ in probes.PREDICATE_EDGES:
+        probes.compare(*probes.edge_inputs(probe, edge, 1, "cuda"))
+    assert probes.launches["mosaic_features"] > before
