@@ -14,19 +14,27 @@ Phases (each raises on failure; nothing is caught):
      their times at 2^24 and 2^27;
   4. the probe path (python -m simka_tpu_torch.profiling.probes): every
      probe kernel against its plain version (DMA routes printed), the
-     launch count of each of the four groups over that run; kd's and
-     ke's max predicate on its edge inputs (probes.PREDICATE_EDGES: all
-     values <= 0, -0.0, one positive at the last element, int32
-     minimum) against the plain version; then per
-     probe the kernel's CUDA-event time around the Python call, its
-     device time from torch.profiler (the summed durations of the
-     trace's events of the hand kernels' own names, kept only when the
-     trace holds one for each launch counted; every event name of the
-     first probe's and of the bf16 product's calls printed), the plain
-     version's time and,
-     where one torch call computes the same function, that call's
-     times (for the bf16 products torch.mm(out_dtype=float32) on the
-     operands cast beforehand); the bf16 product twice, bit-identical;
+     launch count of each of the four groups and of each probe kernel
+     over that run; then the edge inputs (probes.EDGES) kernel == plain
+     bit for bit: kd's and ke's max predicate (all values <= 0, -0.0,
+     one positive at the last element, int32 minimum), the DMA kernel
+     at dma_align offsets 1, 2, 3 and 7131 (the last in bounds) and f6
+     at 0, the elementwise kernel on f1, f2, k2, k7 and kc inputs 4, 8
+     and 12 bytes past a 16-byte boundary; the launch floor (the device
+     time of a one-element fill_); then per probe the kernel's
+     CUDA-event time around the Python call, its device time from
+     torch.profiler (the summed durations of the trace's events of the
+     hand kernels' own names, kept only when the trace holds one for
+     each launch counted; every event name of the first probe's and of
+     the bf16 product's calls printed), the plain version's time, its
+     bound (a DMA probe's: the window read and written and its offset)
+     beside the launch floor and, where one torch call computes the
+     same function, that call's times (the DMA probes: torch.add(out=)
+     of the window, src and dst taken on the host; for the bf16
+     products torch.mm(out_dtype=float32) on the operands cast
+     beforehand); the bf16 product twice, bit-identical; per launch of
+     probe_dma_add1 and of probe_map, means over the probes that launch
+     it alone;
   5. small communities through run_simka on cuda and on cpu, byte-equal
      CSVs and repartition histograms: the default distances (k=21);
      -simple-dist -complex-dist at k in {21, 33, 63, 127} (150 bp
@@ -166,7 +174,8 @@ and in phase 11's -nb-kmers 100000 run, whose hash-kernel launches are
 murmur_kmers' launches; min_pair_distance's launches are phase 12c's
 `min pipeline -nb-kmers 1000000`'s, its times at that run's sketches
 (l2_floor_ms: the design's L2 floor), wide_* at phase 12a's 100 x
-1,000,000; extra fields) and the card's
+1,000,000; probe_dma_add1's and probe_map's per launch, with
+launch_floor_ms and per_probe; extra fields) and the card's
 nvidia-smi
 line; the last
 line is the JSON result. Exits non-zero without a result when no CUDA
@@ -420,18 +429,27 @@ def trace_names(tag: str, fn, launches, reps: int = 3) -> None:
         + f"; union {trace.union_us(events):.1f} us")
 
 
+def dma_window(p, args):
+    """(src, dst, length) of DMA probe p on its inputs (the offset read
+    on the host), or None for the other probes."""
+    if p.name.split("@")[0] not in probes.DMA_SPANS:
+        return None
+    return probes.dma_window(p.name, args[0] if len(args) == 2 else None)
+
+
 def library_call(p, args):
     """One torch call that computes probe p's function on its inputs,
     or None where none does (the bf16 products' operands are cast, and
     k6's one-hot built, outside the timed call). Timed here only: the
     port never calls it."""
     x = args[-1]
-    if p.name.startswith("dma_align"):
-        # the window the kernel copies: DMA_LEN elements from off to off+37
-        o = int(args[0].reshape(-1)[0])
-        src = x[o:o + probes.DMA_LEN]
-        dst = torch.zeros_like(x)[o + 37:o + 37 + probes.DMA_LEN]
-        return lambda: dst.copy_(src)
+    if dma_window(p, args):
+        # the window + 1 with src and dst taken on the host: the kernel
+        # reads its offset on the device, a dependent read this call skips
+        src, dst, length = dma_window(p, args)
+        window = x.reshape(-1)[src:src + length]
+        out = torch.zeros_like(x).view(-1)[dst:dst + length]
+        return lambda: torch.add(window, 1, out=out)
     if p.name in ("basic_2d_vmem", "basic_1d_vmem", "reshape_f32"):
         return lambda: torch.mul(x, 2)
     if p.name in ("reshape_i32", "reshape_2d_i32"):
@@ -443,13 +461,21 @@ def library_call(p, args):
         else:
             xb = x.to(torch.bfloat16)
         return lambda: torch.mm(xb.t(), xb, out_dtype=torch.float32)
+    # none, each needing two calls: k3 and k5 (one_hot's result is int64
+    # and wants a cast to f32; k3's negative values one_hot refuses), k7
+    # and kc (a roll, then the add), kb (a shift, then the mask), ke (a
+    # max-reduce, then the select)
     return None
 
 
 def probe_bound(p, args):
-    """Bound of one probe call: the bytes of its inputs and outputs,
-    and for a bf16 product that runs 2 x rows x 128^2 operations (kd
-    on negative inputs skips it)."""
+    """Bound of one probe call: for a DMA probe the window read and
+    written (2 x length x 4 B) and the offset it reads; otherwise the
+    bytes of its inputs and outputs, and for a bf16 product that runs
+    2 x rows x 128^2 operations (kd on negative inputs skips it)."""
+    if dma_window(p, args):
+        _, _, length = dma_window(p, args)
+        return bound(2 * length * 4 + (4 if len(args) == 2 else 0))
     out = p.plain(*args)
     outs = out if isinstance(out, tuple) else (out,)
     nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs))
@@ -459,44 +485,96 @@ def probe_bound(p, args):
     return bound(nbytes, ops)
 
 
+def launch_floor_ms(dev):
+    """Device time of the card's shortest kernel, a one-element fill_:
+    what no probe design can remove."""
+    t = torch.empty(1, device=dev)
+    return device_ms(lambda: t.fill_(1.0), only=None)
+
+
 def probe_launches() -> int:
     """Kernel launches of every probe group so far."""
     return sum(probes.launches.values())
+
+
+# the hand kernels that the probe path's own record lists, with the TPU
+# kernels they serve
+PROBE_KERNEL_RECORDS = {
+    "probe_dma_add1": "scripts/profiling/test_pallas_basic.py:61,92,123,158"
+                      "; scripts/profiling/test_dma_align.py:35",
+    "probe_map": "scripts/profiling/test_pallas_basic.py:27,39; "
+                 "scripts/profiling/test_mosaic_reshape.py:11; "
+                 "scripts/profiling/test_mosaic_features.py:11",
+}
+PER_LAUNCH = ("ms", "device_ms", "plain_ms", "bound_ms")
+
+
+def kernel_record(rows: list, launches: int, floor) -> dict:
+    """One hand kernel's record, per launch: means over the probes whose
+    call launches it alone and once (``rows``); the one-call yardstick's
+    times are means over those of them that have one."""
+    mean = lambda vals: (None if not vals or any(v is None for v in vals)
+                         else float(np.mean(vals)))
+    lib = [r for r in rows if r["library_ms"] is not None]
+    return {
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{k: mean([r[k] for r in rows]) for k in PER_LAUNCH},
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                     else "operations"),
+        "library_ms": mean([r["library_ms"] for r in lib]),
+        "library_device_ms": mean([r["library_device_ms"] for r in lib]),
+        "library_probes": [r["name"] for r in lib],
+        "launch_floor_ms": floor,
+        "per_probe": {r["name"]: {k: r[k] for k in (
+            *PER_LAUNCH, "library_ms", "library_device_ms")} for r in rows},
+    }
 
 
 def probe_phase(dev, seed: int) -> dict:
     """Phase 4: the probe path, then each probe's times; returns per
     group, and for the bf16 product ("gram"), {launches, max_abs_err,
     ms, device_ms, plain_ms, library_ms, library_device_ms, bound_ms,
-    bound_by}."""
+    bound_by}, and under "kernels" the record (kernel_record) of each
+    kernel of PROBE_KERNEL_RECORDS."""
     for g in probes.launches:
         probes.launches[g] = 0
-    probes.gram_launches = 0
+    for k in probes.kernel_launches:
+        probes.kernel_launches[k] = 0
     results = probes.run_all(dev, seed, strict=True, log=say)
     torch.cuda.synchronize()
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
             "bound_ms")
     groups = {g: {"launches": probes.launches[g], "max_abs_err": 0.0,
                   **dict.fromkeys(keys, 0.0)} for g in probes.GROUPS}
-    gram = {"launches": probes.gram_launches, "max_abs_err": 0.0}
-    idle = [g for g, v in groups.items() if v["launches"] <= 0]
-    if idle or gram["launches"] <= 0:
-        raise AssertionError(f"the probe path never launched {idle} "
-                             f"(bf16 product: {gram['launches']})")
+    path_launches = dict(probes.kernel_launches)
+    gram = {"launches": path_launches["probe_gram_bf16"], "max_abs_err": 0.0}
+    idle = [g for g, v in groups.items() if v["launches"] <= 0] + [
+        k for k, n in path_launches.items() if n <= 0]
+    if idle:
+        raise AssertionError(f"the probe path never launched {idle}")
+    errs = {r["name"]: r["max_abs_err"] for r in results}
     for r in results:
         g = groups[r["group"]]
         g["max_abs_err"] = max(g["max_abs_err"], r["max_abs_err"])
         if "gram" in r["name"]:
             gram["max_abs_err"] = max(gram["max_abs_err"], r["max_abs_err"])
-    for probe_name, edge, _ in probes.PREDICATE_EDGES:
-        probes.compare(*probes.edge_inputs(probe_name, edge, seed, dev))
-    say("kd's and ke's predicate on its edge inputs (" + ", ".join(
-        f"{p} {e}" for p, e, _ in probes.PREDICATE_EDGES) + "): kernel == "
-        "plain")
-    saved = dict(probes.launches), probes.gram_launches
+    for e in probes.EDGES:
+        probes.compare(*probes.edge_inputs(e.probe, e.edge, seed, dev))
+    torch.cuda.synchronize()
+    say("edge inputs, kernel == plain bit for bit: " + ", ".join(
+        f"{e.probe} {e.edge}" for e in probes.EDGES))
+    saved = dict(probes.launches), dict(probes.kernel_launches)
+    floor = launch_floor_ms(dev)
+    say(f"launch floor (a one-element fill_ on the device): {us(floor)}")
+    rows = {k: [] for k in PROBE_KERNEL_RECORDS}
     for p in probes.PROBES:
         args = probes.probe_inputs(p, seed, dev)
         lib = library_call(p, args)
+        before = dict(probes.kernel_launches)
+        p.fn(*args)
+        per_call = {k: n - before[k] for k, n in probes.kernel_launches.items()
+                    if n != before[k]}
         t = {
             "ms": time_ms(lambda: p.fn(*args), reps=20),
             "device_ms": device_ms(lambda: p.fn(*args),
@@ -509,27 +587,34 @@ def probe_phase(dev, seed: int) -> dict:
         if p is probes.PROBES[0]:
             trace_names(f"probe {p.name}", lambda: p.fn(*args),
                         probe_launches)
-        t["bound_ms"], by = probe_bound(p, args)
+        t["bound_ms"], t["bound_by"] = probe_bound(p, args)
         g = groups[p.group]
-        g["bound_by"] = "bytes" if g.get("bound_by", "bytes") == by == \
-            "bytes" else "operations"
+        g["bound_by"] = "bytes" if g.get("bound_by", "bytes") == \
+            t["bound_by"] == "bytes" else "operations"
         for k in keys:  # a group's sum is None once a probe lacks the time
             g[k] = None if g[k] is None or t[k] is None else g[k] + t[k]
+        if len(per_call) == 1:  # the probes that launch one kernel once
+            ((kernel_name, n),) = per_call.items()
+            if n == 1 and kernel_name in rows:
+                rows[kernel_name].append(
+                    {"name": p.name, "max_abs_err": errs[p.name], **t})
         if p.name == "gram_bf16_normal":  # ka at its shape, normal values
             trace_names(f"probe {p.name}", lambda: p.fn(*args),
                         probe_launches)
-            gram.update(t)
-            gram["bound_ms"], gram["bound_by"] = probe_bound(p, args)
+            gram.update({k: t[k] for k in keys})
+            gram["bound_ms"], gram["bound_by"] = t["bound_ms"], t["bound_by"]
             a, b = p.fn(*args), p.fn(*args)
             torch.cuda.synchronize()
             if not torch.equal(a, b):
                 raise AssertionError("the bf16 product differs between runs")
-        say(f"probe {p.name} ({p.tpu}): kernel {t['ms']:.4f} ms around "
-            f"the call, {fmt(t['device_ms'])} on the device; plain "
-            f"{t['plain_ms']:.4f} ms; one torch call {fmt(t['library_ms'])} "
-            f"({fmt(t['library_device_ms'])} on the device); bound "
-            f"{t['bound_ms']:.6f} ms")
-    # kd's predicate alone: the one-CTA max-reduce to a device flag
+        say(f"probe {p.name} ({p.tpu}; " + ", ".join(
+            f"{k} x{n}" for k, n in per_call.items()) + f"): kernel "
+            f"{us(t['ms'])} around the call, {us(t['device_ms'])} on the "
+            f"device; plain {us(t['plain_ms'])}; one torch call "
+            f"{us(t['library_ms'])} ({us(t['library_device_ms'])} on the "
+            f"device); bound {us(t['bound_ms'])} by {t['bound_by']}, "
+            f"launch floor {us(floor)}")
+    # kd's predicate alone: the grid-wide max-reduce to a device flag
     # against torch.amax over the same [2048, 128] f32 input
     (x,) = probes.probe_inputs(next(p for p in probes.PROBES
                                     if p.name == "cond_gram_normal"), seed,
@@ -549,7 +634,7 @@ def probe_phase(dev, seed: int) -> dict:
         f"torch.amax {pred['max_pred_library_ms']:.4f} ms "
         f"({fmt(pred['max_pred_library_device_ms'])} on the device)")
     probes.launches.update(saved[0])  # timing launches are not the path's
-    probes.gram_launches = saved[1]
+    probes.kernel_launches.update(saved[1])
     for name, g in groups.items():
         say(f"probe group {name}: {g['launches']} launches, kernels "
             f"{g['ms']:.4f} ms ({fmt(g['device_ms'])} on the device), "
@@ -561,11 +646,25 @@ def probe_phase(dev, seed: int) -> dict:
         f"torch.mm(out_dtype=float32) {fmt(gram['library_ms'])} "
         f"({fmt(gram['library_device_ms'])} on the device), "
         f"{gram['launches']} launches on the probe path, identical runs")
-    return {"groups": groups, "gram": gram}
+    kernels = {}
+    for k, r in rows.items():
+        rec = kernels[k] = kernel_record(r, path_launches[k], floor)
+        say(f"{k}: {rec['launches']} launches on the probe path; per launch "
+            f"(means over {', '.join(x['name'] for x in r)}) "
+            f"{us(rec['device_ms'])} on the device, bound "
+            f"{us(rec['bound_ms'])} by {rec['bound_by']}, launch floor "
+            f"{us(floor)}; one torch call {us(rec['library_device_ms'])} "
+            f"on the device (means over "
+            f"{', '.join(rec['library_probes'])})")
+    return {"groups": groups, "gram": gram, "kernels": kernels}
 
 
 def fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def us(ms) -> str:
+    return "not measured" if ms is None else f"{ms * 1e3:.4f} us"
 
 
 def csv_texts(out_dir: str) -> dict:
@@ -2241,6 +2340,14 @@ def main() -> int:
                                 "bound_ms", "bound_by", "library_ms",
                                 "device_ms", "library_device_ms")},
     })
+    for name, rec in probe["kernels"].items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "simka_tpu_torch/csrc/probes.cu",
+            "replaces": PROBE_KERNEL_RECORDS[name],
+            **rec,
+        })
     for name, g in probe["groups"].items():
         kernels.append({
             "name": f"probes.{name}",

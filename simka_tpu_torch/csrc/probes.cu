@@ -31,13 +31,25 @@
 //     simka_probe_max_positive: a grid-wide reduce in one launch, the
 //     last CTA combining (a one-CTA reduce of kd's 1 MB took 42.6 us on
 //     an H100 against torch.amax's 5.9 us).
-//   - the elementwise bodies are grid-stride loops.
-// What bounds them: nothing at these sizes (<= 1 MB, one or two
-// launches each): the least time the card could take is under a
-// microsecond (the product's 1 MB of x over 3.35 TB/s is 0.33 us, its
-// 67 MFLOP over 989 TFLOP/s bf16 0.07 us), so launch latency and the
-// host's wrapper set their time. They are capability and correctness
-// probes, timed for the record.
+//   - simka_probe_map: the elementwise bodies, one template kernel over
+//     (element type, op), the op chosen on the host at the launch.
+// What bounds them: the launch. At these sizes (<= 1 MB, one or two
+// launches each) the least time the card could take for the work is
+// 0.002-0.3 us (the product's 1 MB of x over 3.35 TB/s is 0.33 us, its
+// 67 MFLOP over 989 TFLOP/s bf16 0.07 us; a DMA window's 8 KB 0.0024
+// us), under the card's shortest kernel: a one-element fill_ takes
+// 0.99 us on the device (an H100 80GB HBM3 at 700 W; chip_smoke.py's
+// phase 4, profiling/probe_ab.py). No design removes that floor; what
+// a design can remove is the time a kernel spends past it. The DMA
+// kernel cuts its serial chain (the barrier set up during the offset's
+// read, loads issued as soon as the source is known, one shared buffer
+// where the residues agree, and a wait on the bulk store's
+// shared-memory reads only, not on its global writes); what stays past
+// the floor is its two bulk copies' round trips and, where it has one,
+// the offset's read. The elementwise kernel moves 16 bytes a thread
+// with 32-bit indices on a grid sized to the work, with no per-element
+// switch. They are capability and correctness probes, timed for the
+// record.
 //
 // Plain C interface for ctypes; nothing here allocates or
 // synchronises. Each entry point returns cudaGetLastError().
@@ -52,19 +64,18 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 8;
 
-// int32 ops of simka_probe_map_i32 (two's-complement wrap, as XLA's)
-enum : int {
-  kMul = 0,      // x * arg                       f2
-  kAdd = 1,      // x + arg                       k1, k4 (arg = 1)
-  kRollAdd1 = 2, // x[(i + arg) % n] + 1          k7 (concat + slice [5:])
-  kRollSum = 3,  // x[(i + arg) % n] + x[i]       kc (w[3:] + w[:n])
-  kLaneByte = 4, // (x >> (i % arg % 4 * 8)) & 255, arg = lanes   kb
-  kSelect = 5,   // *flag ? x : 2 x               ke
-};
-
 int blocks_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
   return (int)(b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b));
+}
+
+// The card's SM count, for grids of at most one wave.
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
 }
 
 __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
@@ -75,34 +86,140 @@ __device__ __forceinline__ int32_t wrap_mul(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a * (uint32_t)b);
 }
 
-__global__ void probe_scale_f32(const float* __restrict__ x,
-                                float* __restrict__ out, int64_t n,
-                                float mul) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x)
-    out[i] = x[i] * mul;
+// ---- the elementwise probes: one template kernel over (type, op) ----
+//
+// out[i] = op(x[i], i) over n < 2^31 elements, 32-bit indices. Each
+// thread moves 4 elements by one 16-byte load and one 16-byte store
+// (float4 / int4) from the first 16-byte boundary of x; the up to 3
+// elements before it and the up to 3 after the last whole vector go by
+// scalar loads and stores. x and out share their address mod 16 (the
+// wrapper allocates out so), so one boundary serves both. The grid
+// covers the vectors once, up to one wave. The op is a template
+// argument, chosen on the host at the launch (simka_probe_map's codes).
+
+enum : int {
+  kScaleF32 = 0,  // x * mul (f32)                    f1, k2
+  kMul = 1,       // x * arg                          f2
+  kAdd = 2,       // x + arg                          k1, k4 (arg = 1)
+  kRollAdd1 = 3,  // x[(i + arg) % n] + 1             k7 (concat + slice [5:])
+  kRollSum = 4,   // x[(i + arg) % n] + x[i]          kc (w[3:] + w[:n])
+  kLaneByte = 5,  // (x >> (i % arg % 4 * 8)) & 255   kb, arg = lanes
+  kSelect = 6,    // *flag ? x : 2 x                  ke
+};
+
+constexpr int kMapThreads = 256;
+
+struct I32Op {
+  using T = int32_t;
+  using V = int4;
+  static constexpr bool kFlag = false;
+};
+
+struct ScaleF32 {
+  using T = float;
+  using V = float4;
+  static constexpr bool kFlag = false;
+  float mul;
+  __device__ T operator()(T v, uint32_t, const T*) const { return v * mul; }
+};
+
+struct MulI32 : I32Op {
+  int32_t arg;
+  __device__ T operator()(T v, uint32_t, const T*) const {
+    return wrap_mul(v, arg);
+  }
+};
+
+struct AddI32 : I32Op {
+  int32_t arg;
+  __device__ T operator()(T v, uint32_t, const T*) const {
+    return wrap_add(v, arg);
+  }
+};
+
+// the rolled operand x[(i + shift) % n] is not 16-byte aligned: a
+// scalar load (0 <= shift <= n < 2^31, so i + shift fits 32 bits)
+struct RollAdd1 : I32Op {
+  uint32_t shift, n;
+  __device__ T operator()(T, uint32_t i, const T* x) const {
+    uint32_t j = i + shift;
+    if (j >= n) j -= n;
+    return wrap_add(x[j], 1);
+  }
+};
+
+struct RollSum : I32Op {
+  uint32_t shift, n;
+  __device__ T operator()(T v, uint32_t i, const T* x) const {
+    uint32_t j = i + shift;
+    if (j >= n) j -= n;
+    return wrap_add(x[j], v);
+  }
+};
+
+struct LaneByte : I32Op {
+  uint32_t lanes;
+  __device__ T operator()(T v, uint32_t i, const T*) const {
+    return (v >> (i % lanes % 4 * 8)) & 255;
+  }
+};
+
+struct Select : I32Op {
+  static constexpr bool kFlag = true;
+  const int32_t* flag;
+  bool take;  // *flag != 0, read once a CTA
+  __device__ T operator()(T v, uint32_t, const T*) const {
+    return take ? v : wrap_mul(v, 2);
+  }
+};
+
+template <class Op>
+__global__ void __launch_bounds__(kMapThreads)
+    probe_map(const typename Op::T* __restrict__ x,
+              typename Op::T* __restrict__ out, uint32_t n, uint32_t head,
+              Op op) {
+  using V = typename Op::V;
+  if constexpr (Op::kFlag) {
+    __shared__ int32_t taken;
+    if (threadIdx.x == 0) taken = *op.flag;
+    __syncthreads();
+    op.take = taken != 0;
+  }
+  const uint32_t g = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t nv = (n - head) / 4;
+  const V* xv = reinterpret_cast<const V*>(x + head);
+  V* ov = reinterpret_cast<V*>(out + head);
+  for (uint32_t q = g; q < nv; q += gridDim.x * blockDim.x) {
+    const V v = xv[q];
+    const uint32_t i = head + 4 * q;
+    ov[q] = V{op(v.x, i, x), op(v.y, i + 1, x), op(v.z, i + 2, x),
+              op(v.w, i + 3, x)};
+  }
+  // the scalar head [0, head) and tail [head + 4 nv, n)
+  if (g < n - 4 * nv) {
+    const uint32_t i = g < head ? g : g + 4 * nv;
+    out[i] = op(x[i], i, x);
+  }
 }
 
-__global__ void probe_map_i32(int op, const int32_t* __restrict__ x,
-                              int32_t* __restrict__ out, int64_t n,
-                              int32_t arg, const int32_t* __restrict__ flag) {
-  const bool take_x = op == kSelect && *flag != 0;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int32_t v = x[i];
-    int64_t j = i + arg;
-    if (j >= n) j -= n;
-    int32_t r;
-    switch (op) {
-      case kMul: r = wrap_mul(v, arg); break;
-      case kAdd: r = wrap_add(v, arg); break;
-      case kRollAdd1: r = wrap_add(x[j], 1); break;
-      case kRollSum: r = wrap_add(x[j], v); break;
-      case kLaneByte: r = (v >> ((int)(i % arg) % 4 * 8)) & 255; break;
-      default: r = take_x ? v : wrap_mul(v, 2); break;
-    }
-    out[i] = r;
-  }
+template <class Op>
+int launch_map(const void* x, void* out, uint32_t n, Op op, void* stream) {
+  using T = typename Op::T;
+  // elements before x's first 16-byte boundary (x is 4-byte aligned)
+  uint32_t head = (uint32_t)((16 - ((uintptr_t)x & 15)) & 15) / 4;
+  if (head > n) head = n;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  // one thread a vector (a thread for the scalar ends when there is no
+  // vector), up to one wave of 2048 / kMapThreads CTAs an SM
+  const int64_t work = (n - head) / 4 > 0 ? (n - head) / 4 : n;
+  int64_t blocks = (work + kMapThreads - 1) / kMapThreads;
+  const int64_t wave = (int64_t)sms * (2048 / kMapThreads);
+  if (blocks > wave) blocks = wave;
+  probe_map<Op><<<(unsigned)blocks, kMapThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), n, head, op);
+  return (int)cudaGetLastError();
 }
 
 // out[r, c] = (x[r] >= 0 && x[r] == c) ? 1 : 0 over [rows, cols]: k3
@@ -351,57 +468,76 @@ __device__ __forceinline__ Split split16(const void* addr, int64_t len) {
 // memory, src = off * off_scale + src_add and dst = off * off_scale +
 // dst_add, with off = *off_ptr read on the device (0 without one): f3
 // (static span), f4 (row tile 0:8 -> 8:16), f5 (dynamic row tile), f6
-// and test_dma_align.py (dynamic, unaligned). Each shared buffer starts
-// at the same residue mod 16 as its global span, so the aligned bodies
-// line up: the load buffer with the source, the store buffer with the
-// destination; the +1 pass moves the data from one to the other.
+// and test_dma_align.py (dynamic, unaligned). A shared buffer starts at
+// the same residue mod 16 as its global span, so the aligned bodies line
+// up. kSame (the load's and the store's residues equal: f3, f4, f5):
+// one buffer, the +1 done in place. Otherwise (f6, dma_align: the store
+// lies 37 elements on) a load buffer and a store buffer, the +1 on the
+// way from one to the other. The chain is cut to what depends: the
+// barrier is set up while the offset's read is in flight, the bulk load
+// and the peeled loads (+1 straight into the store buffer) go out as
+// soon as src is known, and the CTA waits on its bulk store only until
+// shared memory has been read (the kernel's end orders the writes).
 // info[0..2]: load head/bulk/tail elements; info[3..5]: the store's;
 // info[6]: 1 when the span was out of bounds (nothing copied).
-__global__ void probe_dma_add1(const int32_t* __restrict__ x, int64_t x_len,
-                               int32_t* __restrict__ out, int64_t out_len,
-                               const int32_t* __restrict__ off_ptr,
-                               int64_t off_scale, int64_t src_add,
-                               int64_t dst_add, int64_t len,
-                               int32_t* __restrict__ info) {
+template <bool kSame>
+__global__ void __launch_bounds__(1024)
+    probe_dma_add1(const int32_t* __restrict__ x, int64_t x_len,
+                   int32_t* __restrict__ out, int64_t out_len,
+                   const int32_t* __restrict__ off_ptr, int64_t off_scale,
+                   int64_t src_add, int64_t dst_add, int len,
+                   int32_t* __restrict__ info) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar;
-  const int64_t off = off_ptr ? (int64_t)off_ptr[0] : 0;
-  const int64_t src = off * off_scale + src_add;
-  const int64_t dst = off * off_scale + dst_add;
-  if (src < 0 || dst < 0 || src + len > x_len || dst + len > out_len) {
-    if (threadIdx.x == 0) info[6] = 1;
-    return;
-  }
-  const Split ld = split16(x + src, len);
-  const Split st = split16(out + dst, len);
-  const int64_t buf_elems = (len + 4 + 3) / 4 * 4;
-  int32_t* in_s = reinterpret_cast<int32_t*>(smem_raw) + ld.mis;
-  int32_t* out_s = reinterpret_cast<int32_t*>(smem_raw) + buf_elems + st.mis;
+  const int tid = threadIdx.x;
+  const int last = blockDim.x - 1 - tid;  // peeled work goes to the last
+                                          // threads, thread 0 to the bulk
   const uint32_t bar_a = smem_u32(&bar);
-
-  if (threadIdx.x == 0) {
+  const int64_t off = off_ptr ? (int64_t)off_ptr[0] : 0;
+  if (tid == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_a)
                  : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-  if (threadIdx.x == 0 && ld.body > 0) {
-    const uint32_t bytes = (uint32_t)(ld.body * 4);
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-            bar_a),
-        "r"(bytes)
-        : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(in_s + ld.head)),
-        "l"((uint64_t)(x + src + ld.head)), "r"(bytes), "r"(bar_a)
-        : "memory");
+  const int64_t src = off * off_scale + src_add;
+  const int64_t dst = off * off_scale + dst_add;
+  if (src < 0 || dst < 0 || src + len > x_len || dst + len > out_len) {
+    if (tid == 0) info[6] = 1;
+    return;
   }
-  for (int64_t i = threadIdx.x; i < ld.head + ld.tail; i += blockDim.x) {
-    const int64_t e = i < ld.head ? i : ld.body + i;
-    in_s[e] = x[src + e];
+  const Split ld = split16(x + src, len);
+  const Split st = split16(out + dst, len);
+  int32_t* in_s = reinterpret_cast<int32_t*>(smem_raw) + ld.mis;
+  int32_t* out_s =
+      kSame ? in_s
+            : reinterpret_cast<int32_t*>(smem_raw) + (len + 7) / 4 * 4 + st.mis;
+  if (tid == 0) {
+    if (ld.body > 0) {
+      const uint32_t bytes = (uint32_t)(ld.body * 4);
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              bar_a),
+          "r"(bytes)
+          : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(in_s + ld.head)),
+          "l"((uint64_t)(x + src + ld.head)), "r"(bytes), "r"(bar_a)
+          : "memory");
+    }
+    info[0] = (int32_t)ld.head;
+    info[1] = (int32_t)ld.body;
+    info[2] = (int32_t)ld.tail;
+    info[3] = (int32_t)st.head;
+    info[4] = (int32_t)st.body;
+    info[5] = (int32_t)st.tail;
+    info[6] = 0;
   }
+  if (last < ld.head + ld.tail) {
+    const int e = last < ld.head ? last : (int)ld.body + last;
+    out_s[e] = wrap_add(x[src + e], 1);
+  }
+  __syncthreads();  // the barrier's init, seen by every thread that waits
   if (ld.body > 0) {
     uint32_t done = 0;
     while (!done) {
@@ -413,34 +549,39 @@ __global__ void probe_dma_add1(const int32_t* __restrict__ x, int64_t x_len,
           : "r"(bar_a), "r"(0u)
           : "memory");
     }
+    // the loaded body, 16 bytes a thread, + 1 into the store buffer
+    const int4* in4 = reinterpret_cast<const int4*>(in_s + ld.head);
+    for (int q = tid; q < ld.body / 4; q += blockDim.x) {
+      const int4 v = in4[q];
+      const int4 r = {wrap_add(v.x, 1), wrap_add(v.y, 1), wrap_add(v.z, 1),
+                      wrap_add(v.w, 1)};
+      if (kSame) {
+        reinterpret_cast<int4*>(out_s + ld.head)[q] = r;
+      } else {
+        int32_t* o = out_s + ld.head + 4 * q;
+        o[0] = r.x;
+        o[1] = r.y;
+        o[2] = r.z;
+        o[3] = r.w;
+      }
+    }
   }
-  __syncthreads();
-  for (int64_t i = threadIdx.x; i < len; i += blockDim.x)
-    out_s[i] = wrap_add(in_s[i], 1);
   // generic-proxy writes to shared memory, visible to the bulk store
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
-  if (threadIdx.x == 0 && st.body > 0) {
+  if (tid == 0 && st.body > 0) {
     asm volatile(
         "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
             (uint64_t)(out + dst + st.head)),
         "r"(smem_u32(out_s + st.head)), "r"((uint32_t)(st.body * 4))
         : "memory");
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    // shared memory must outlive the copy's reads only
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
-  for (int64_t i = threadIdx.x; i < st.head + st.tail; i += blockDim.x) {
-    const int64_t e = i < st.head ? i : st.body + i;
+  if (last < st.head + st.tail) {
+    const int e = last < st.head ? last : (int)st.body + last;
     out[dst + e] = out_s[e];
-  }
-  if (threadIdx.x == 0) {
-    info[0] = (int32_t)ld.head;
-    info[1] = (int32_t)ld.body;
-    info[2] = (int32_t)ld.tail;
-    info[3] = (int32_t)st.head;
-    info[4] = (int32_t)st.body;
-    info[5] = (int32_t)st.tail;
-    info[6] = 0;
   }
 }
 
@@ -448,22 +589,30 @@ __global__ void probe_dma_add1(const int32_t* __restrict__ x, int64_t x_len,
 
 extern "C" {
 
-int simka_probe_scale_f32(const float* x, float* out, int64_t n, float mul,
-                          void* stream) {
-  probe_scale_f32<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      x, out, n, mul);
-  return (int)cudaGetLastError();
-}
-
-int simka_probe_map_i32(int op, const int32_t* x, int32_t* out, int64_t n,
-                        int32_t arg, const int32_t* flag, void* stream) {
-  if (op < kMul || op > kSelect || (op == kSelect && flag == nullptr) ||
-      (op == kLaneByte && arg < 1) ||
+// out[i] = op(x[i]) over n int32 or f32 elements (the enum above); arg
+// for the int32 ops, mul for kScaleF32, flag for kSelect. x and out must
+// share their address mod 16.
+int simka_probe_map(int op, const void* x, void* out, int64_t n, int32_t arg,
+                    float mul, const int32_t* flag, void* stream) {
+  if (n < 1 || n >= (int64_t(1) << 31) || ((uintptr_t)x & 3) ||
+      (((uintptr_t)x ^ (uintptr_t)out) & 15) ||
+      (op == kSelect && flag == nullptr) || (op == kLaneByte && arg < 1) ||
       ((op == kRollAdd1 || op == kRollSum) && (arg < 0 || arg > n)))
     return (int)cudaErrorInvalidValue;
-  probe_map_i32<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      op, x, out, n, arg, flag);
-  return (int)cudaGetLastError();
+  const uint32_t m = (uint32_t)n;
+  switch (op) {
+    case kScaleF32: return launch_map(x, out, m, ScaleF32{mul}, stream);
+    case kMul: return launch_map(x, out, m, MulI32{{}, arg}, stream);
+    case kAdd: return launch_map(x, out, m, AddI32{{}, arg}, stream);
+    case kRollAdd1:
+      return launch_map(x, out, m, RollAdd1{{}, (uint32_t)arg, m}, stream);
+    case kRollSum:
+      return launch_map(x, out, m, RollSum{{}, (uint32_t)arg, m}, stream);
+    case kLaneByte:
+      return launch_map(x, out, m, LaneByte{{}, (uint32_t)arg}, stream);
+    case kSelect: return launch_map(x, out, m, Select{{}, flag, false}, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int simka_probe_onehot_f32(const int32_t* x, float* out, int64_t rows,
@@ -478,10 +627,8 @@ int simka_probe_max_positive(int is_i32, const void* x, int64_t n,
                              int32_t* flag, unsigned int* scratch,
                              void* stream) {
   if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   // a 16-byte load a thread, up to two CTAs an SM
   int64_t blocks = (n / 4 + kPredThreads - 1) / kPredThreads;
@@ -513,15 +660,28 @@ int simka_probe_gram_bf16(int mode, const void* x, float* out, int64_t rows,
   return (int)cudaGetLastError();
 }
 
-// Shared memory: two buffers of len + 4 int32 (len <= 4096).
+// len <= 4096; shared memory: one buffer of len + 4 int32 (rounded to
+// 16 bytes), two when the load's and the store's residues differ; one
+// thread per 4 elements (a whole number of warps).
 int simka_probe_dma(const int32_t* x, int64_t x_len, int32_t* out,
                     int64_t out_len, const int32_t* off, int64_t off_scale,
                     int64_t src_add, int64_t dst_add, int64_t len,
                     int32_t* info, void* stream) {
   if (len < 1 || len > 4096) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)2 * ((len + 4 + 3) / 4 * 4) * sizeof(int32_t);
-  probe_dma_add1<<<1, 128, smem, (cudaStream_t)stream>>>(
-      x, x_len, out, out_len, off, off_scale, src_add, dst_add, len, info);
+  // x + src and out + dst differ by the same number of elements mod 4
+  // for every off, so the host knows whether the residues are equal
+  const bool same = ((((uintptr_t)x >> 2) - ((uintptr_t)out >> 2) +
+                      (uint64_t)src_add - (uint64_t)dst_add) & 3) == 0;
+  const size_t buf = (size_t)((len + 7) / 4 * 4) * sizeof(int32_t);
+  const int threads = (int)((len + 127) / 128 * 32);
+  if (same)
+    probe_dma_add1<true><<<1, threads, buf, (cudaStream_t)stream>>>(
+        x, x_len, out, out_len, off, off_scale, src_add, dst_add, (int)len,
+        info);
+  else
+    probe_dma_add1<false><<<1, threads, 2 * buf, (cudaStream_t)stream>>>(
+        x, x_len, out, out_len, off, off_scale, src_add, dst_add, (int)len,
+        info);
   return (int)cudaGetLastError();
 }
 

@@ -128,8 +128,8 @@ def lib():
                 ("simka_min_pair_tallies", [vp] * 10 + [i64, i64, vp, vp,
                                                       vp]),
                 # csrc/probes.cu
-                ("simka_probe_scale_f32", [vp, vp, i64, ctypes.c_float, vp]),
-                ("simka_probe_map_i32", [i32, vp, vp, i64, i32, vp, vp]),
+                ("simka_probe_map", [i32, vp, vp, i64, i32, ctypes.c_float,
+                                     vp, vp]),
                 ("simka_probe_onehot_f32", [vp, vp, i64, i32, vp]),
                 ("simka_probe_max_positive", [i32, vp, i64, vp, vp, vp]),
                 ("simka_probe_gram_bf16", [i32, vp, vp, i64, i32, i32, vp,

@@ -25,6 +25,11 @@ and sizes), peeled after it; for the load, then the store; then an
 out-of-bounds flag. Outside the written window the output is 0 (the TPU
 left it undefined).
 
+``EDGES`` lists edge inputs beside the probes' own (``edge_inputs``):
+kd's and ke's max predicate, the DMA kernel at every load and store
+residue and the last offset in bounds, and the elementwise kernel on
+inputs 4, 8 or 12 bytes past a 16-byte boundary.
+
     python -m simka_tpu_torch.profiling.probes
 
 runs every probe on the GPU and prints one ``name: OK`` or ``name: FAILED ...`` line per probe, each
@@ -49,12 +54,14 @@ GROUPS = {
 
 # kernel launches per group on the CUDA path (the CPU path does not count)
 launches = dict.fromkeys(GROUPS, 0)
-# kernel launches of the bf16 product (k6, ka, kd; two kernels a call),
-# counted in their groups too
-gram_launches = 0
+# the same launches by csrc/probes.cu kernel (the bf16 product is two
+# kernels a call, probe_gram_partial and probe_gram_reduce)
+kernel_launches = dict.fromkeys(("probe_map", "probe_dma_add1",
+                                 "probe_onehot_f32", "probe_max_positive",
+                                 "probe_gram_bf16"), 0)
 
-# csrc/probes.cu's int32 ops
-_MUL, _ADD, _ROLL_ADD1, _ROLL_SUM, _LANE_BYTE, _SELECT = range(6)
+# csrc/probes.cu's elementwise ops (simka_probe_map)
+_SCALE_F32, _MUL, _ADD, _ROLL_ADD1, _ROLL_SUM, _LANE_BYTE, _SELECT = range(7)
 
 LANES = 128  # the TPU probes' lane width (last dim)
 DMA_LEN = 1024  # elements per DMA probe copy
@@ -85,12 +92,14 @@ def _is_cuda(*ts: torch.Tensor) -> bool:
     return True
 
 
-def _launch(group: str, fn: str, *args, kernels: int = 1) -> None:
-    """Call entry point ``fn``, which launches ``kernels`` kernels."""
+def _launch(group: str, kernel: str, fn: str, *args, kernels: int = 1):
+    """Call entry point ``fn``, which launches ``kernels`` kernels of
+    ``kernel`` (a key of ``kernel_launches``)."""
     from simka_tpu_torch.ops import _kernels
 
     _kernels.check(getattr(_kernels.lib(), fn)(*args), fn)
     launches[group] += kernels
+    kernel_launches[kernel] += kernels
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -105,19 +114,24 @@ def _check(t: torch.Tensor, shape, dtype) -> None:
         )
 
 
-def _scale_f32(group, x, mul):
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _launch(group, "simka_probe_scale_f32", x.data_ptr(), out.data_ptr(),
-                x.numel(), float(mul), _stream(x))
-    return out
+def _like_at_residue(x: torch.Tensor) -> torch.Tensor:
+    """An empty contiguous tensor like x whose address is x's mod 16 (a
+    view into a buffer a few elements longer): the elementwise kernel's
+    16-byte loads of x and stores to it then start at one element."""
+    shift = x.data_ptr() % 16 // x.element_size()
+    buf = torch.empty(x.numel() + shift, dtype=x.dtype, device=x.device)
+    return buf[shift:].view(x.shape)
 
 
-def _map_i32(group, op, x, arg=0, flag=None):
-    out = torch.empty_like(x)
+def _map(group, op, x, arg=0, mul=1.0, flag=None):
+    """out = op(x) elementwise (csrc/probes.cu's probe_map): the int32
+    ops take ``arg``, _SCALE_F32 ``mul``, _SELECT the device ``flag``."""
+    if x.numel() >= 1 << 31:
+        raise ValueError(f"probe_map indexes in 32 bits: {x.numel()} elements")
+    out = _like_at_residue(x)
     with torch.cuda.device(x.device):
-        _launch(group, "simka_probe_map_i32", op, x.data_ptr(),
-                out.data_ptr(), x.numel(), int(arg),
+        _launch(group, "probe_map", "simka_probe_map", op, x.data_ptr(),
+                out.data_ptr(), x.numel(), int(arg), float(mul),
                 None if flag is None else flag.data_ptr(), _stream(x))
     return out
 
@@ -128,7 +142,7 @@ def _max_positive(group, x):
     words = torch.zeros(3, dtype=torch.int32, device=x.device)
     flag = words[:1]
     with torch.cuda.device(x.device):
-        _launch(group, "simka_probe_max_positive",
+        _launch(group, "probe_max_positive", "simka_probe_max_positive",
                 int(x.dtype == torch.int32), x.data_ptr(), x.numel(),
                 flag.data_ptr(), words[1:].data_ptr(), _stream(x))
     return flag
@@ -138,7 +152,6 @@ GRAM_CHUNK = 64  # rows of x per CTA of csrc/probes.cu's product
 
 
 def _gram(group, x, mode, cols, mod=1, flag=None):
-    global gram_launches
     rows = x.shape[0]
     out = torch.empty((cols, cols), dtype=torch.float32, device=x.device)
     # one [cols, cols] f32 partial per chunk, summed in order by the
@@ -146,20 +159,41 @@ def _gram(group, x, mode, cols, mod=1, flag=None):
     part = torch.empty((rows // GRAM_CHUNK, cols, cols), dtype=torch.float32,
                        device=x.device)
     with torch.cuda.device(x.device):
-        _launch(group, "simka_probe_gram_bf16", mode, x.data_ptr(),
-                out.data_ptr(), rows, cols, mod,
+        _launch(group, "probe_gram_bf16", "simka_probe_gram_bf16", mode,
+                x.data_ptr(), out.data_ptr(), rows, cols, mod,
                 None if flag is None else flag.data_ptr(), part.data_ptr(),
                 _stream(x), kernels=2)
-    gram_launches += 2  # probe_gram_partial, then probe_gram_reduce
     return out
 
 
-def _dma(group, x, off, off_scale, src_add, dst_add, length=DMA_LEN):
+# each DMA probe's window: (off_scale, src_add, dst_add, length); it
+# copies x[src, src + length) + 1 to out[dst, dst + length), src = off *
+# off_scale + src_add, dst = off * off_scale + dst_add
+DMA_SPANS = {
+    "static_dma": (0, 0, 0, DMA_LEN),
+    "static_row_dma": (0, 0, 8 * LANES, 8 * LANES),
+    "dynamic_row_dma": (LANES, 0, LANES, 8 * LANES),
+    "dynamic_unaligned_dma": (1, 0, 37, DMA_LEN),
+    "dma_align": (1, 0, 37, DMA_LEN),
+}
+
+
+def dma_window(name: str, off) -> tuple:
+    """(src, dst, length) of DMA probe ``name`` (``dma_align@131`` or
+    ``dma_align``) at the [1] int32 offset ``off`` (None for the static
+    ones), read on the host."""
+    off_scale, src_add, dst_add, length = DMA_SPANS[name.split("@")[0]]
+    o = 0 if off is None else int(off.reshape(-1)[0])
+    return o * off_scale + src_add, o * off_scale + dst_add, length
+
+
+def _dma(group, name, x, off):
+    off_scale, src_add, dst_add, length = DMA_SPANS[name]
     out = torch.zeros_like(x)
     info = torch.empty(len(INFO_FIELDS), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
-        _launch(group, "simka_probe_dma", x.data_ptr(), x.numel(),
-                out.data_ptr(), out.numel(),
+        _launch(group, "probe_dma_add1", "simka_probe_dma", x.data_ptr(),
+                x.numel(), out.data_ptr(), out.numel(),
                 None if off is None else off.data_ptr(), off_scale, src_add,
                 dst_add, length, info.data_ptr(), _stream(x))
     return out, info
@@ -177,9 +211,8 @@ def _split16(addr: int, length: int):
     return head, bulk, length - head - bulk
 
 
-def _dma_plain(x, off, off_scale, src_add, dst_add, length=DMA_LEN):
-    o = 0 if off is None else int(off.reshape(-1)[0])
-    src, dst = o * off_scale + src_add, o * off_scale + dst_add
+def _dma_plain(name, x, off):
+    src, dst, length = dma_window(name, off)
     flat = x.reshape(-1)
     out = torch.zeros_like(x)
     if min(src, dst) < 0 or max(src, dst) + length > flat.numel():
@@ -219,7 +252,7 @@ def basic_2d_vmem(x):
     _check(x, (256, 256), torch.float32)
     if not _is_cuda(x):
         return basic_2d_vmem_plain(x)
-    return _scale_f32("pallas_basic", x, 2.0)
+    return _map("pallas_basic", _SCALE_F32, x, mul=2.0)
 
 
 def basic_2d_vmem_plain(x):
@@ -231,7 +264,7 @@ def basic_1d_vmem(x):
     _check(x, (1024,), torch.int32)
     if not _is_cuda(x):
         return basic_1d_vmem_plain(x)
-    return _map_i32("pallas_basic", _MUL, x, 2)
+    return _map("pallas_basic", _MUL, x, 2)
 
 
 def basic_1d_vmem_plain(x):
@@ -244,11 +277,11 @@ def static_dma(x):
     _check(x, (8192,), torch.int32)
     if not _is_cuda(x):
         return static_dma_plain(x)
-    return _dma("pallas_basic", x, None, 0, 0, 0)
+    return _dma("pallas_basic", "static_dma", x, None)
 
 
 def static_dma_plain(x):
-    return _dma_plain(x, None, 0, 0, 0)
+    return _dma_plain("static_dma", x, None)
 
 
 def static_row_dma(x):
@@ -256,11 +289,11 @@ def static_row_dma(x):
     _check(x, (64, LANES), torch.int32)
     if not _is_cuda(x):
         return static_row_dma_plain(x)
-    return _dma("pallas_basic", x, None, 0, 0, 8 * LANES, 8 * LANES)
+    return _dma("pallas_basic", "static_row_dma", x, None)
 
 
 def static_row_dma_plain(x):
-    return _dma_plain(x, None, 0, 0, 8 * LANES, 8 * LANES)
+    return _dma_plain("static_row_dma", x, None)
 
 
 def dynamic_row_dma(off, x):
@@ -271,11 +304,11 @@ def dynamic_row_dma(off, x):
     _check(off, (1,), torch.int32)
     if not _is_cuda(x, off):
         return dynamic_row_dma_plain(off, x)
-    return _dma("pallas_basic", x, off, LANES, 0, LANES, 8 * LANES)
+    return _dma("pallas_basic", "dynamic_row_dma", x, off)
 
 
 def dynamic_row_dma_plain(off, x):
-    return _dma_plain(x, off, LANES, 0, LANES, 8 * LANES)
+    return _dma_plain("dynamic_row_dma", x, off)
 
 
 def dynamic_unaligned_dma(off, x):
@@ -285,11 +318,11 @@ def dynamic_unaligned_dma(off, x):
     _check(off, (1,), torch.int32)
     if not _is_cuda(x, off):
         return dynamic_unaligned_dma_plain(off, x)
-    return _dma("pallas_basic", x, off, 1, 0, 37)
+    return _dma("pallas_basic", "dynamic_unaligned_dma", x, off)
 
 
 def dynamic_unaligned_dma_plain(off, x):
-    return _dma_plain(x, off, 1, 0, 37)
+    return _dma_plain("dynamic_unaligned_dma", x, off)
 
 
 # ---- row 3: test_mosaic_reshape.py ----
@@ -299,7 +332,7 @@ def reshape_i32(x):
     _check(x, (2048,), torch.int32)
     if not _is_cuda(x):
         return reshape_i32_plain(x)
-    return _map_i32("mosaic_reshape", _ADD, x, 1).view(2048, 1)
+    return _map("mosaic_reshape", _ADD, x, 1).view(2048, 1)
 
 
 def reshape_i32_plain(x):
@@ -311,7 +344,7 @@ def reshape_f32(x):
     _check(x, (2048,), torch.float32)
     if not _is_cuda(x):
         return reshape_f32_plain(x)
-    return _scale_f32("mosaic_reshape", x, 2.0).view(2048, 1)
+    return _map("mosaic_reshape", _SCALE_F32, x, mul=2.0).view(2048, 1)
 
 
 def reshape_f32_plain(x):
@@ -334,8 +367,8 @@ def _onehot(group, x):
     out = torch.empty((x.numel(), LANES), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
-        _launch(group, "simka_probe_onehot_f32", x.data_ptr(),
-                out.data_ptr(), x.numel(), LANES, _stream(x))
+        _launch(group, "probe_onehot_f32", "simka_probe_onehot_f32",
+                x.data_ptr(), out.data_ptr(), x.numel(), LANES, _stream(x))
     return out
 
 
@@ -344,7 +377,7 @@ def reshape_2d_i32(x):
     _check(x, (16, LANES), torch.int32)
     if not _is_cuda(x):
         return reshape_2d_i32_plain(x)
-    return _map_i32("mosaic_reshape", _ADD, x, 1).view(2048, 1)
+    return _map("mosaic_reshape", _ADD, x, 1).view(2048, 1)
 
 
 def reshape_2d_i32_plain(x):
@@ -383,7 +416,7 @@ def concat_slice(x):
     _check(x, (2048, 1), torch.int32)
     if not _is_cuda(x):
         return concat_slice_plain(x)
-    return _map_i32("mosaic_reshape", _ROLL_ADD1, x, 5)
+    return _map("mosaic_reshape", _ROLL_ADD1, x, 5)
 
 
 def concat_slice_plain(x):
@@ -410,7 +443,7 @@ def lane_shift(x):
     _check(x, (256, LANES), torch.int32)
     if not _is_cuda(x):
         return lane_shift_plain(x)
-    return _map_i32("mosaic_features", _LANE_BYTE, x, LANES)
+    return _map("mosaic_features", _LANE_BYTE, x, LANES)
 
 
 def lane_shift_plain(x):
@@ -424,7 +457,7 @@ def sublane_slice(x):
     _check(x, (2048,), torch.int32)
     if not _is_cuda(x):
         return sublane_slice_plain(x)
-    return _map_i32("mosaic_features", _ROLL_SUM, x, 3).view(2048, 1)
+    return _map("mosaic_features", _ROLL_SUM, x, 3).view(2048, 1)
 
 
 def sublane_slice_plain(x):
@@ -454,7 +487,7 @@ def max_pred(x):
     if not _is_cuda(x):
         return max_pred_plain(x)
     flag = _max_positive("mosaic_features", x)
-    return _map_i32("mosaic_features", _SELECT, x, flag=flag)
+    return _map("mosaic_features", _SELECT, x, flag=flag)
 
 
 def max_pred_plain(x):
@@ -470,11 +503,11 @@ def dma_align(off, x):
     _check(off, (1,), torch.int32)
     if not _is_cuda(x, off):
         return dma_align_plain(off, x)
-    return _dma("dma_align", x, off, 1, 0, 37)
+    return _dma("dma_align", "dma_align", x, off)
 
 
 def dma_align_plain(off, x):
-    return _dma_plain(x, off, 1, 0, 37)
+    return _dma_plain("dma_align", x, off)
 
 
 # ---- the probe table and the run over it ----
@@ -576,34 +609,83 @@ def _positive_last(x, v):
     return x
 
 
-# edge inputs of kd's and ke's max predicate: (probe, edge, numpy
-# Generator -> inputs); kd's small integers keep its product exact
+class Edge(NamedTuple):
+    probe: str  # a probe's name (a DMA probe's without its @offset)
+    edge: str
+    make: Callable  # numpy Generator -> numpy inputs
+    shift: int = 0  # inputs placed this many elements past a 16-byte boundary
+
+
+# edge inputs of kd's and ke's max predicate; kd's small integers keep
+# its product exact
 PREDICATE_EDGES = [
-    ("cond_gram", "all_nonpositive",
-     lambda rng: (-np.abs(_small_ints(rng, (2048, LANES))),)),
-    ("cond_gram", "negative_zero",
-     lambda rng: (np.full((2048, LANES), -0.0, np.float32),)),
-    ("cond_gram", "positive_last",
-     lambda rng: (_positive_last(-np.abs(_small_ints(rng, (2048, LANES))),
-                                 1.0),)),
-    ("max_pred", "all_nonpositive",
-     lambda rng: (_i32(rng, (256, LANES), INT32_MIN, 1),)),
-    ("max_pred", "int32_min",
-     lambda rng: (np.full((256, LANES), INT32_MIN, np.int32),)),
-    ("max_pred", "positive_last",
-     lambda rng: (_positive_last(np.full((256, LANES), INT32_MIN, np.int32),
-                                 1),)),
+    Edge("cond_gram", "all_nonpositive",
+         lambda rng: (-np.abs(_small_ints(rng, (2048, LANES))),)),
+    Edge("cond_gram", "negative_zero",
+         lambda rng: (np.full((2048, LANES), -0.0, np.float32),)),
+    Edge("cond_gram", "positive_last",
+         lambda rng: (_positive_last(
+             -np.abs(_small_ints(rng, (2048, LANES))), 1.0),)),
+    Edge("max_pred", "all_nonpositive",
+         lambda rng: (_i32(rng, (256, LANES), INT32_MIN, 1),)),
+    Edge("max_pred", "int32_min",
+         lambda rng: (np.full((256, LANES), INT32_MIN, np.int32),)),
+    Edge("max_pred", "positive_last",
+         lambda rng: (_positive_last(np.full((256, LANES), INT32_MIN,
+                                             np.int32), 1),)),
 ]
+
+
+def _dma_edge(name, off):
+    return Edge(name, f"offset_{off}",
+                lambda rng: (np.array([off], np.int32), _i32(rng, (8192,))))
+
+
+# edge inputs of the DMA kernel: dma_align at offsets 1, 2, 3 (with the
+# probes' 0, 128, 131 and 777, every load residue mod 4 and every store
+# residue), at the last offset in bounds (7131 + 37 + 1024 = 8192), and
+# the f6 copy at offset 0
+DMA_EDGES = [*(_dma_edge("dma_align", o) for o in (1, 2, 3, 7131)),
+             _dma_edge("dynamic_unaligned_dma", 0)]
+
+
+def _probe(name: str) -> "Probe":
+    return next(p for p in PROBES if p.name.split("@")[0] == name)
+
+
+# edge inputs of the elementwise kernel: f1, f2, k2 and the rolled k7
+# and kc on contiguous views whose base is 4, 8 or 12 bytes past a
+# 16-byte boundary (a scalar head of 3, 2 or 1 elements and a tail of
+# 1, 2 or 3)
+ELEMENTWISE_EDGES = [
+    Edge(name, f"base+{4 * shift}", _probe(name).make, shift)
+    for name in ("basic_2d_vmem", "basic_1d_vmem", "reshape_f32",
+                 "concat_slice", "sublane_slice")
+    for shift in (1, 2, 3)
+]
+
+EDGES = PREDICATE_EDGES + DMA_EDGES + ELEMENTWISE_EDGES
+
+
+def _placed(a: np.ndarray, shift: int, device) -> torch.Tensor:
+    """``a`` as a contiguous tensor on ``device`` starting ``shift``
+    elements past a 16-byte boundary (a view into a longer buffer)."""
+    t = torch.from_numpy(a)
+    buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=device)
+    v = buf[shift:].view(t.shape)
+    if v.data_ptr() % 16 != shift * t.element_size() % 16:
+        raise RuntimeError("the allocator's buffers are not 16-byte aligned")
+    return v.copy_(t)
 
 
 def edge_inputs(probe_name: str, edge: str, seed: int, device) -> tuple:
     """(the probe, its seeded inputs on ``device``) of one entry of
-    ``PREDICATE_EDGES``."""
-    i, make = next((i, m) for i, (p, e, m) in enumerate(PREDICATE_EDGES)
-                   if (p, e) == (probe_name, edge))
-    probe = next(p for p in PROBES if p.name == probe_name)
+    ``EDGES``."""
+    i, e = next((i, e) for i, e in enumerate(EDGES)
+                if (e.probe, e.edge) == (probe_name, edge))
     rng = np.random.default_rng([seed, len(PROBES) + i])
-    return probe, tuple(torch.from_numpy(a).to(device) for a in make(rng))
+    return _probe(probe_name), tuple(_placed(a, e.shift, device)
+                                     for a in e.make(rng))
 
 
 def probe_inputs(probe: Probe, seed: int, device) -> tuple:

@@ -18,6 +18,7 @@ def test_port_imports_no_jax():
         "simka_tpu_torch.core.sweep, simka_tpu_torch.core.budget, "
         "simka_tpu_torch.io.packed, simka_tpu_torch.io.native, "
         "simka_tpu_torch.profiling.probes, simka_tpu_torch.profiling.trace, "
+        "simka_tpu_torch.profiling.probe_ab, "
         "simka_tpu_torch.minhash.cli, simka_tpu_torch.minhash.pipeline, "
         "simka_tpu_torch.minhash.sketch, simka_tpu_torch.minhash.device, "
         "simka_tpu_torch.minhash.bloom, simka_tpu_torch.minhash.murmur, "

@@ -131,10 +131,9 @@ def _reference(s, name, args):
     return _call(kernel, a, shape, dtype), None
 
 
-@pytest.mark.parametrize("name", [p.name for p in probes.PROBES])
-def test_probe_matches_pallas_interpret(scripts, name):
-    probe = next(p for p in probes.PROBES if p.name == name)
-    args = probes.probe_inputs(probe, 0, "cpu")
+def _held_against_pallas(scripts, name, probe, args):
+    """The port's CPU path of ``probe`` on ``args`` against the TPU
+    kernel of ``name`` in interpret mode."""
     got = probe.fn(*args)
     if isinstance(got, tuple):
         got = got[0]
@@ -155,12 +154,44 @@ def test_probe_matches_pallas_interpret(scripts, name):
         assert (got != 0).all()
     else:
         np.testing.assert_array_equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("name", [p.name for p in probes.PROBES])
+def test_probe_matches_pallas_interpret(scripts, name):
+    probe = next(p for p in probes.PROBES if p.name == name)
+    got = _held_against_pallas(scripts, name, probe,
+                               probes.probe_inputs(probe, 0, "cpu"))
     if name == "cond_gram_negative":
         assert not got.any()  # the false branch of kd's cond
 
 
 @pytest.mark.parametrize("probe,edge",
-                         [(p, e) for p, e, _ in probes.PREDICATE_EDGES])
+                         [(e.probe, e.edge) for e in probes.DMA_EDGES])
+def test_dma_edges_match_pallas_interpret(scripts, probe, edge):
+    """The DMA probes at the offsets that complete the load and store
+    residues mod 4, at the last offset in bounds and f6 at offset 0: the
+    plain version against the TPU kernel in interpret mode, inside the
+    written window (zeros outside it)."""
+    p, args = probes.edge_inputs(probe, edge, 0, "cpu")
+    _held_against_pallas(scripts, probe, p, args)
+
+
+@pytest.mark.parametrize("probe,edge,shift", [
+    (e.probe, e.edge, e.shift) for e in probes.ELEMENTWISE_EDGES])
+def test_elementwise_edges_match_pallas_interpret(scripts, probe, edge,
+                                                  shift):
+    """f1, f2, k2, k7 and kc on views 4, 8 or 12 bytes past a 16-byte
+    boundary (the elementwise kernel's scalar head and tail on the
+    card): the plain version against the TPU kernel in interpret mode,
+    exactly."""
+    p, args = probes.edge_inputs(probe, edge, 0, "cpu")
+    assert args[0].is_contiguous() and args[0].data_ptr() % 16 == 4 * shift
+    _held_against_pallas(scripts, probe, p, args)
+
+
+@pytest.mark.parametrize("probe,edge",
+                         [(e.probe, e.edge) for e in probes.PREDICATE_EDGES])
 def test_predicate_edges_match_pallas_interpret(scripts, probe, edge):
     """kd's and ke's max predicate on edge inputs (all values <= 0,
     -0.0, one positive at the last element, int32 minimum): the plain
@@ -180,15 +211,19 @@ def test_predicate_edges_match_pallas_interpret(scripts, probe, edge):
 
 
 def test_dma_routes_at_the_probe_offsets():
-    """The split the bulk copies take at test_dma_align.py's offsets,
-    from a 16-byte aligned base: an int32 offset that is a multiple of
-    4 loads by one bulk copy; 131 peels 1 element before the first
-    16-byte boundary and 3 after the last. Every store lands at
-    offset + 37."""
+    """The split the bulk copies take at test_dma_align.py's offsets and
+    at probes.DMA_EDGES', from a 16-byte aligned base: an int32 offset
+    that is a multiple of 4 loads by one bulk copy; 131 peels 1 element
+    before the first 16-byte boundary and 3 after the last. Every store
+    lands at offset + 37; 7131 is the last offset in bounds."""
     want = {0: ((0, 1024, 0), (3, 1020, 1)),
             128: ((0, 1024, 0), (3, 1020, 1)),
             131: ((1, 1020, 3), (0, 1024, 0)),
-            777: ((3, 1020, 1), (2, 1020, 2))}
+            777: ((3, 1020, 1), (2, 1020, 2)),
+            1: ((3, 1020, 1), (2, 1020, 2)),
+            2: ((2, 1020, 2), (1, 1020, 3)),
+            3: ((1, 1020, 3), (0, 1024, 0)),
+            7131: ((1, 1020, 3), (0, 1024, 0))}
     for off, (load, store) in want.items():
         x = torch.arange(8192, dtype=torch.int32)
         assert x.data_ptr() % 16 == 0
@@ -198,8 +233,9 @@ def test_dma_routes_at_the_probe_offsets():
         assert int(info[6]) == 0
         np.testing.assert_array_equal(out[off + 37 : off + 1061].numpy(),
                                       np.arange(off, off + 1024) + 1)
-    with pytest.raises(ValueError):
-        probes.dma_align(torch.tensor([8000], dtype=torch.int32), x)
+    for off in (7132, 8000):
+        with pytest.raises(ValueError):
+            probes.dma_align(torch.tensor([off], dtype=torch.int32), x)
 
 
 def test_run_all_reports_every_probe_on_cpu(capsys):
@@ -212,7 +248,9 @@ def test_run_all_reports_every_probe_on_cpu(capsys):
     assert all(ln.split(": ")[1].startswith("OK") for ln in lines)
     assert "load bulk 1020, peeled 1+3" in lines[
         [p.name for p in probes.PROBES].index("dma_align@131")]
-    assert sum(probes.launches.values()) == 0  # the CPU launches nothing
+    # the CPU launches nothing
+    assert sum(probes.launches.values()) == 0
+    assert sum(probes.kernel_launches.values()) == 0
 
 
 def test_cli_without_gpu_raises(monkeypatch):
@@ -229,8 +267,16 @@ def test_probe_kernels_match_plain_on_cuda():
     results = probes.run_all("cuda", seed=1, strict=True, log=None)
     assert all(r["ok"] for r in results)
     assert all(probes.launches[g] > before[g] for g in probes.GROUPS)
-    # the predicate's edge inputs through the grid-wide reduce
-    before = probes.launches["mosaic_features"]
-    for probe, edge, _ in probes.PREDICATE_EDGES:
-        probes.compare(*probes.edge_inputs(probe, edge, 1, "cuda"))
-    assert probes.launches["mosaic_features"] > before
+    assert all(n > 0 for n in probes.kernel_launches.values())
+    # the edge inputs: the predicate's through the grid-wide reduce, the
+    # DMA kernel's residues and last offset, the elementwise kernel's
+    # scalar heads and tails
+    before = dict(probes.kernel_launches)
+    for e in probes.EDGES:
+        probes.compare(*probes.edge_inputs(e.probe, e.edge, 1, "cuda"))
+    after = probes.kernel_launches
+    assert after["probe_max_positive"] - before["probe_max_positive"] == 6
+    assert after["probe_dma_add1"] - before["probe_dma_add1"] == len(
+        probes.DMA_EDGES)
+    assert after["probe_map"] - before["probe_map"] == 3 + len(
+        probes.ELEMENTWISE_EDGES)
