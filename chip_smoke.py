@@ -20,8 +20,10 @@ Phases (each raises on failure; nothing is caught):
      one positive at the last element, int32 minimum), the DMA kernel
      at dma_align offsets 1, 2, 3 and 7131 (the last in bounds) and f6
      at 0, the elementwise kernel on f1, f2, k2, k7 and kc inputs 4, 8
-     and 12 bytes past a 16-byte boundary; the launch floor (the device
-     time of a one-element fill_); then per probe the kernel's
+     and 12 bytes past a 16-byte boundary, the one-hot kernel on k3's
+     and k5's values below 0 only, at or past cols only, of every class,
+     and one row; the launch floor (the device time of a one-element
+     fill_); then per probe the kernel's
      CUDA-event time around the Python call, its device time from
      torch.profiler (the summed durations of the trace's events of the
      hand kernels' own names, kept only when the trace holds one for
@@ -34,7 +36,8 @@ Phases (each raises on failure; nothing is caught):
      products torch.mm(out_dtype=float32) on the operands cast
      beforehand); the bf16 product twice, bit-identical; per launch of
      probe_dma_add1 and of probe_map, means over the probes that launch
-     it alone;
+     it alone; the one-hot kernel's store floor (out.zero_() of its 1 MB
+     output) beside its per-launch times;
   5. small communities through run_simka on cuda and on cpu, byte-equal
      CSVs and repartition histograms: the default distances (k=21);
      -simple-dist -complex-dist at k in {21, 33, 63, 127} (150 bp
@@ -66,8 +69,9 @@ Phases (each raises on failure; nothing is caught):
      resumes the 9 at the default -max-memory, where the reference's
      spill rule takes the sweep (the disk tier, -keep-tmp), its CSVs
      equal to run 3's; run 3f resumes the 8 with -simple-dist
-     -complex-dist -sweep-ranges 7, its CSVs byte-equal to phase 7's
-     all-distances k=21 run; run 4, without -keep-tmp, resumes all 9
+     -complex-dist -sweep-ranges 7 over the shards [cuda:0] x 2 (phase
+     13b), its CSVs byte-equal to phase 7's all-distances k=21 run;
+     run 4, without -keep-tmp, resumes all 9
      and removes <tmp>/count/. Per run: the count, merge and output
      stages, per-sample checkpoint load, count, save and spill times,
      the sweep's ranges, partition (each checkpoint shipped and cut on
@@ -163,7 +167,22 @@ Phases (each raises on failure; nothing is caught):
      sample == a joint 9-sample pipeline (every file); per run wall,
      stages, route, kernel launches, peak memory; then the kernel at
      the 1,000,000 run's sketches (28 pairs) against its plain
-     version, the host walk and its bound, timed as in (a).
+     version, the host walk and its bound, timed as in (a);
+ 13. hash-space shards (parallel/) on repeated devices of the one card
+     and -coordinator: (a) compute_statistics (run_simka with shards)
+     over [cuda:0] x 2 and x 4 on phase 7's 8 samples at k=21 with
+     every distance, in memory, its CSVs byte-equal to phase 7's
+     all-distances k=21 run, the instances per shard summing to that
+     run's; (b) inside phase 8: its run 3f, the -sweep-ranges 7 sweep
+     (all distances) over [cuda:0] x 2, and before its run 4 the
+     -out-tmp join over [cuda:0] x 2, each resuming phase 8's 8
+     checkpoints, byte-equal to phase 7's all-distances and default
+     runs; (c) the CLI with -coordinator as one NCCL
+     rank in a subprocess (its exchange and reductions through NCCL),
+     all distances, byte-equal to phase 7's run; two ranks, one a card,
+     only where the machine has two cards (NCCL refuses two ranks on one
+     card), else a line saying it did not run. Per run wall, per-shard
+     rows, compaction launches (kept total == n on each), peak memory.
 
 Prints, before the last line, the kernels' JSON record (per kernel:
 launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
@@ -171,11 +190,13 @@ bound_by, library_ms -- null where no one torch call computes the same
 function -- launches_out_tmp, launches_sweep and launches_sketch, the
 compaction's launches in phase 8's run 1, in phase 10's 16-sample run
 and in phase 11's -nb-kmers 100000 run, whose hash-kernel launches are
-murmur_kmers' launches; min_pair_distance's launches are phase 12c's
+murmur_kmers' launches; launches_shards_2 and launches_shards_4, the
+compaction's in phase 13a; min_pair_distance's launches are phase 12c's
 `min pipeline -nb-kmers 1000000`'s, its times at that run's sketches
 (l2_floor_ms: the design's L2 floor), wide_* at phase 12a's 100 x
-1,000,000; probe_dma_add1's and probe_map's per launch, with
-launch_floor_ms and per_probe; extra fields) and the card's
+1,000,000; probe_dma_add1's, probe_map's and probe_onehot_f32's per
+launch, with launch_floor_ms and per_probe, the last with
+store_floor_ms and store_floor_device_ms; extra fields) and the card's
 nvidia-smi
 line; the last
 line is the JSON result. Exits non-zero without a result when no CUDA
@@ -505,6 +526,7 @@ PROBE_KERNEL_RECORDS = {
     "probe_map": "scripts/profiling/test_pallas_basic.py:27,39; "
                  "scripts/profiling/test_mosaic_reshape.py:11; "
                  "scripts/profiling/test_mosaic_features.py:11",
+    "probe_onehot_f32": "scripts/profiling/test_mosaic_reshape.py:11",
 }
 PER_LAUNCH = ("ms", "device_ms", "plain_ms", "bound_ms")
 
@@ -646,16 +668,29 @@ def probe_phase(dev, seed: int) -> dict:
         f"torch.mm(out_dtype=float32) {fmt(gram['library_ms'])} "
         f"({fmt(gram['library_device_ms'])} on the device), "
         f"{gram['launches']} launches on the probe path, identical runs")
+    # the one-hot kernel's store floor: out.zero_() of the same [2048,
+    # 128] f32 (1 MB), the stores alone; no one torch call computes the
+    # one-hot itself, so its library_ms stays null
+    out = torch.empty((2048, probes.LANES), dtype=torch.float32, device=dev)
+    store_floor = {"store_floor_ms": time_ms(out.zero_, reps=20),
+                   "store_floor_device_ms": device_ms(out.zero_, only=None)}
+    say(f"the one-hot's store floor, out.zero_() of [2048, 128] f32: "
+        f"{us(store_floor['store_floor_ms'])} around the call, "
+        f"{us(store_floor['store_floor_device_ms'])} on the device")
     kernels = {}
     for k, r in rows.items():
         rec = kernels[k] = kernel_record(r, path_launches[k], floor)
+        if k == "probe_onehot_f32":
+            rec.update(store_floor)
         say(f"{k}: {rec['launches']} launches on the probe path; per launch "
             f"(means over {', '.join(x['name'] for x in r)}) "
             f"{us(rec['device_ms'])} on the device, bound "
             f"{us(rec['bound_ms'])} by {rec['bound_by']}, launch floor "
             f"{us(floor)}; one torch call {us(rec['library_device_ms'])} "
             f"on the device (means over "
-            f"{', '.join(rec['library_probes'])})")
+            f"{', '.join(rec['library_probes'])})"
+            + (f"; store floor {us(rec['store_floor_device_ms'])} on the "
+               "device" if "store_floor_ms" in rec else ""))
     return {"groups": groups, "gram": gram, "kernels": kernels}
 
 
@@ -985,7 +1020,8 @@ def checkpoint_mtimes(tmp: str) -> dict:
 
 def out_tmp_full_size(tmp: str, inp8: str, inp9: str, yardsticks: dict,
                       recorder: ShapeRecorder, dev) -> dict:
-    """Phase 8; returns run 1's record."""
+    """Phase 8, with phase 13b before its run 4; returns run 1's
+    record."""
     from simka_tpu_torch.core.pipeline import count_dataset_spectrum
     from simka_tpu_torch.io.dsl import parse_input_file
     from simka_tpu_torch.io.packed import PackedReadSource
@@ -1006,16 +1042,26 @@ def out_tmp_full_size(tmp: str, inp8: str, inp9: str, yardsticks: dict,
             ("3f", inp8, True, 8, ALL_DISTANCES + ["-sweep-ranges", "7"]
              + fits, "7all", 7),
             (4, inp9, False, 9, fits, 3, None)):
-        tag = f"-out-tmp run {r}"
+        if r == 4:  # phase 13b, while the 8 checkpoints are kept
+            shards_from_checkpoints(tmp, inp8, ckpt, csvs, recorder, dev)
+        # run 3f: the sweep over the shards [cuda:0] x 2 (phase 13b)
+        shards = [dev] * 2 if r == "3f" else [dev]
+        tag = f"-out-tmp run {r}" + (" over [cuda:0] x 2" if r == "3f"
+                                     else "")
         out = os.path.join(tmp, f"ckpt_out_{r}")
         before = checkpoint_mtimes(ckpt)
         argv = ["-in", inp, "-out", out, "-out-tmp", ckpt, "-kmer-size",
                 "21", "-abundance-min", "2", "-verbose", "0", "-device",
                 "cuda", *flags]
-        rec, m = cli_run(tag, argv + (["-keep-tmp"] if keep else []), out,
-                         recorder)
+        argv += ["-keep-tmp"] if keep else []
+        rec, m = cli_run(tag, argv, out, recorder,
+                         run=None if r != "3f" else lambda: sharded_argv(
+                             argv, out, shards))
         first = first or rec
         c, texts = m["counters"], csv_texts(out)
+        if c["n_shards"] != len(shards):
+            raise AssertionError(f"{tag}: {c['n_shards']} shards, expected "
+                                 f"{len(shards)}")
         after = checkpoint_mtimes(ckpt)
         if c.get("datasets_resumed") != resumed:
             raise AssertionError(f"{tag}: {c.get('datasets_resumed')} "
@@ -2220,6 +2266,148 @@ def min_pipeline_full_size(tmp: str, inp8: str, inp9: str, recorder,
     return recs[s][0], times
 
 
+# ---- phase 13: hash-space shards and -coordinator -------------------------
+
+SHARD_COUNTS = (2, 4)
+
+
+def sharded_argv(argv: list, out: str, shards: list) -> dict:
+    """The CLI's run of ``argv`` over the shard devices ``shards``;
+    returns the run's metrics."""
+    from simka_tpu_torch.cli import parse_simka_args
+    from simka_tpu_torch.core.pipeline import run_simka
+
+    run_simka(parse_simka_args(argv)[1], device="cuda", shards=shards)
+    return metrics_of(out)
+
+
+def sharded_run(tag: str, out: str, recorder: ShapeRecorder, shards: list,
+                **cfg) -> tuple:
+    """run_simka over the shard devices ``shards``, as ``cli_run``
+    measures a run; returns (record, metrics)."""
+    from simka_tpu_torch.config import SimkaConfig
+    from simka_tpu_torch.core.pipeline import run_simka
+
+    def run():
+        run_simka(SimkaConfig(output_dir=out, verbose=False, **cfg),
+                  device=shards[0].type, shards=shards)
+        return metrics_of(out)
+
+    return cli_run(tag, None, out, recorder, run=run)
+
+
+def shards_in_memory(tmp: str, inp8: str, yardsticks: dict, instances: int,
+                     recorder: ShapeRecorder, dev) -> dict:
+    """Phase 13a; returns each shard count's record."""
+    want = yardsticks["all distances k=21"]
+    recs = {}
+    for n in SHARD_COUNTS:
+        tag = f"phase 13a: shards [cuda:0] x {n}, all distances k=21"
+        out = os.path.join(tmp, f"shards_{n}")
+        rec, m = sharded_run(tag, out, recorder, [dev] * n,
+                             input_filename=inp8, kmer_size=21,
+                             abundance_min=2, simple_dist=True,
+                             complex_dist=True)
+        c = m["counters"]
+        rows = c["repartition_histogram"]  # instances per shard
+        if (c["route"], c["n_shards"], len(rows)) != ("in-memory", n, n):
+            raise AssertionError(f"{tag}: route {c['route']}, "
+                                 f"{c['n_shards']} shards, {len(rows)} rows")
+        if sum(rows) != instances:
+            raise AssertionError(f"{tag}: {sum(rows)} instances over the "
+                                 f"shards, phase 7 had {instances}")
+        if csv_texts(out) != want:
+            raise AssertionError(f"{tag}: CSVs differ from phase 7's")
+        say(f"{tag}: CSVs == phase 7's all-distances k=21 run; wall "
+            f"{rec['wall_s']:.3f} s; stages " + ", ".join(
+                f"{key} {c[key]}" for key in sorted(c)
+                if key.startswith("stage_"))
+            + f"; instances per shard {rows} (of {instances}); compact "
+            f"launches {rec['launches']} (kept total == n on each); peak "
+            f"device memory {rec['peak_gib']:.2f} GiB")
+        recs[n] = {**rec, "shard_rows": rows}
+    return recs
+
+
+def shards_from_checkpoints(tmp: str, inp8: str, ckpt: str, csvs: dict,
+                            recorder: ShapeRecorder, dev) -> None:
+    """Phase 13b: the -out-tmp join over [cuda:0] x 2 from phase 8's 8
+    checkpoints (the sweep over them is phase 8's run 3f)."""
+    tag = "phase 13b: shards [cuda:0] x 2, -out-tmp join, default k=21"
+    out = os.path.join(tmp, "shards_ckpt")
+    rec, m = sharded_run(tag, out, recorder, [dev] * 2, input_filename=inp8,
+                         output_tmp_dir=ckpt, keep_tmp=True, kmer_size=21,
+                         abundance_min=2, max_memory_mb=50000)
+    c = m["counters"]
+    if (c.get("datasets_resumed"), c.get("sweep_ranges"),
+            c["n_shards"]) != (8, None, 2):
+        raise AssertionError(
+            f"{tag}: {c.get('datasets_resumed')} resumed, "
+            f"{c.get('sweep_ranges')} ranges, {c['n_shards']} shards")
+    if csv_texts(out) != csvs[0]:
+        raise AssertionError(f"{tag}: CSVs differ from phase 7's")
+    say(f"{tag}: CSVs == phase 7's default run; wall {rec['wall_s']:.3f} s; "
+        f"stages count {m['stages']['count']}, merge {m['stages']['merge']}; "
+        f"compact launches {rec['launches']} (kept total == n on each); "
+        f"peak device memory {rec['peak_gib']:.2f} GiB")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def coordinator_runs(tmp: str, inp8: str, yardsticks: dict) -> None:
+    """Phase 13c: -coordinator through the CLI, one process a rank."""
+    want = yardsticks["all distances k=21"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()  # the ranks' processes share the card
+    for n in (1, 2):
+        if n > torch.cuda.device_count():
+            say(f"phase 13c: the {n}-rank NCCL run did not run: "
+                f"{torch.cuda.device_count()} card(s), and NCCL refuses two "
+                "ranks on one card")
+            continue
+        tag = f"phase 13c: -coordinator, {n} NCCL rank(s), all distances"
+        out = os.path.join(tmp, f"coordinator_{n}")
+        argv = [sys.executable, "-m", "simka_tpu_torch.cli", "-in", inp8,
+                "-out", out, "-simple-dist", "-complex-dist", "-verbose",
+                "0", "-device", "cuda", "-coordinator",
+                f"localhost:{free_port()}", "-num-hosts", str(n)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(argv + ["-host-id", str(r)], cwd=root,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(n)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise AssertionError(f"{tag}: a rank returned "
+                                     f"{p.returncode}:\n{log[-3000:]}")
+        if csv_texts(out) != want:
+            raise AssertionError(f"{tag}: CSVs differ from phase 7's")
+        m = metrics_of(out)
+        launches = m["counters"]["compact_launches"]
+        if launches <= 0:  # rank 0's process, counted from its start
+            raise AssertionError(f"{tag}: rank 0 never launched the "
+                                 "compaction kernel")
+        say(f"{tag}: CSVs == phase 7's all-distances k=21 run; wall "
+            f"{wall:.3f} s (process start included); stages count "
+            f"{m['stages']['count']}, merge {m['stages']['merge']}; "
+            f"processes {m['counters']['n_processes']}; rank 0's compact "
+            f"launches {launches}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2260,6 +2448,10 @@ def main() -> int:
                                             dev)
             sweep_run = out_of_core_full_size(tmp, args.seed, inp8, inp9,
                                               yardsticks, rec)
+            shard_recs = shards_in_memory(
+                tmp, inp8, yardsticks,
+                paths["all distances k=21"]["instances"], rec, dev)
+            coordinator_runs(tmp, inp8, yardsticks)
             m_err = murmur_vs_plain(dev, args.seed)
             small_sketch_gpu_vs_cpu(tmp, args.seed)
             rec.check_totals()
@@ -2287,6 +2479,8 @@ def main() -> int:
         "launches": main_run["launches"],
         "launches_out_tmp": out_tmp_run["launches"],
         "launches_sweep": sweep_run["launches"],
+        **{f"launches_shards_{n}": r["launches"]
+           for n, r in shard_recs.items()},
         "max_abs_err": err,
         **{k: join[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "fill_ms", "fill_bound_ms",

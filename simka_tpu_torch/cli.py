@@ -3,8 +3,10 @@ and SimkaMin's `min` subcommands (``minhash/cli.py``).
 
 The flags are ``simka_tpu.cli``'s, plus ``-device {cuda,cpu}``
 (default cuda; asking for cuda without a GPU is an error, never a
-silent CPU run). Options outside the port's slice raise
-NotImplementedError naming their ROADMAP item.
+silent CPU run). -n-shards shards the k-mer space over the first n
+cards (with -device cpu, over n copies of the CPU); -coordinator runs
+one process a host (a card) under torch.distributed, NCCL on the card
+and gloo on the CPU (``parallel/``).
 
 Run as: python -m simka_tpu_torch.cli [min <subcommand>] -in input.txt
 -out dir [-device cuda]
@@ -43,11 +45,11 @@ def build_simka_parser() -> argparse.ArgumentParser:
     p.add_argument("-max-memory", type=int, default=5000, help="max memory (MB): one join's budget; a larger join takes the out-of-core hash-range sweep")
     p.add_argument("-sweep-ranges", type=int, default=0, help="with -out-tmp: force the out-of-core sweep over N hash ranges (0: only past -max-memory)")
     p.add_argument("-verbose", type=int, default=1, help="verbosity")
-    p.add_argument("-n-shards", type=int, default=0, help="k-mer-space shards (only 0 or 1: one device)")
+    p.add_argument("-n-shards", type=int, default=0, help="k-mer-space shards (0 = all local cards; with -device cpu, n copies of the CPU)")
     p.add_argument("-data-info", action="store_true", help="compute (and display) input information only")
-    p.add_argument("-coordinator", default=None, help="multi-host coordinator (not ported)")
-    p.add_argument("-num-hosts", type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("-host-id", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("-coordinator", default=None, help="coordinator address host:port for multi-host runs (one process a host, a card each)")
+    p.add_argument("-num-hosts", type=int, default=None, help="number of processes in the multi-host run")
+    p.add_argument("-host-id", type=int, default=None, help="this process's id (0-based)")
     for flag in ("-count-cmd", "-merge-cmd", "-count-file", "-merge-file"):
         p.add_argument(flag, default=None, help=argparse.SUPPRESS)
     p.add_argument("-max-count", type=int, default=0, help=argparse.SUPPRESS)
@@ -56,9 +58,11 @@ def build_simka_parser() -> argparse.ArgumentParser:
     return p
 
 
-def simka_main(argv) -> int:
+def parse_simka_args(argv) -> tuple:
+    """The `simka` command's flags as (the parsed arguments, the run's
+    SimkaConfig)."""
     args = build_simka_parser().parse_args(argv)
-    config = SimkaConfig(
+    return args, SimkaConfig(
         input_filename=args.input,
         output_dir=args.out,
         output_tmp_dir=args.out_tmp,
@@ -78,16 +82,30 @@ def simka_main(argv) -> int:
         n_shards=args.n_shards,
         sweep_ranges=args.sweep_ranges,
     )
+
+
+def simka_main(argv) -> int:
+    args, config = parse_simka_args(argv)
     if args.data_info:
         from simka_tpu_torch.core.pipeline import run_data_info
 
         run_data_info(config)
         return 0
     if args.coordinator:
-        raise NotImplementedError(
-            "-coordinator (multi-host) is not ported to simka_tpu_torch "
-            "yet (ROADMAP queue 1, item 12)"
+        import torch.distributed as dist
+
+        from simka_tpu_torch.parallel.multihost import (
+            init_distributed,
+            run_simka_multihost,
         )
+
+        init_distributed(args.coordinator, args.num_hosts, args.host_id,
+                         args.device)
+        try:
+            run_simka_multihost(config, device=args.device)
+        finally:
+            dist.destroy_process_group()
+        return 0
     from simka_tpu_torch.core.pipeline import run_simka
 
     run_simka(config, device=args.device)

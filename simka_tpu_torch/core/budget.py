@@ -19,6 +19,7 @@ Two guards compose, as in ``simka_tpu.core.budget``:
 from __future__ import annotations
 
 import os
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -60,11 +61,24 @@ def device_budget_bytes(device: torch.device) -> int:
     return int(total * DEVICE_PLAN_FRACTION)
 
 
-def instance_rows_budget(device: torch.device, n_words: int) -> int:
+def instance_rows_budget(devices, n_words: int) -> int:
     """Max k-mer instance rows of ``n_words`` int64 words each that the
-    in-memory join may accumulate."""
+    in-memory join may accumulate on ``devices``, one device or the
+    device list of hash shards (``parallel.sharded``).
+
+    In memory each device holds only its own shards' instances, about
+    1/n of them for each of the n shards it holds: a device that holds
+    m of them serves n/m times its own plan, and the list plans with
+    the least of those (a device repeated n times plans as one). The
+    out-of-core routes stage every row on one device and plan with
+    that device alone.
+    """
     per_row = (WORD_BYTES * n_words + SID_BYTES) * JOIN_WORKING_SET_FACTOR
-    return max(device_budget_bytes(device) // per_row, 1)
+    if isinstance(devices, torch.device):
+        return max(device_budget_bytes(devices) // per_row, 1)
+    n = len(devices)
+    return min(instance_rows_budget(d, n_words) * n // m
+               for d, m in Counter(devices).items())
 
 
 def spectrum_rows_budget(

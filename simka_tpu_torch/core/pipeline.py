@@ -1,4 +1,5 @@
-"""End-to-end exact-mode pipeline (the `simka` tool) on one device.
+"""End-to-end exact-mode pipeline (the `simka` tool) on one device or
+over hash-space shards.
 
 In memory (the default): host parse + 2-bit pack -> H2D -> per batch:
 unpack, canonical k-mers, compaction of the valid windows, repartition
@@ -29,9 +30,15 @@ windows, so the stream that reaches the join holds only real
 instances (no padding classes, no invalid-window sentinel rows).
 
 Every distance (default, -simple-dist, -complex-dist), k from 1 to
-127 and the -kmer-shannon-index filter run. Outside this slice, and
-raising NotImplementedError (see ROADMAP.md, queue 1): more than one
-device (item 12), the sweep over several devices included.
+127 and the -kmer-shannon-index filter run. ``shards`` (a device
+list, ``parallel.sharded``; -n-shards; one device by default) shards
+the k-mer space: in memory, with two or more, each batch is routed on
+the devices (``route_packed_batch``) and each shard joined there; out
+of core, with -out-tmp and in the sweep, the rows of the spectra or of
+each hash range are staged on ``device``, routed
+(``shard_rows_by_hash``; one shard takes them untouched) and joined
+per shard. The statistics are the same bit for bit at any shard
+count.
 """
 
 from __future__ import annotations
@@ -55,15 +62,6 @@ N_HIST_BUCKETS = 16
 # a sample's kept windows are counted into a partial spectrum each time
 # this many reads' worth (x 32 windows) are gathered
 STREAM_BATCH_READS = 1 << 20
-
-
-def check_slice(config: SimkaConfig) -> None:
-    """Raise NotImplementedError for options the port does not run."""
-    if config.n_shards > 1:
-        raise NotImplementedError(
-            "not ported to simka_tpu_torch yet: -n-shards > 1 (ROADMAP "
-            "queue 1, item 12)"
-        )
 
 
 def resolve_max_reads(read_counts: Sequence[int], max_reads: int) -> int:
@@ -223,9 +221,11 @@ def compute_statistics(
     batch_reads: int = 1 << 17,
     log=None,
     observer: Optional[dict] = None,
+    shards: Optional[Sequence[torch.device]] = None,
 ) -> SimkaStatistics:
-    """Statistics of every dataset on one device, in memory while the
-    instances fit the device plan.
+    """Statistics of every dataset on one device, or over the hash
+    shards on the devices ``shards`` (default ``[device]``; a device
+    may repeat), in memory while the instances fit the device plan.
 
     ``dataset_seqs[s]``: a PackedReadSource, a list of read byte
     strings, or a zero-arg provider callable returning an iterator
@@ -239,18 +239,24 @@ def compute_statistics(
     (``compute_statistics_out_of_core``), as ``simka_tpu`` does.
 
     ``observer``, when given, receives ``stage_timers``,
-    ``repartition_instances`` (instances per hash bucket in memory,
+    ``repartition_instances`` (instances per hash bucket in memory --
+    per shard when sharded, as ``simka_tpu``'s sharded path -- and
     distinct solid k-mers out-of-core) and ``route``; on a restart also
     ``restart_held_bytes``, the device memory still allocated when the
     out-of-core run begins.
     """
     from simka_tpu_torch.core.budget import DeviceBudgetExceeded
 
-    check_slice(config)
+    shards = list(shards) if shards else [device]
     try:
-        stats = _compute_statistics_in_memory(
-            dataset_seqs, dataset_ids, config, device, batch_reads, log,
-            observer)
+        if len(shards) > 1:
+            stats = _compute_statistics_sharded(
+                dataset_seqs, dataset_ids, config, shards, batch_reads, log,
+                observer)
+        else:
+            stats = _compute_statistics_in_memory(
+                dataset_seqs, dataset_ids, config, device, batch_reads, log,
+                observer)
     except DeviceBudgetExceeded as e:
         # the restart runs after the handler, once the traceback's
         # frames, and the batches they reference, are gone
@@ -268,8 +274,14 @@ def compute_statistics(
             else 0)
     return compute_statistics_out_of_core(
         dataset_seqs, dataset_ids, config, device, batch_reads, log=log,
-        observer=observer,
+        observer=observer, shards=shards,
     )
+
+
+def _ingest_timers() -> dict:
+    """The in-memory ingest's stage timers (seconds), all at 0."""
+    return dict.fromkeys(("parse_pack_s", "h2d_s", "extract_dispatch_s",
+                          "join_s"), 0.0)
 
 
 def _shipper(device: torch.device, timers: dict):
@@ -311,12 +323,7 @@ def _compute_statistics_in_memory(
     batches, sids = [], []  # per batch: its k-mer word columns; sids
     hist = torch.zeros(N_HIST_BUCKETS, dtype=torch.int64, device=device)
     state = {"rows": 0}
-    timers = {
-        "parse_pack_s": 0.0,
-        "h2d_s": 0.0,
-        "extract_dispatch_s": 0.0,
-        "join_s": 0.0,
-    }
+    timers = _ingest_timers()
 
     stream = _packed_batch_stream(
         dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads, timers
@@ -378,6 +385,93 @@ def _compute_statistics_in_memory(
     return stats
 
 
+def _compute_statistics_sharded(
+    dataset_seqs, dataset_ids, config, shards, batch_reads, log, observer,
+) -> SimkaStatistics:
+    """``compute_statistics``' in-memory run over hash shards
+    (``simka_tpu``'s ``_compute_statistics_sharded_device``): each batch
+    is shipped once to every distinct device of ``shards`` and routed
+    there (``parallel.sharded.route_packed_batch``), each shard's
+    instances stay on its device, and the shards are joined and folded
+    (``sharded_count_join_stats``). Raises DeviceBudgetExceeded, with
+    every gathered batch dropped, once a device holds more instances,
+    summed over the shards it holds, than its plan."""
+    from collections import Counter
+
+    from simka_tpu_torch.core.budget import (
+        DeviceBudgetExceeded,
+        instance_rows_budget,
+    )
+    from simka_tpu_torch.ops.kmers import n_words
+    from simka_tpu_torch.parallel.sharded import (
+        route_packed_batch,
+        sharded_count_join_stats,
+    )
+
+    k = config.kmer_size
+    nw = n_words(k)
+    held = Counter(shards)
+    plan = {d: instance_rows_budget(d, nw) for d in held}
+    nb_reads = [0] * len(dataset_seqs)
+    batches = [[] for _ in shards]  # per shard, per batch: word columns
+    sids = [[] for _ in shards]
+    rows = [0] * len(shards)
+    timers = _ingest_timers()
+    shippers = {d: _shipper(d, timers) for d in held}
+
+    def ship(item):  # the batch on every distinct device
+        return (item[0], {d: s(item)[1:3] for d, s in shippers.items()},
+                item[3])
+
+    def consume(sample, batch, n_valid):
+        t0 = time.perf_counter()
+        routed = route_packed_batch(batch, sample, k, shards, n_valid,
+                                    config.min_kmer_shannon_index)
+        for i, (words, sid) in enumerate(routed):
+            batches[i].append(list(words))
+            sids[i].append(sid)
+            rows[i] += sid.shape[0]
+        timers["extract_dispatch_s"] += time.perf_counter() - t0
+        for d, m in held.items():
+            on_d = sum(r for r, s in zip(rows, shards) if s == d)
+            if on_d > plan[d]:
+                for b in (*batches, *sids):
+                    b.clear()
+                raise DeviceBudgetExceeded(
+                    f"{on_d} k-mer instances of {m} shard(s) on {d} exceed "
+                    f"its plan of {plan[d]} rows")
+
+    stream = _packed_batch_stream(
+        dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads, timers
+    )
+    _pipelined_ingest(stream, ship, consume)
+
+    def shard_streams():  # each shard's instances, built just in time
+        for i, d in enumerate(shards):
+            words = _concat_columns(batches[i], nw, d)
+            sid = torch.cat(sids[i]) if sids[i] else torch.empty(
+                0, dtype=torch.int32, device=d)
+            sids[i].clear()
+            yield words, sid
+            del words, sid
+
+    t_join = time.perf_counter()
+    js = sharded_count_join_stats(
+        shard_streams(), config.abundance_min, config.abundance_max,
+        n_banks=len(dataset_ids), kmer_bits=2 * k,
+        simple=config.simple_dist, complex_=config.complex_dist,
+    )
+    stats = SimkaStatistics.from_join_stats(
+        js.to_numpy(), dataset_ids, k, np.asarray(nb_reads, np.int64),
+        config.simple_dist, config.complex_dist,
+    )
+    timers["join_s"] = time.perf_counter() - t_join
+    if observer is not None:
+        observer["stage_timers"] = timers
+        observer["repartition_instances"] = np.asarray(rows, np.int64)
+    return stats
+
+
 SPILL_TIERS = ("device", "ram", "disk")
 
 
@@ -390,10 +484,15 @@ def compute_statistics_out_of_core(
     log=None,
     observer: Optional[dict] = None,
     tier: Optional[str] = None,
+    shards: Optional[Sequence[torch.device]] = None,
 ) -> SimkaStatistics:
     """Out-of-core statistics on one device (``simka_tpu``'s
     ``_compute_statistics_out_of_core``): per-sample spectra, spilled
-    per hash range, then the sweep (``core.sweep``).
+    per hash range, then the sweep (``core.sweep``), whose ranges are
+    joined over the hash shards on ``shards`` (default ``[device]``).
+    The spectra are counted and spilled on ``device``, and every range
+    is loaded and routed there, so a range's budget is ``device``'s own
+    plan.
 
     The count phase is one pipelined stream over every sample, as in
     memory: parse/pack || H2D || per batch the kept windows, gathered
@@ -408,10 +507,12 @@ def compute_statistics_out_of_core(
     The spill tier is ``tier`` when given ("device", "ram", or "disk",
     which needs ``config.output_tmp_dir``; the -out-tmp command spills
     to disk through ``compute_statistics_checkpointed``). Otherwise the
-    device tier when the estimated instances' (``budget.
-    estimate_total_instances`` with k) spectrum bytes fit a third of
-    the device plan (the resident spectra then share the device with
-    each range's join, whose budget shrinks to 3/5), else host memory.
+    device tier when every shard is on ``device`` and the estimated
+    instances' (``budget.estimate_total_instances`` with k) spectrum
+    bytes fit a third of the device plan (the resident spectra then
+    share the device with each range's join, whose budget shrinks to
+    3/5), else host memory. Shards on other devices take no device
+    tier, as in ``simka_tpu``.
     Ranges are provisioned from the worse of the first sample's
     spectrum x N x 1.3 and that estimate, since they cannot be split
     once spilling starts. The spill is removed at the end.
@@ -444,8 +545,10 @@ def compute_statistics_out_of_core(
     nw = n_words(k)
     est_rows = (estimate_total_instances(dataset_seqs, k)
                 if all(hasattr(s, "banks") for s in dataset_seqs) else None)
+    shards = list(shards) if shards else [device]
+    resident = all(d == device for d in shards)
     if tier is None:
-        fits = (est_rows is not None
+        fits = (resident and est_rows is not None
                 and est_rows * (WORD_BYTES * nw + COUNT_BYTES)
                 <= device_budget_bytes(device) // 3)
         tier = "device" if fits else "ram"
@@ -453,6 +556,9 @@ def compute_statistics_out_of_core(
         raise ValueError(f"spill tier {tier!r} is not one of {SPILL_TIERS}")
     if tier == "disk" and not config.output_tmp_dir:
         raise ValueError("the disk spill tier needs an -out-tmp directory")
+    if tier == "device" and not resident:
+        raise ValueError("the device spill tier needs every shard on the "
+                         f"run's device {device}")
     budget_rows = spectrum_rows_budget(device, nw, config.max_memory_mb)
     if tier == "device":
         budget_rows = max(budget_rows * 3 // 5, 1)
@@ -544,6 +650,7 @@ def compute_statistics_out_of_core(
         k=k, device=device, simple=config.simple_dist,
         complex_=config.complex_dist,
         log=log if log is not None else (lambda m: None), timers=timers,
+        shards=shards,
     )
     spill.cleanup()
     stats = SimkaStatistics.from_join_stats(
@@ -569,16 +676,22 @@ def compute_statistics_from_spectra(
     nb_reads: List[int],
     config: SimkaConfig,
     device: torch.device,
+    shards: Optional[Sequence[torch.device]] = None,
 ) -> SimkaStatistics:
-    """Statistics from per-sample spectra on one device (the checkpoint
-    path's merge; ``simka_tpu``'s ``compute_statistics_from_spectra``).
+    """Statistics from per-sample spectra over the hash shards on
+    ``shards`` (default ``[device]``: one device; the checkpoint path's
+    merge, ``simka_tpu``'s ``compute_statistics_from_spectra``).
 
     ``spectra[s]`` = (words, counts) of sample s on the host, as
     ``count_one_dataset`` returns them: ``simka_tpu``'s uint32 words
-    and the counts. They are concatenated on the host, shipped once,
-    and joined (``ops.countjoin.join_stats_from_spectra``).
+    and the counts. They are concatenated on the host, shipped once to
+    ``device``, routed there to the shards (``shard_rows_by_hash``) and
+    joined per shard (``sharded_join_from_spectra``).
     """
-    from simka_tpu_torch.ops.countjoin import join_stats_from_spectra
+    from simka_tpu_torch.parallel.sharded import (
+        shard_rows_by_hash,
+        sharded_join_from_spectra,
+    )
     from simka_tpu_torch.ops.kmers import n_uint32_words
     from simka_tpu_torch.ops.spectrum import words_from_host
 
@@ -599,19 +712,17 @@ def compute_statistics_from_spectra(
         [column([w[i] for _, w, _ in live], np.uint32) for i in range(nw32)],
         k, device,
     )
-    sid = column([np.full(len(c), s, np.int32) for s, _, c in live], np.int32)
-    counts = column([c.astype(np.int32) for _, _, c in live], np.int32)
-    js = join_stats_from_spectra(
-        words,
-        torch.from_numpy(sid).to(device),
-        torch.from_numpy(counts).to(device),
-        config.abundance_min,
-        config.abundance_max,
-        n_banks=len(dataset_ids),
-        kmer_bits=2 * k,
-        simple=config.simple_dist,
-        complex_=config.complex_dist,
-    )
+    sid = torch.from_numpy(column(
+        [np.full(len(c), s, np.int32) for s, _, c in live], np.int32)).to(
+            device)
+    counts = torch.from_numpy(column(
+        [c.astype(np.int32) for _, _, c in live], np.int32)).to(device)
+    parts = shard_rows_by_hash(words, sid, counts, k, shards or [device])
+    del words, sid, counts
+    js = sharded_join_from_spectra(
+        parts, config.abundance_min, config.abundance_max,
+        n_banks=len(dataset_ids), kmer_bits=2 * k,
+        simple=config.simple_dist, complex_=config.complex_dist)
     return SimkaStatistics.from_join_stats(
         js.to_numpy(),
         dataset_ids,
@@ -818,7 +929,7 @@ def count_one_dataset(
 
 def compute_statistics_checkpointed(
     datasets, config: SimkaConfig, cap: int, device: torch.device,
-    metrics, log,
+    metrics, log, shards: Optional[Sequence[torch.device]] = None,
 ) -> SimkaStatistics:
     """The -out-tmp path (``simka_tpu``'s ``run_simka`` with
     ``output_tmp_dir``, one device): per sample its checkpointed or
@@ -841,7 +952,10 @@ def compute_statistics_checkpointed(
     reference's keys, plus ``spectrum_rows``, ``memory_budget_bytes``,
     ``per_sample`` step times and, after a sweep, ``sweep_ranges`` and
     the seconds ``sweep_range_load_s``, ``sweep_range_join_s``,
-    ``sweep_partition_s`` and ``sweep_write_s``)."""
+    ``sweep_partition_s`` and ``sweep_write_s``). The join, or each
+    range of the sweep, runs over the hash shards on ``shards``
+    (default ``[device]``); the rows are staged and routed on
+    ``device``, so the budget is its own plan."""
     from simka_tpu_torch.core.budget import (
         JOIN_WORKING_SET_FACTOR,
         device_budget_bytes,
@@ -910,8 +1024,8 @@ def compute_statistics_checkpointed(
                 n_ranges = max(
                     choose_n_ranges(projected, nw32, config.max_memory_mb,
                                     config.sweep_ranges),
-                    -(-projected // spectrum_rows_budget(device, n_words(k),
-                                                         None)))
+                    -(-projected // spectrum_rows_budget(
+                        device, n_words(k), None)))
                 spill = SpectrumSpill(config.output_tmp_dir, n_ranges, k,
                                       device)
                 log(f"out-of-core sweep: {n_ranges} hash ranges "
@@ -940,7 +1054,7 @@ def compute_statistics_checkpointed(
     with metrics.stage("merge"):
         if spill is None:
             stats = compute_statistics_from_spectra(
-                spectra, ids, nb_reads, config, device
+                spectra, ids, nb_reads, config, device, shards
             )
         else:
             metrics.set("sweep_ranges", spill.n_ranges)
@@ -949,6 +1063,7 @@ def compute_statistics_checkpointed(
                 spill, len(ids), config.abundance_min, config.abundance_max,
                 solid, k=k, device=device, simple=config.simple_dist,
                 complex_=config.complex_dist, log=log, timers=timers,
+                shards=shards,
             )
             stats = SimkaStatistics.from_join_stats(
                 js.to_numpy(), ids, k, np.asarray(nb_reads, np.int64),
@@ -966,6 +1081,7 @@ def compute_statistics_checkpointed(
 
 def run_simka(
     config: SimkaConfig, device: str = "cuda", tier: Optional[str] = None,
+    shards: Optional[Sequence] = None,
 ) -> Dict[str, np.ndarray]:
     """The `simka` tool: input file -> distance matrices on disk, on
     ``device`` ("cuda" or "cpu"; "cuda" without a GPU raises).
@@ -980,6 +1096,12 @@ def run_simka(
     the plan mid-ingest restarts there (``compute_statistics``).
     ``tier`` ("device" or "ram"; refused with ``output_tmp_dir``) sends
     the run out-of-core on that spill tier whatever the estimate.
+
+    The k-mer space is sharded over the devices ``shards`` (of
+    ``device``'s kind; one may repeat) when given, else over
+    ``config.n_shards`` by the reference's rule
+    (``parallel.sharded.shard_devices``: the first n cards, or n copies
+    of the CPU); one device runs the one-device path.
     """
     from simka_tpu_torch.core.budget import (
         estimate_total_instances,
@@ -987,13 +1109,15 @@ def run_simka(
     )
     from simka_tpu_torch.io.packed import PackedReadSource
     from simka_tpu_torch.ops.kmers import n_words
+    from simka_tpu_torch.parallel.sharded import check_shards, shard_devices
     from simka_tpu_torch.utils.metrics import Metrics
 
-    check_slice(config)
     if tier is not None and config.output_tmp_dir:
         raise ValueError("a spill tier applies to the in-memory command; "
                          "-out-tmp spills to <tmp>/sweep/")
     dev = resolve_device(device)
+    devices = (shard_devices(config.n_shards, dev) if shards is None
+               else check_shards(shards, dev))
     metrics = Metrics()
     t0 = time.time()
     datasets = parse_input_file(config.input_filename)
@@ -1002,6 +1126,7 @@ def run_simka(
     metrics.set("n_datasets", len(ids))
     metrics.set("kmer_size", config.kmer_size)
     metrics.set("device", str(dev))
+    metrics.set("n_shards", len(devices))
 
     if config.max_reads == 0:
         # auto mode from per-GROUP read estimates, as the reference
@@ -1026,7 +1151,7 @@ def run_simka(
 
     if config.output_tmp_dir:
         stats = compute_statistics_checkpointed(
-            datasets, config, cap, dev, metrics, log
+            datasets, config, cap, dev, metrics, log, devices
         )
     else:
         providers = [
@@ -1040,7 +1165,7 @@ def run_simka(
         ]
         observer: dict = {}
         est = estimate_total_instances(datasets, config.kmer_size)
-        plan_rows = instance_rows_budget(dev, n_words(config.kmer_size))
+        plan_rows = instance_rows_budget(devices, n_words(config.kmer_size))
         with metrics.stage("count"):
             if tier is not None or est > plan_rows:
                 # clearly past the device plan: straight out-of-core
@@ -1052,13 +1177,13 @@ def run_simka(
                 stats = compute_statistics_out_of_core(
                     providers, ids, config, dev,
                     log=log if config.verbose else None,
-                    observer=observer, tier=tier,
+                    observer=observer, tier=tier, shards=devices,
                 )
             else:
                 stats = compute_statistics(
                     providers, ids, config, dev,
                     log=log if config.verbose else None,
-                    observer=observer,
+                    observer=observer, shards=devices,
                 )
         metrics.set("route", observer["route"])
         for key in ("sweep_ranges", "spill_tier", "spectrum_rows",

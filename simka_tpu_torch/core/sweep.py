@@ -1,4 +1,5 @@
-"""Out-of-core execution: a sweep over k-mer hash ranges on one device.
+"""Out-of-core execution: a sweep over k-mer hash ranges on one device,
+or over hash shards.
 
 The torch counterpart of ``simka_tpu.core.sweep``. The reference's disk
 architecture exists so that N samples whose k-mers far exceed memory
@@ -15,8 +16,8 @@ one in-memory join bit for bit, given two things: the Whittaker and
 Kullback-Leibler terms read whole-sample solid totals, computed at
 spill time and given to every range (``solid_override``); and the fold
 adds the raw stats (chord as its int64 sum, KL as its fixed-point
-limbs, ``ops.countjoin._raw_join_from_spectra``) and converts them
-once, so no range rounds.
+limbs, ``parallel.sharded.raw_sharded_join_from_spectra``) and
+converts them once, so no range rounds.
 
 Three spill tiers, one interface (``spill_parts``, or ``spill_sample``
 for the device tier and for host rows on disk; ``load_range``,
@@ -34,6 +35,13 @@ spectrum is cut per range on the device before its copy to the host
 checkpoint's) is shipped there first. A k-mer's range is ``_range_of``
 its uint32 words in both packages (``range_ids`` on the device), so
 both cut the same input into the same ranges.
+
+With shards (``parallel.sharded``), each range's rows are routed over
+the shards by the shard hash (``shard_rows_by_hash``) and joined per
+shard with the whole samples' totals, the sweep composed with the
+device list as ``simka_tpu``'s is with its mesh
+(``simka_tpu/core/sweep.py:363-412``). The salted second mix of the
+range id keeps the range and the shard of a k-mer independent.
 """
 
 from __future__ import annotations
@@ -288,9 +296,13 @@ def sweep_join_stats(
     complex_: bool = False,
     log=lambda msg: None,
     timers=None,
+    shards=None,
 ) -> JoinStats:
     """Join every hash range in turn and fold the statistics
-    (``simka_tpu.core.sweep.sweep_join_stats``, one device).
+    (``simka_tpu.core.sweep.sweep_join_stats``) over the hash shards
+    on the device list ``shards`` (default ``[device]``: one device).
+    Each range is loaded on ``device`` and routed there
+    (``shard_rows_by_hash``; one shard takes it untouched).
 
     ``global_solid``: the whole samples' post-filter solid totals
     (``filtered_solid_per_bank``), which every range's Whittaker and KL
@@ -299,13 +311,14 @@ def sweep_join_stats(
     (a range's rows loaded or extracted, and on the device) and
     ``range_join_s``.
     """
-    from simka_tpu_torch.ops.countjoin import (
-        _add_raw,
-        _finish,
-        _raw_join_from_spectra,
+    from simka_tpu_torch.ops.countjoin import _add_raw, _finish
+    from simka_tpu_torch.parallel.sharded import (
+        raw_sharded_join_from_spectra,
+        shard_rows_by_hash,
     )
 
     K = torch.as_tensor(np.asarray(global_solid, np.int64)).to(device)
+    shards = shards or [device]
     timers = {} if timers is None else timers
     total = None
     for r in range(spill.n_ranges):
@@ -314,14 +327,14 @@ def sweep_join_stats(
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t1 = time.perf_counter()
-        raw = _raw_join_from_spectra(
-            words, sid, counts, abundance_min, abundance_max,
-            n_banks=n_samples, kmer_bits=2 * k, simple=simple,
-            complex_=complex_, solid_override=K,
-        )
-        total = raw if total is None else _add_raw(total, raw)
         rows = sid.shape[0]
+        parts = shard_rows_by_hash(words, sid, counts, k, shards)
         del words, sid, counts
+        raw = raw_sharded_join_from_spectra(
+            parts, abundance_min, abundance_max, K, n_banks=n_samples,
+            kmer_bits=2 * k, simple=simple, complex_=complex_)
+        raw = JoinStats(*(t.to(device) for t in raw))
+        total = raw if total is None else _add_raw(total, raw)
         t2 = time.perf_counter()
         timers["range_load_s"] = timers.get("range_load_s", 0.0) + t1 - t0
         timers["range_join_s"] = timers.get("range_join_s", 0.0) + t2 - t1

@@ -33,6 +33,8 @@
 //     an H100 against torch.amax's 5.9 us).
 //   - simka_probe_map: the elementwise bodies, one template kernel over
 //     (element type, op), the op chosen on the host at the launch.
+//   - simka_probe_onehot_f32: k3's and k5's one-hot rows, a warp a row
+//     in 16-byte stores.
 // What bounds them: the launch. At these sizes (<= 1 MB, one or two
 // launches each) the least time the card could take for the work is
 // 0.002-0.3 us (the product's 1 MB of x over 3.35 TB/s is 0.33 us, its
@@ -62,12 +64,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 8;
-
-int blocks_for(int64_t n) {
-  int64_t b = (n + kThreads - 1) / kThreads;
-  return (int)(b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b));
-}
 
 // The card's SM count, for grids of at most one wave.
 cudaError_t sm_count(int* sms) {
@@ -224,15 +220,39 @@ int launch_map(const void* x, void* out, uint32_t n, Op op, void* stream) {
 
 // out[r, c] = (x[r] >= 0 && x[r] == c) ? 1 : 0 over [rows, cols]: k3
 // (x == iota) and k5 (the same under the x >= 0 mask, which c >= 0
-// already implies)
+// already implies). What bounds it is its stores (1 MB at k3's and k5's
+// [2048, 128], 0.31 us at 3.35 TB/s), under the launch floor. A warp a
+// row: lane 0 loads the row's value once and __shfl_sync shares it, and
+// each lane writes the float4 of its four columns with one 16-byte
+// store, so a warp writes a 128-column row (512 bytes) in one coalesced
+// pass (wider rows in more passes). The float4s are zeros, stored while
+// the value's load is in flight; the lane that stored the float4 of
+// column x[r] then stores its 1 (one thread, so program order puts the
+// 1 after the zero). A first form that waited for the value before its
+// stores took 1.43 us a launch on an H100, 0.31 us over a 1 MB
+// zero_()'s 1.12 us (PERF.md, section 6). cols is a multiple of 4 and out
+// 16-byte aligned (the host entry checks both); indices are 32-bit,
+// and the grid covers the rows up to one wave.
+constexpr int kOnehotThreads = 256;
+
 __global__ void probe_onehot_f32(const int32_t* __restrict__ x,
-                                 float* __restrict__ out, int64_t rows,
-                                 int cols) {
-  const int64_t n = rows * cols;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int32_t v = x[i / cols];
-    out[i] = (v >= 0 && v == (int32_t)(i % cols)) ? 1.f : 0.f;
+                                 float4* __restrict__ out, uint32_t rows,
+                                 uint32_t cols4) {
+  const uint32_t lane = threadIdx.x & 31;
+  const uint32_t warps = gridDim.x * (blockDim.x >> 5);
+  // r is the same in every lane of a warp: the loop and the shuffle are
+  // warp-uniform
+  for (uint32_t r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       r < rows; r += warps) {
+    int32_t v = 0;
+    if (lane == 0) v = __ldg(x + r);
+    float4* row = out + r * cols4;
+    for (uint32_t q = lane; q < cols4; q += 32)
+      row[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    v = __shfl_sync(0xffffffffu, v, 0);
+    // column v's float4 is q = v / 4, stored by lane q % 32
+    if (v >= 0 && (uint32_t)v < 4 * cols4 && (uint32_t)v / 4 % 32 == lane)
+      reinterpret_cast<float*>(row)[v] = 1.f;
   }
 }
 
@@ -615,10 +635,26 @@ int simka_probe_map(int op, const void* x, void* out, int64_t n, int32_t arg,
   }
 }
 
+// rows >= 1, cols a positive multiple of 4, rows x cols < 2^31; out
+// 16-byte aligned.
 int simka_probe_onehot_f32(const int32_t* x, float* out, int64_t rows,
                            int cols, void* stream) {
-  probe_onehot_f32<<<blocks_for(rows * cols), kThreads, 0,
-                     (cudaStream_t)stream>>>(x, out, rows, cols);
+  if (rows < 1 || cols < 4 || cols % 4 ||
+      rows * cols >= (int64_t(1) << 31) || ((uintptr_t)x & 3) ||
+      ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  // a warp a row, up to one wave of 2048 / kOnehotThreads CTAs an SM
+  constexpr int kWarps = kOnehotThreads / 32;
+  int64_t blocks = (rows + kWarps - 1) / kWarps;
+  const int64_t wave = (int64_t)sms * (2048 / kOnehotThreads);
+  if (blocks > wave) blocks = wave;
+  probe_onehot_f32<<<(unsigned)blocks, kOnehotThreads, 0,
+                     (cudaStream_t)stream>>>(
+      x, reinterpret_cast<float4*>(out), (uint32_t)rows,
+      (uint32_t)(cols / 4));
   return (int)cudaGetLastError();
 }
 

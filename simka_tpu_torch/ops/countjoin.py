@@ -499,6 +499,23 @@ def _raw_join_from_spectra(
 ) -> JoinStats:
     """``join_stats_from_spectra`` in the raw form of
     ``_raw_stats_from_rows``."""
+    return _raw_stats_from_rows(
+        *solid_rows_from_spectra(words, sid, counts, abundance_min,
+                                 abundance_max, n_banks=n_banks,
+                                 kmer_bits=kmer_bits),
+        n_banks=n_banks, simple=simple, complex_=complex_,
+        solid_override=solid_override,
+    )
+
+
+def solid_rows_from_spectra(
+    words, sid, counts, abundance_min: int, abundance_max: int, *,
+    n_banks: int, kmer_bits: int,
+):
+    """Spectrum rows (as ``join_stats_from_spectra`` takes them) as the
+    solid rows ``_raw_stats_from_rows`` takes: the abundance filter by
+    the stable compaction, then the (k-mer, sample) sort. Returns
+    (words, sid, counts)."""
     from simka_tpu_torch.ops.compact import compact_rows
 
     words = _checked_rows(words, sid, n_banks, kmer_bits)
@@ -512,11 +529,6 @@ def _raw_join_from_spectra(
     sbits = _sbits(n_banks)
     if nw == 1 and kmer_bits + sbits <= 63:
         key, order = torch.sort((words[0] << sbits) | sid.to(torch.int64))
-        words, sid = (key >> sbits,), key & ((1 << sbits) - 1)
-    else:
-        order = _lex_order((*words, sid))
-        words, sid = tuple(w[order] for w in words), sid[order]
-    return _raw_stats_from_rows(
-        words, sid, counts[order], n_banks=n_banks, simple=simple,
-        complex_=complex_, solid_override=solid_override,
-    )
+        return (key >> sbits,), key & ((1 << sbits) - 1), counts[order]
+    order = _lex_order((*words, sid))
+    return tuple(w[order] for w in words), sid[order], counts[order]

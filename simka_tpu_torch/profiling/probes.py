@@ -27,8 +27,9 @@ left it undefined).
 
 ``EDGES`` lists edge inputs beside the probes' own (``edge_inputs``):
 kd's and ke's max predicate, the DMA kernel at every load and store
-residue and the last offset in bounds, and the elementwise kernel on
-inputs 4, 8 or 12 bytes past a 16-byte boundary.
+residue and the last offset in bounds, the elementwise kernel on
+inputs 4, 8 or 12 bytes past a 16-byte boundary, and the one-hot
+kernel (k3, k5) on values below 0, at or past cols, and one row.
 
     python -m simka_tpu_torch.profiling.probes
 
@@ -351,24 +352,39 @@ def reshape_f32_plain(x):
     return x.reshape(-1, 1) * 2.0
 
 
-def onehot(x):
-    """k3: [2048] int32 against the lane iota -> [2048, 128] f32."""
-    _check(x, (2048,), torch.int32)
+def onehot(x, cols: int = LANES):
+    """k3: [rows] int32 against the lane iota -> [rows, cols] f32 (the
+    TPU probe's rows 2048, cols 128)."""
+    _check_onehot(x, (x.shape[0],) if x.dim() == 1 else None, cols)
     if not _is_cuda(x):
-        return onehot_plain(x)
-    return _onehot("mosaic_reshape", x)
+        return onehot_plain(x, cols)
+    return _onehot("mosaic_reshape", x, cols)
 
 
-def onehot_plain(x):
-    return _onehot_mod(x, LANES, LANES)
+def onehot_plain(x, cols: int = LANES):
+    return _onehot_mod(x, cols, cols)
 
 
-def _onehot(group, x):
-    out = torch.empty((x.numel(), LANES), dtype=torch.float32,
+def _check_onehot(x, shape, cols: int) -> None:
+    """``x`` int32 of ``shape`` (None: a wrong rank) with rows >= 1, and
+    ``cols`` a positive multiple of 4: the kernel writes each row as
+    float4s and has no scalar path (on the CPU too, so both paths take
+    the same inputs)."""
+    if shape is None or shape[0] < 1:
+        raise ValueError(f"one-hot input {tuple(x.shape)}: one value a row, "
+                         "at least one row")
+    _check(x, shape, torch.int32)
+    if cols < 4 or cols % 4:
+        raise ValueError(f"one-hot cols={cols}: the kernel writes rows of "
+                         "16-byte float4s, so cols is a multiple of 4")
+
+
+def _onehot(group, x, cols):
+    out = torch.empty((x.shape[0], cols), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
         _launch(group, "probe_onehot_f32", "simka_probe_onehot_f32",
-                x.data_ptr(), out.data_ptr(), x.numel(), LANES, _stream(x))
+                x.data_ptr(), out.data_ptr(), x.shape[0], cols, _stream(x))
     return out
 
 
@@ -384,17 +400,18 @@ def reshape_2d_i32_plain(x):
     return x.reshape(-1, 1) + 1
 
 
-def onehot_masked(x):
-    """k5: [2048, 1] int32, one-hot against the lane iota under the
-    mask x >= 0 -> [2048, 128] f32."""
-    _check(x, (2048, 1), torch.int32)
+def onehot_masked(x, cols: int = LANES):
+    """k5: [rows, 1] int32, one-hot against the lane iota under the
+    mask x >= 0 -> [rows, cols] f32 (the TPU probe's rows 2048, cols
+    128)."""
+    _check_onehot(x, (x.shape[0], 1) if x.dim() == 2 else None, cols)
     if not _is_cuda(x):
-        return onehot_masked_plain(x)
-    return _onehot("mosaic_reshape", x)
+        return onehot_masked_plain(x, cols)
+    return _onehot("mosaic_reshape", x, cols)
 
 
-def onehot_masked_plain(x):
-    lane = torch.arange(LANES, device=x.device, dtype=torch.int32)
+def onehot_masked_plain(x, cols: int = LANES):
+    lane = torch.arange(cols, device=x.device, dtype=torch.int32)
     return ((x >= 0) & (x == lane)).to(torch.float32)
 
 
@@ -664,7 +681,38 @@ ELEMENTWISE_EDGES = [
     for shift in (1, 2, 3)
 ]
 
-EDGES = PREDICATE_EDGES + DMA_EDGES + ELEMENTWISE_EDGES
+INT32_MAX = (1 << 31) - 1
+
+
+def _onehot_values(shape):
+    # every class of value once, then at random: below 0 (int32's
+    # minimum included), each column's own, cols and past it (int32's
+    # maximum included)
+    def make(rng):
+        v = np.array([INT32_MIN, -1, 0, 1, LANES - 1, LANES, LANES + 1,
+                      INT32_MAX], np.int64)
+        rest = rng.integers(-2 * LANES, 2 * LANES, size=int(np.prod(shape))
+                            - v.size)
+        return (np.concatenate([v, rest]).astype(np.int32).reshape(shape),)
+    return make
+
+
+# edge inputs of the one-hot kernel (k3, k5): values below 0 only, at or
+# past cols only, every class of value, and one row
+ONEHOT_EDGES = [
+    Edge(name, edge, make)
+    for name, shape in (("onehot", (2048,)), ("onehot_masked", (2048, 1)))
+    for edge, make in (
+        ("negative", lambda rng, s=shape: (_i32(rng, s, INT32_MIN, 0),)),
+        ("at_or_past_cols",
+         lambda rng, s=shape: (_i32(rng, s, LANES, 1 << 31),)),
+        ("mixed", _onehot_values(shape)),
+        ("rows_1", lambda rng, s=shape: (
+            np.array([LANES - 1], np.int32).reshape((1,) + s[1:]),)),
+    )
+]
+
+EDGES = PREDICATE_EDGES + DMA_EDGES + ELEMENTWISE_EDGES + ONEHOT_EDGES
 
 
 def _placed(a: np.ndarray, shift: int, device) -> torch.Tensor:

@@ -3,8 +3,9 @@ originals in simka_tpu, so the two cannot drift: the input DSL, the
 native parser's C++ source, the packed read source (native and
 pure-Python), the CSV format, the statistics + distance formulas on one
 JoinStats, the count checkpoints (key and file format), the
-repartition histogram of the checkpoint path with its host hash, and
-SimkaMin's murmur hash, sketch file, Bloom replay and distance walk."""
+repartition histogram of the checkpoint path with its host hash,
+SimkaMin's murmur hash, sketch file, Bloom replay and distance walk, and
+the figures of viz/."""
 
 import os
 
@@ -408,3 +409,84 @@ def test_gatb_encoding_copies_match():
         for g, w in zip(port_packed.host_pack_chunk(reads, k, "gatb"),
                         ref_packed.host_pack_chunk(reads, k, "gatb")):
             np.testing.assert_array_equal(g, w)
+
+
+def _viz_matrices(tmp_path):
+    """A result directory of three matrices (one gzipped) of 6 samples,
+    and a metadata table."""
+    rng = np.random.default_rng(8)
+    ids = [f"S{i}" for i in range(6)]
+    d = tmp_path / "mats"
+    d.mkdir()
+    for name, gz in (("braycurtis", False), ("jaccard", True),
+                     ("chord", False)):
+        m = rng.random((6, 6))
+        m = (m + m.T) / 2
+        np.fill_diagonal(m, 0)
+        text = port_out.format_matrix_csv(m, ids)
+        path = d / f"mat_abundance_{name}.csv"
+        if gz:
+            import gzip
+
+            with gzip.open(str(path) + ".gz", "wt") as f:
+                f.write(text)
+        else:
+            path.write_text(text)
+    meta = tmp_path / "meta.csv"
+    meta.write_text("DATASET_ID;GROUP\n" + "".join(
+        f"{i};{'ab'[j % 2]}\n" for j, i in enumerate(ids)))
+    return str(d), str(meta)
+
+
+def test_viz_copy_matches(tmp_path):
+    """The port's viz/visualize.py against simka_tpu's: the same
+    matrices loaded, the same metadata, the same PCoA, the same figures
+    (names and PNG bytes) over one result directory."""
+    import simka_tpu.viz.visualize as ref_viz
+    import simka_tpu_torch.viz.visualize as port_viz
+
+    mats, meta = _viz_matrices(tmp_path)
+    for name in sorted(os.listdir(mats)):
+        ids_a, a = port_viz.load_distance_matrix(os.path.join(mats, name))
+        ids_b, b = ref_viz.load_distance_matrix(os.path.join(mats, name))
+        assert ids_a == ids_b and np.array_equal(a, b)
+        for x, y in zip(port_viz.pcoa(a, 3), ref_viz.pcoa(b, 3)):
+            np.testing.assert_array_equal(x, y)
+    assert port_viz.load_metadata(meta, "GROUP") == ref_viz.load_metadata(
+        meta, "GROUP")
+    figs = {}
+    for side, mod in (("port", port_viz), ("ref", ref_viz)):
+        out = str(tmp_path / side)
+        files = mod.run_visualization(mats, out, metadata_filename=meta,
+                                      metadata_variable="GROUP")
+        figs[side] = {os.path.basename(f): open(f, "rb").read()
+                      for f in files}
+    assert len(figs["port"]) == 9 and figs["port"] == figs["ref"]
+
+
+def test_viz_draws_a_port_run(tmp_path):
+    """Figures from the CSVs of one of the port's own runs (the CLI on
+    the CPU over a simulated community): every matrix gives a heatmap,
+    a dendrogram and a PCoA, and the PCoA places the samples from the
+    Bray-Curtis matrix."""
+    from simka_tpu_torch.cli import main as port_main
+    from simka_tpu_torch.utils.community import write_community
+    from simka_tpu_torch.viz.visualize import main as viz_main
+    from simka_tpu_torch.viz.visualize import load_distance_matrix, pcoa
+
+    inp = write_community(str(tmp_path / "c"), seed=4, n_samples=4,
+                          n_genomes=3, genome_len=3000,
+                          reads_per_sample=200, n_frac=0.0)
+    out = str(tmp_path / "out")
+    assert port_main(["-in", inp, "-out", out, "-verbose", "0",
+                      "-device", "cpu"]) == 0
+    figs = str(tmp_path / "figs")
+    assert viz_main(["-in", out, "-out", figs]) == 0
+    names = sorted(os.listdir(figs))
+    assert len(names) == 15 * 3
+    assert all(os.path.getsize(os.path.join(figs, n)) > 1000 for n in names)
+    ids, mat = load_distance_matrix(
+        os.path.join(out, "mat_abundance_braycurtis.csv.gz"))
+    assert ids == ["S0", "S1", "S2", "S3"] and mat.shape == (4, 4)
+    coords, explained = pcoa(mat)
+    assert coords.shape == (4, 2) and 0 <= explained[0] <= 1

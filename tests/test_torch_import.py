@@ -24,7 +24,10 @@ def test_port_imports_no_jax():
         "simka_tpu_torch.minhash.bloom, simka_tpu_torch.minhash.murmur, "
         "simka_tpu_torch.minhash.sketch_file, "
         "simka_tpu_torch.minhash.distance, "
-        "simka_tpu_torch.minhash.device_distance\n"
+        "simka_tpu_torch.minhash.device_distance, "
+        "simka_tpu_torch.parallel.sharded, "
+        "simka_tpu_torch.parallel.multihost, "
+        "simka_tpu_torch.viz.visualize\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'simka_tpu' "
         "or m.startswith('simka_tpu.'))\n"

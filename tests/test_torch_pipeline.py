@@ -1,9 +1,11 @@
 """The port end to end: its CLI on the CPU against
 simka_tpu.core.pipeline.run_simka (single-device path, n_shards=1) on
 the same simulated community files. The decompressed CSV text must be
-byte-equal and so must the repartition histogram; options outside the
-port's slice must raise NotImplementedError; -data-info gives the same
-read counts; `min distance` gives the same matrices. The optional distances and the k-mer Shannon filter are
+byte-equal and so must the repartition histogram; the options that
+raised NotImplementedError before the multi-device paths were ported
+(-n-shards > 1, alone or under the sweep, and -coordinator) give the
+same CSVs as simka_tpu's CLI; -data-info gives the same read counts;
+`min distance` gives the same matrices. The optional distances and the k-mer Shannon filter are
 in test_torch_cli_channels.py, the out-of-core sweep in
 test_torch_sweep.py."""
 
@@ -84,14 +86,45 @@ def test_cli_matches_reference(community, tmp_path, n, k, amin):
                           "-n-shards", "8"]],
 )
 def test_options_outside_the_slice_raise(community, tmp_path, flags):
-    """Several devices (alone, or under the out-of-core sweep, forced or
-    where the reference's spill rule takes it) and several hosts."""
-    flags = [str(tmp_path / f) if f == "tmp" else f for f in flags]
-    out = str(tmp_path / "out")
-    with pytest.raises(NotImplementedError):
-        port_main(["-in", community[3], "-out", out, "-device", "cpu",
-                   "-verbose", "0", *flags])
-    assert not glob.glob(os.path.join(out, "*.csv.gz"))
+    """The options these cases once showed refused -- several devices
+    (alone, or under the out-of-core sweep, forced or where the
+    reference's spill rule takes it) and several hosts -- now run: the
+    port's CLI on n copies of the CPU, or as one gloo rank, gives the
+    CSVs of simka_tpu's CLI with the same flags (its n virtual CPU
+    devices). simka_tpu's -coordinator would initialise jax.distributed
+    in this process, so that case runs simka_tpu's run_simka_multihost,
+    which its CLI calls next, in one process. The sweep's flags give
+    both the same hash ranges."""
+    import socket
+
+    from simka_tpu.cli import main as ref_main
+    from simka_tpu.parallel.multihost import run_simka_multihost
+
+    with socket.socket() as sock:  # a free port for the one-rank group
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    runs = {}
+    for side in ("port", "ref"):
+        args = [str(tmp_path / f"{side}_tmp") if f == "tmp"
+                else f"localhost:{port}" if f == "localhost:1234" else f
+                for f in flags]
+        out = str(tmp_path / side)
+        argv = ["-in", community[3], "-out", out, "-verbose", "0", *args]
+        if side == "port":
+            assert port_main([*argv, "-device", "cpu"]) == 0
+        elif "-coordinator" in flags:
+            run_simka_multihost(RefConfig(input_filename=community[3],
+                                          output_dir=out, verbose=False))
+        else:
+            assert ref_main(argv) == 0
+        runs[side] = _outputs(out)
+    (got_csv, got_m), (want_csv, want_m) = runs["port"], runs["ref"]
+    assert list(got_csv) == list(want_csv) and len(got_csv) == 15
+    for name in want_csv:
+        assert got_csv[name] == want_csv[name], name
+    assert got_m.get("sweep_ranges") == want_m.get("sweep_ranges")
+    if "-n-shards" in flags:
+        assert got_m["n_shards"] == int(flags[flags.index("-n-shards") + 1])
 
 
 def test_data_info_matches_reference(community, capsys):

@@ -210,6 +210,47 @@ def test_predicate_edges_match_pallas_interpret(scripts, probe, edge):
         assert got.any() == taken
 
 
+@pytest.mark.parametrize("probe,edge",
+                         [(e.probe, e.edge) for e in probes.ONEHOT_EDGES])
+def test_onehot_edges_match_pallas_interpret(scripts, probe, edge):
+    """k3 and k5 on values below 0 only, at or past cols only, every
+    class of value (int32's minimum and maximum, cols - 1, cols), and
+    one row: the plain version against the TPU kernel in interpret
+    mode, exactly. The TPU bodies are written for 2048 rows, so a
+    shorter input runs there tiled to 2048 rows and its own rows are
+    compared."""
+    p, args = probes.edge_inputs(probe, edge, 0, "cpu")
+    (x,) = args
+    got = p.fn(x).numpy()
+    rows = x.shape[0]
+    tiled = np.resize(x.numpy(), (2048,) + tuple(x.shape[1:]))
+    want, _ = _reference(scripts, probe, [tiled])
+    assert got.shape == (rows, probes.LANES) and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want[:rows])
+    hot = (x.numpy().reshape(-1) >= 0) & (x.numpy().reshape(-1) < 128)
+    np.testing.assert_array_equal(got.sum(1), hot.astype(np.float32))
+    if edge in ("negative", "at_or_past_cols"):
+        assert not got.any()
+
+
+@pytest.mark.parametrize("fn", [probes.onehot, probes.onehot_masked])
+def test_onehot_refuses_cols_not_a_multiple_of_4(fn):
+    """The kernel writes rows of 16-byte float4s and has no scalar
+    path: the wrapper refuses any other width, and an input that is not
+    one value a row, on the CPU too."""
+    masked = fn is probes.onehot_masked
+    x = torch.zeros((8, 1) if masked else (8,), dtype=torch.int32)
+    assert fn(x, 132).shape == (8, 132)
+    for cols in (130, 2, 0, -4):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            fn(x, cols)
+    for bad in (torch.zeros((0, 1) if masked else (0,), dtype=torch.int32),
+                torch.zeros((8, 2) if masked else (8, 1), dtype=torch.int32),
+                torch.zeros((8, 1) if masked else (8,), dtype=torch.int64)):
+        with pytest.raises(ValueError):
+            fn(bad)
+
+
 def test_dma_routes_at_the_probe_offsets():
     """The split the bulk copies take at test_dma_align.py's offsets and
     at probes.DMA_EDGES', from a 16-byte aligned base: an int32 offset
@@ -270,7 +311,7 @@ def test_probe_kernels_match_plain_on_cuda():
     assert all(n > 0 for n in probes.kernel_launches.values())
     # the edge inputs: the predicate's through the grid-wide reduce, the
     # DMA kernel's residues and last offset, the elementwise kernel's
-    # scalar heads and tails
+    # scalar heads and tails, the one-hot kernel's values and one row
     before = dict(probes.kernel_launches)
     for e in probes.EDGES:
         probes.compare(*probes.edge_inputs(e.probe, e.edge, 1, "cuda"))
@@ -280,3 +321,5 @@ def test_probe_kernels_match_plain_on_cuda():
         probes.DMA_EDGES)
     assert after["probe_map"] - before["probe_map"] == 3 + len(
         probes.ELEMENTWISE_EDGES)
+    assert after["probe_onehot_f32"] - before["probe_onehot_f32"] == len(
+        probes.ONEHOT_EDGES)
