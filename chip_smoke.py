@@ -179,9 +179,12 @@ Phases (each raises on failure; nothing is caught):
      checkpoints, byte-equal to phase 7's all-distances and default
      runs; (c) the CLI with -coordinator as one NCCL
      rank in a subprocess (its exchange and reductions through NCCL),
-     all distances, byte-equal to phase 7's run; two ranks, one a card,
-     only where the machine has two cards (NCCL refuses two ranks on one
-     card), else a line saying it did not run. Per run wall, per-shard
+     all distances, byte-equal to phase 7's run; two ranks, one a card
+     (CUDA_VISIBLE_DEVICES), only where the machine has two cards (two
+     ranks on one card are refused), else a line saying it did not run;
+     (d) the -coordinator join as one NCCL rank in this process over the
+     local shards [cuda:0] x 2 (run_simka_multihost with shards),
+     all distances, byte-equal to phase 7's run. Per run wall, per-shard
      rows, compaction launches (kept total == n on each), peak memory.
 
 Prints, before the last line, the kernels' JSON record (per kernel:
@@ -191,7 +194,8 @@ function -- launches_out_tmp, launches_sweep and launches_sketch, the
 compaction's launches in phase 8's run 1, in phase 10's 16-sample run
 and in phase 11's -nb-kmers 100000 run, whose hash-kernel launches are
 murmur_kmers' launches; launches_shards_2 and launches_shards_4, the
-compaction's in phase 13a; min_pair_distance's launches are phase 12c's
+compaction's in phase 13a, launches_coordinator_shards_2 in phase 13d;
+min_pair_distance's launches are phase 12c's
 `min pipeline -nb-kmers 1000000`'s, its times at that run's sketches
 (l2_floor_ms: the design's L2 floor), wide_* at phase 12a's 100 x
 1,000,000; probe_dma_add1's, probe_map's and probe_onehot_f32's per
@@ -2361,15 +2365,16 @@ def free_port() -> int:
 
 
 def coordinator_runs(tmp: str, inp8: str, yardsticks: dict) -> None:
-    """Phase 13c: -coordinator through the CLI, one process a rank."""
+    """Phase 13c: -coordinator through the CLI, one process a rank; two
+    ranks each see one card (CUDA_VISIBLE_DEVICES)."""
     want = yardsticks["all distances k=21"]
     root = os.path.dirname(os.path.abspath(__file__))
     torch.cuda.empty_cache()  # the ranks' processes share the card
     for n in (1, 2):
         if n > torch.cuda.device_count():
             say(f"phase 13c: the {n}-rank NCCL run did not run: "
-                f"{torch.cuda.device_count()} card(s), and NCCL refuses two "
-                "ranks on one card")
+                f"{torch.cuda.device_count()} card(s), and two ranks on "
+                "one card are refused (NCCL takes one rank a card)")
             continue
         tag = f"phase 13c: -coordinator, {n} NCCL rank(s), all distances"
         out = os.path.join(tmp, f"coordinator_{n}")
@@ -2377,9 +2382,11 @@ def coordinator_runs(tmp: str, inp8: str, yardsticks: dict) -> None:
                 "-out", out, "-simple-dist", "-complex-dist", "-verbose",
                 "0", "-device", "cuda", "-coordinator",
                 f"localhost:{free_port()}", "-num-hosts", str(n)]
+        env = [dict(os.environ, **({"CUDA_VISIBLE_DEVICES": str(r)}
+                                   if n > 1 else {})) for r in range(n)]
         t0 = time.perf_counter()
         procs = [subprocess.Popen(argv + ["-host-id", str(r)], cwd=root,
-                                  stdout=subprocess.PIPE,
+                                  env=env[r], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for r in range(n)]
         try:
@@ -2406,6 +2413,50 @@ def coordinator_runs(tmp: str, inp8: str, yardsticks: dict) -> None:
             f"{m['stages']['count']}, merge {m['stages']['merge']}; "
             f"processes {m['counters']['n_processes']}; rank 0's compact "
             f"launches {launches}")
+
+
+def coordinator_shards(tmp: str, inp8: str, yardsticks: dict,
+                       recorder: ShapeRecorder, dev) -> dict:
+    """Phase 13d: the -coordinator join as one NCCL rank in this process
+    over the local shards [cuda:0] x 2 (run_simka_multihost with
+    shards: the exchange, the split by local shard, a join a shard);
+    returns its record."""
+    import torch.distributed as dist
+
+    from simka_tpu_torch.config import SimkaConfig
+    from simka_tpu_torch.parallel import multihost
+
+    tag = ("phase 13d: -coordinator, one NCCL rank over [cuda:0] x 2, all "
+           "distances k=21")
+    out = os.path.join(tmp, "coordinator_shards_2")
+    config = SimkaConfig(input_filename=inp8, output_dir=out, kmer_size=21,
+                         abundance_min=2, simple_dist=True,
+                         complex_dist=True, verbose=False)
+
+    def run():
+        multihost.run_simka_multihost(config, device="cuda",
+                                      shards=[dev] * 2)
+        return metrics_of(out)
+
+    multihost.init_distributed(f"localhost:{free_port()}", 1, 0, "cuda")
+    try:
+        rec, m = cli_run(tag, None, out, recorder, run=run)
+    finally:
+        dist.destroy_process_group()
+    c = m["counters"]
+    if (c["n_processes"], c["n_shards"], c["shards_per_process"],
+            c["compact_launches"]) != (1, 2, [2], rec["launches"]):
+        raise AssertionError(
+            f"{tag}: {c['n_processes']} processes, {c['n_shards']} shards "
+            f"{c['shards_per_process']}, {c['compact_launches']} launches")
+    if csv_texts(out) != yardsticks["all distances k=21"]:
+        raise AssertionError(f"{tag}: CSVs differ from phase 7's")
+    say(f"{tag}: CSVs == phase 7's all-distances k=21 run; wall "
+        f"{rec['wall_s']:.3f} s (process group formed before); stages count "
+        f"{m['stages']['count']}, merge {m['stages']['merge']}; compact "
+        f"launches {rec['launches']} (kept total == n on each); peak device "
+        f"memory {rec['peak_gib']:.2f} GiB")
+    return rec
 
 
 def main() -> int:
@@ -2452,6 +2503,8 @@ def main() -> int:
                 tmp, inp8, yardsticks,
                 paths["all distances k=21"]["instances"], rec, dev)
             coordinator_runs(tmp, inp8, yardsticks)
+            coord_shards = coordinator_shards(tmp, inp8, yardsticks, rec,
+                                              dev)
             m_err = murmur_vs_plain(dev, args.seed)
             small_sketch_gpu_vs_cpu(tmp, args.seed)
             rec.check_totals()
@@ -2481,6 +2534,7 @@ def main() -> int:
         "launches_sweep": sweep_run["launches"],
         **{f"launches_shards_{n}": r["launches"]
            for n, r in shard_recs.items()},
+        "launches_coordinator_shards_2": coord_shards["launches"],
         "max_abs_err": err,
         **{k: join[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "fill_ms", "fill_bound_ms",

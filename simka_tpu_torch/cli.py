@@ -5,8 +5,10 @@ The flags are ``simka_tpu.cli``'s, plus ``-device {cuda,cpu}``
 (default cuda; asking for cuda without a GPU is an error, never a
 silent CPU run). -n-shards shards the k-mer space over the first n
 cards (with -device cpu, over n copies of the CPU); -coordinator runs
-one process a host (a card) under torch.distributed, NCCL on the card
-and gloo on the CPU (``parallel/``).
+one process a host under torch.distributed, NCCL on the cards and gloo
+on the CPU, each process's shards its host's cards by the same
+-n-shards rule (-n-shards 1 or CUDA_VISIBLE_DEVICES: one process a
+card; ``parallel/``).
 
 Run as: python -m simka_tpu_torch.cli [min <subcommand>] -in input.txt
 -out dir [-device cuda]
@@ -45,9 +47,9 @@ def build_simka_parser() -> argparse.ArgumentParser:
     p.add_argument("-max-memory", type=int, default=5000, help="max memory (MB): one join's budget; a larger join takes the out-of-core hash-range sweep")
     p.add_argument("-sweep-ranges", type=int, default=0, help="with -out-tmp: force the out-of-core sweep over N hash ranges (0: only past -max-memory)")
     p.add_argument("-verbose", type=int, default=1, help="verbosity")
-    p.add_argument("-n-shards", type=int, default=0, help="k-mer-space shards (0 = all local cards; with -device cpu, n copies of the CPU)")
+    p.add_argument("-n-shards", type=int, default=0, help="k-mer-space shards (0 = all local cards; with -device cpu, n copies of the CPU); with -coordinator, each process's")
     p.add_argument("-data-info", action="store_true", help="compute (and display) input information only")
-    p.add_argument("-coordinator", default=None, help="coordinator address host:port for multi-host runs (one process a host, a card each)")
+    p.add_argument("-coordinator", default=None, help="coordinator address host:port for multi-host runs (one process a host over its cards; -n-shards 1 or CUDA_VISIBLE_DEVICES for one a card)")
     p.add_argument("-num-hosts", type=int, default=None, help="number of processes in the multi-host run")
     p.add_argument("-host-id", type=int, default=None, help="this process's id (0-based)")
     for flag in ("-count-cmd", "-merge-cmd", "-count-file", "-merge-file"):
@@ -86,6 +88,13 @@ def parse_simka_args(argv) -> tuple:
 
 def simka_main(argv) -> int:
     args, config = parse_simka_args(argv)
+    if args.count_cmd or args.merge_cmd or args.count_file or args.merge_file:
+        print(
+            "[simka-tpu-torch] note: the reference's cluster job flags are "
+            "accepted but inert; use -coordinator/-num-hosts/-host-id "
+            "for multi-host runs (torch.distributed)",
+            flush=True,
+        )
     if args.data_info:
         from simka_tpu_torch.core.pipeline import run_data_info
 

@@ -61,36 +61,48 @@ def device_budget_bytes(device: torch.device) -> int:
     return int(total * DEVICE_PLAN_FRACTION)
 
 
+def _shards_plan(devices, per_device) -> int:
+    """``per_device(devices)`` for one device; for the device list of
+    hash shards (``parallel.sharded``), the least over its distinct
+    devices of ``per_device(d) * n // m``: a device that holds m of the
+    n shards holds about m/n of the rows, so it serves n/m times its
+    own plan (a device repeated n times plans as one)."""
+    if isinstance(devices, torch.device):
+        return per_device(devices)
+    n = len(devices)
+    return min(per_device(d) * n // m for d, m in Counter(devices).items())
+
+
+def plan_bytes(devices) -> int:
+    """Bytes a join may plan with over ``devices``, one device or a
+    shard list (``_shards_plan``; ``simka_tpu``'s HBM plan times the
+    mesh's shards, ``simka_tpu/core/budget.py:79-91``)."""
+    return _shards_plan(devices, device_budget_bytes)
+
+
 def instance_rows_budget(devices, n_words: int) -> int:
     """Max k-mer instance rows of ``n_words`` int64 words each that the
     in-memory join may accumulate on ``devices``, one device or the
-    device list of hash shards (``parallel.sharded``).
-
-    In memory each device holds only its own shards' instances, about
-    1/n of them for each of the n shards it holds: a device that holds
-    m of them serves n/m times its own plan, and the list plans with
-    the least of those (a device repeated n times plans as one). The
-    out-of-core routes stage every row on one device and plan with
-    that device alone.
-    """
+    device list of hash shards, where each device holds only its own
+    shards' instances (``_shards_plan``)."""
     per_row = (WORD_BYTES * n_words + SID_BYTES) * JOIN_WORKING_SET_FACTOR
-    if isinstance(devices, torch.device):
-        return max(device_budget_bytes(devices) // per_row, 1)
-    n = len(devices)
-    return min(instance_rows_budget(d, n_words) * n // m
-               for d, m in Counter(devices).items())
+    return _shards_plan(
+        devices, lambda d: max(device_budget_bytes(d) // per_row, 1))
 
 
 def spectrum_rows_budget(
-    device: torch.device, n_words: int, max_memory_mb: Optional[int]
+    devices, n_words: int, max_memory_mb: Optional[int]
 ) -> int:
-    """Max spectrum rows one sweep range's join may hold: the smaller of
-    the device plan and the user's -max-memory declaration (the
-    reference's knob, SimkaPotara.hpp:383-387; None: the plan alone),
-    over the join's working set of rows of ``n_words`` int64 words, a
-    sample id and a count."""
+    """Max spectrum rows one sweep range's join may hold over
+    ``devices``, one device or a shard list (``_shards_plan``: the
+    out-of-core routes stage each shard's rows on its own device,
+    ``parallel.sharded.stage_rows_by_hash``), capped by the user's
+    -max-memory declaration over the whole range (the reference's
+    knob, SimkaPotara.hpp:383-387; None: the plan alone), over the
+    join's working set of rows of ``n_words`` int64 words, a sample id
+    and a count."""
     row_bytes = WORD_BYTES * n_words + SID_BYTES + COUNT_BYTES
-    budget = device_budget_bytes(device)
+    budget = plan_bytes(devices)
     if max_memory_mb is not None:
         budget = min(budget, max(max_memory_mb, 1) * 1_000_000)
     return max(budget // (row_bytes * JOIN_WORKING_SET_FACTOR), 1)

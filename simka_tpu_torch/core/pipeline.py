@@ -35,10 +35,12 @@ list, ``parallel.sharded``; -n-shards; one device by default) shards
 the k-mer space: in memory, with two or more, each batch is routed on
 the devices (``route_packed_batch``) and each shard joined there; out
 of core, with -out-tmp and in the sweep, the rows of the spectra or of
-each hash range are staged on ``device``, routed
-(``shard_rows_by_hash``; one shard takes them untouched) and joined
-per shard. The statistics are the same bit for bit at any shard
-count.
+each hash range are routed on ``device`` when every shard is there
+(``shard_rows_by_hash``; one shard takes them untouched), else staged
+from the host over the shards' devices in chunks
+(``stage_rows_by_hash``), and joined per shard; the plans count every
+device (``core.budget``). The statistics are the same bit for bit at
+any shard count.
 """
 
 from __future__ import annotations
@@ -490,9 +492,10 @@ def compute_statistics_out_of_core(
     ``_compute_statistics_out_of_core``): per-sample spectra, spilled
     per hash range, then the sweep (``core.sweep``), whose ranges are
     joined over the hash shards on ``shards`` (default ``[device]``).
-    The spectra are counted and spilled on ``device``, and every range
-    is loaded and routed there, so a range's budget is ``device``'s own
-    plan.
+    The spectra are counted and spilled on ``device``; each range is
+    loaded and routed there when every shard is on ``device``, else
+    staged over the shards from the host, so a range's budget is the
+    shards' plan (``budget.spectrum_rows_budget``).
 
     The count phase is one pipelined stream over every sample, as in
     memory: parse/pack || H2D || per batch the kept windows, gathered
@@ -512,7 +515,8 @@ def compute_statistics_out_of_core(
     bytes fit a third of the device plan (the resident spectra then
     share the device with each range's join, whose budget shrinks to
     3/5), else host memory. Shards on other devices take no device
-    tier, as in ``simka_tpu``.
+    tier, as in ``simka_tpu``: its resident spectra would sit on
+    ``device`` alone and bound the run by that one device again.
     Ranges are provisioned from the worse of the first sample's
     spectrum x N x 1.3 and that estimate, since they cannot be split
     once spilling starts. The spill is removed at the end.
@@ -559,7 +563,7 @@ def compute_statistics_out_of_core(
     if tier == "device" and not resident:
         raise ValueError("the device spill tier needs every shard on the "
                          f"run's device {device}")
-    budget_rows = spectrum_rows_budget(device, nw, config.max_memory_mb)
+    budget_rows = spectrum_rows_budget(shards, nw, config.max_memory_mb)
     if tier == "device":
         budget_rows = max(budget_rows * 3 // 5, 1)
 
@@ -684,41 +688,28 @@ def compute_statistics_from_spectra(
 
     ``spectra[s]`` = (words, counts) of sample s on the host, as
     ``count_one_dataset`` returns them: ``simka_tpu``'s uint32 words
-    and the counts. They are concatenated on the host, shipped once to
-    ``device``, routed there to the shards (``shard_rows_by_hash``) and
-    joined per shard (``sharded_join_from_spectra``).
+    and the counts. They are concatenated on the host, staged over the
+    shards through ``device`` (``stage_rows_by_hash``: shipped once and
+    routed there when every shard is on ``device``) and joined per
+    shard (``sharded_join_from_spectra``).
     """
-    from simka_tpu_torch.parallel.sharded import (
-        shard_rows_by_hash,
-        sharded_join_from_spectra,
-    )
+    from simka_tpu_torch.core.sweep import host_rows
     from simka_tpu_torch.ops.kmers import n_uint32_words
-    from simka_tpu_torch.ops.spectrum import words_from_host
+    from simka_tpu_torch.parallel.sharded import (
+        sharded_join_from_spectra,
+        stage_rows_by_hash,
+    )
 
     k = config.kmer_size
     nw32 = n_uint32_words(k)
-    live = [(s, w, c) for s, (w, c) in enumerate(spectra) if len(c)]
-    for s, w, _ in live:
-        if len(w) != nw32:
+    for s, (w, c) in enumerate(spectra):
+        if len(c) and len(w) != nw32:
             raise ValueError(
                 f"{dataset_ids[s]}: a spectrum of {len(w)} uint32 words "
                 f"where k={k} has {nw32}"
             )
-
-    def column(parts, dtype):
-        return np.concatenate(parts) if parts else np.empty(0, dtype)
-
-    words = words_from_host(
-        [column([w[i] for _, w, _ in live], np.uint32) for i in range(nw32)],
-        k, device,
-    )
-    sid = torch.from_numpy(column(
-        [np.full(len(c), s, np.int32) for s, _, c in live], np.int32)).to(
-            device)
-    counts = torch.from_numpy(column(
-        [c.astype(np.int32) for _, _, c in live], np.int32)).to(device)
-    parts = shard_rows_by_hash(words, sid, counts, k, shards or [device])
-    del words, sid, counts
+    parts = stage_rows_by_hash(host_rows(spectra, k), k, shards or [device],
+                               device)
     js = sharded_join_from_spectra(
         parts, config.abundance_min, config.abundance_max,
         n_banks=len(dataset_ids), kmer_bits=2 * k,
@@ -954,11 +945,12 @@ def compute_statistics_checkpointed(
     the seconds ``sweep_range_load_s``, ``sweep_range_join_s``,
     ``sweep_partition_s`` and ``sweep_write_s``). The join, or each
     range of the sweep, runs over the hash shards on ``shards``
-    (default ``[device]``); the rows are staged and routed on
-    ``device``, so the budget is its own plan."""
+    (default ``[device]``), each shard's rows staged on its own device
+    (``stage_rows_by_hash``), so the budget is the shards' plan
+    (``budget.plan_bytes``)."""
     from simka_tpu_torch.core.budget import (
         JOIN_WORKING_SET_FACTOR,
-        device_budget_bytes,
+        plan_bytes,
         spectrum_rows_budget,
     )
     from simka_tpu_torch.core.checkpoint import CountCheckpoint
@@ -972,14 +964,15 @@ def compute_statistics_checkpointed(
 
     ids = [d.id for d in datasets]
     k = config.kmer_size
+    shards = list(shards) if shards else [device]
     ckpt = CountCheckpoint(config.output_tmp_dir)
     # the reference's rule, over the row bytes of its uint32 layout, so
     # both packages route an input alike: the join must fit both the
-    # -max-memory declaration and the device plan
+    # -max-memory declaration and the shards' plan
     nw32 = n_uint32_words(k)
     row_bytes = 4 * (nw32 + 2)
     budget = min(max(config.max_memory_mb, 1) * 1_000_000,
-                 device_budget_bytes(device))
+                 plan_bytes(shards))
     spectra, nb_reads, per_sample = [], [], []
     rows_so_far = 0
     hist = np.zeros(N_HIST_BUCKETS, np.int64)
@@ -1020,12 +1013,12 @@ def compute_statistics_checkpointed(
                 # sample so far
                 projected = int(rows_so_far * len(datasets) * 1.3 / (i + 1))
                 # the reference's count, raised where a range's join in
-                # the port's rows would outgrow the device plan
+                # the port's rows would outgrow the shards' plan
                 n_ranges = max(
                     choose_n_ranges(projected, nw32, config.max_memory_mb,
                                     config.sweep_ranges),
                     -(-projected // spectrum_rows_budget(
-                        device, n_words(k), None)))
+                        shards, n_words(k), None)))
                 spill = SpectrumSpill(config.output_tmp_dir, n_ranges, k,
                                       device)
                 log(f"out-of-core sweep: {n_ranges} hash ranges "

@@ -20,8 +20,8 @@ limbs, ``parallel.sharded.raw_sharded_join_from_spectra``) and
 converts them once, so no range rounds.
 
 Three spill tiers, one interface (``spill_parts``, or ``spill_sample``
-for the device tier and for host rows on disk; ``load_range``,
-``cleanup``):
+for the device tier and for host rows on disk; ``load_range``, and on
+the host tiers ``host_range``; ``cleanup``):
   - ``DeviceSpill``: the spectra stay on the device; each range is
     extracted from their concatenation by the stable compaction;
   - ``RamSpill``: host memory, per range (runs without -out-tmp whose
@@ -37,10 +37,13 @@ its uint32 words in both packages (``range_ids`` on the device), so
 both cut the same input into the same ranges.
 
 With shards (``parallel.sharded``), each range's rows are routed over
-the shards by the shard hash (``shard_rows_by_hash``) and joined per
-shard with the whole samples' totals, the sweep composed with the
-device list as ``simka_tpu``'s is with its mesh
-(``simka_tpu/core/sweep.py:363-412``). The salted second mix of the
+the shards by the shard hash and joined per shard with the whole
+samples' totals, the sweep composed with the device list as
+``simka_tpu``'s is with its mesh (``simka_tpu/core/sweep.py:363-412``):
+on the run's device when every shard is there (``shard_rows_by_hash``),
+else staged from the host in chunks (``stage_rows_by_hash``), so that
+each device holds only its own shards' rows and a range may hold
+every device's plan. The salted second mix of the
 range id keeps the range and the shard of a k-mer independent.
 """
 
@@ -111,31 +114,39 @@ def partition_on_device(words, counts, k: int, n_ranges: int):
             for a, b in zip(bounds[:-1], bounds[1:])]
 
 
-def _ship(parts, k: int, device: torch.device) -> Rows:
-    """Per-sample host rows of one range (``[(words32, counts)]``, in
-    sample order) as (words, sid int32, counts int32) on ``device``.
-    Empty samples are skipped: their word count may differ (a
-    ``simka_tpu`` checkpoint of an empty sample, ROADMAP section 3)."""
+def host_rows(parts, k: int):
+    """Per-sample host rows (``[(words32, counts)]``, in sample order) as
+    one ``ops.spectrum.HostRows``: the uint32 words, int32 sample ids
+    and counts, concatenated. Empty samples are skipped: their word
+    count may differ (a ``simka_tpu`` checkpoint of an empty sample,
+    ROADMAP section 3)."""
     from simka_tpu_torch.ops.kmers import n_uint32_words
-    from simka_tpu_torch.ops.spectrum import words_from_host
 
     live = [(s, w, c) for s, (w, c) in enumerate(parts) if len(c)]
 
     def column(arrays, dtype):
         return np.concatenate(arrays) if arrays else np.empty(0, dtype)
 
-    words = words_from_host(
-        [column([w[i] for _, w, _ in live], np.uint32)
-         for i in range(n_uint32_words(k))],
-        k, device,
+    return (
+        tuple(column([w[i] for _, w, _ in live], np.uint32)
+              for i in range(n_uint32_words(k))),
+        column([np.full(len(c), s, np.int32) for s, _, c in live], np.int32),
+        column([c.astype(np.int32) for _, _, c in live], np.int32),
     )
-    sid = column([np.full(len(c), s, np.int32) for s, _, c in live], np.int32)
-    counts = column([c.astype(np.int32) for _, _, c in live], np.int32)
-    return (words, torch.from_numpy(sid).to(device),
-            torch.from_numpy(counts).to(device))
 
 
-class SpectrumSpill:
+class _HostSpill:
+    """What the host tiers share: a range shipped to their device from
+    its host rows (``host_range``)."""
+
+    def load_range(self, r: int, n_samples: int) -> Rows:
+        from simka_tpu_torch.ops.spectrum import rows_from_host
+
+        return rows_from_host(self.host_range(r, n_samples), self.k,
+                              self.device)
+
+
+class SpectrumSpill(_HostSpill):
     """Disk store of per-(sample, hash range) spectrum rows:
     ``<tmp_dir>/sweep/s{sample}_r{r}.npz`` with keys ``w0..`` (uint32
     words) and ``counts``, the reference's files (the role of its
@@ -179,20 +190,21 @@ class SpectrumSpill:
                      **{f"w{i}": w for i, w in enumerate(words)}, counts=c)
         self.write_s += time.perf_counter() - t0
 
-    def load_range(self, r: int, n_samples: int) -> Rows:
+    def host_range(self, r: int, n_samples: int):
+        """Range ``r``'s rows of every sample on the host (``host_rows``)."""
         parts = []
         for s in range(n_samples):
             with np.load(self._path(s, r)) as z:
                 nw = sum(name.startswith("w") for name in z.files)
                 parts.append((tuple(z[f"w{i}"] for i in range(nw)),
                               z["counts"]))
-        return _ship(parts, self.k, self.device)
+        return host_rows(parts, self.k)
 
     def cleanup(self) -> None:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
-class RamSpill:
+class RamSpill(_HostSpill):
     """Host-memory form of ``SpectrumSpill`` for runs without -out-tmp:
     what the sweep defends is device memory, which the join's working
     set outgrows long before the spectra outgrow host memory. Its rows
@@ -208,9 +220,10 @@ class RamSpill:
         for r, part in enumerate(parts):
             self._store[(sample, r)] = part
 
-    def load_range(self, r: int, n_samples: int) -> Rows:
-        return _ship([self._store[(s, r)] for s in range(n_samples)],
-                     self.k, self.device)
+    def host_range(self, r: int, n_samples: int):
+        """Range ``r``'s rows of every sample on the host (``host_rows``)."""
+        return host_rows([self._store[(s, r)] for s in range(n_samples)],
+                         self.k)
 
     def cleanup(self) -> None:
         self._store.clear()
@@ -301,38 +314,51 @@ def sweep_join_stats(
     """Join every hash range in turn and fold the statistics
     (``simka_tpu.core.sweep.sweep_join_stats``) over the hash shards
     on the device list ``shards`` (default ``[device]``: one device).
-    Each range is loaded on ``device`` and routed there
-    (``shard_rows_by_hash``; one shard takes it untouched).
+    With every shard on ``device``, each range is loaded there and
+    routed there (``shard_rows_by_hash``; one shard takes it
+    untouched). Otherwise (a host tier: the device tier needs every
+    shard on ``device``) each range is staged over the shards from the
+    host in chunks (``stage_rows_by_hash``), so a range may hold every
+    device's plan.
 
     ``global_solid``: the whole samples' post-filter solid totals
     (``filtered_solid_per_bank``), which every range's Whittaker and KL
     terms read (SimkaDistance.cpp:114-152). Returns ``JoinStats`` on
     ``device``. ``timers``, when given, accumulates ``range_load_s``
-    (a range's rows loaded or extracted, and on the device) and
-    ``range_join_s``.
+    (a range's rows loaded or extracted, and on the device; staged,
+    routing included) and ``range_join_s``.
     """
     from simka_tpu_torch.ops.countjoin import _add_raw, _finish
     from simka_tpu_torch.parallel.sharded import (
         raw_sharded_join_from_spectra,
         shard_rows_by_hash,
+        stage_rows_by_hash,
     )
 
     K = torch.as_tensor(np.asarray(global_solid, np.int64)).to(device)
     shards = shards or [device]
+    resident = all(d == device for d in shards)
     timers = {} if timers is None else timers
     total = None
     for r in range(spill.n_ranges):
         t0 = time.perf_counter()
-        words, sid, counts = spill.load_range(r, n_samples)
+        if resident:
+            words, sid, counts = spill.load_range(r, n_samples)
+            rows = sid.shape[0]
+        else:
+            parts = stage_rows_by_hash(spill.host_range(r, n_samples), k,
+                                       shards, device)
+            rows = sum(p[1].shape[0] for p in parts)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t1 = time.perf_counter()
-        rows = sid.shape[0]
-        parts = shard_rows_by_hash(words, sid, counts, k, shards)
-        del words, sid, counts
+        if resident:
+            parts = shard_rows_by_hash(words, sid, counts, k, shards)
+            del words, sid, counts
         raw = raw_sharded_join_from_spectra(
             parts, abundance_min, abundance_max, K, n_banks=n_samples,
             kmer_bits=2 * k, simple=simple, complex_=complex_)
+        del parts
         raw = JoinStats(*(t.to(device) for t in raw))
         total = raw if total is None else _add_raw(total, raw)
         t2 = time.perf_counter()

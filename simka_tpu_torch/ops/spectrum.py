@@ -102,6 +102,19 @@ def words_from_host(words32: Sequence[np.ndarray], k: int,
     ), k)
 
 
+HostRows = Tuple[Tuple[np.ndarray, ...], np.ndarray, np.ndarray]
+
+
+def rows_from_host(rows: HostRows, k: int, device: torch.device):
+    """Spectrum rows on the host (``simka_tpu``'s uint32 words, int32
+    sample ids and counts) as (the port's words, sid, counts) on
+    ``device``."""
+    words32, sid, counts = rows
+    return (words_from_host(list(words32), k, device),
+            torch.from_numpy(sid).to(device),
+            torch.from_numpy(counts).to(device))
+
+
 def hash_spectrum(h: torch.Tensor):
     """Distinct 64-bit hashes of a stream and, for each, its count and
     its first and second occurrence positions (``simka_tpu``'s

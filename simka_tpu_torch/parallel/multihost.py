@@ -7,27 +7,41 @@ The reference's cluster mode is job scripts and a shared filesystem
 1. every process counts the spectra of ITS datasets (a static
    round-robin manifest, ``datasets_for_process``), with its own
    checkpoints under ``<tmp>/host{rank}`` -- no communication;
-2. the spectrum rows are routed to the process that owns their k-mer's
-   hash (``mix_hash`` of ``simka_tpu``'s uint32 words mod the process
-   count) and exchanged with ``all_to_all_single``: first the row
-   counts each pair of processes trades, then each column with those
-   splits;
-3. each process joins its hash range; the per-bank solid totals are
-   summed over the processes (``all_reduce``) before any pair term
-   reads them, then the raw statistics are summed (``max_count`` by a
-   max), converted once, and process 0 writes the matrices.
+2. the spectrum rows are routed to the shard that owns their k-mer's
+   hash and exchanged with ``all_to_all_single``. A process's shards
+   are its local devices (``local_shards``: every card of its host by
+   default, as ``simka_tpu``'s mesh holds every process's devices), so
+   the global shard count G is the sum of every process's; a row's
+   global shard is ``mix_hash`` of ``simka_tpu``'s uint32 words mod G,
+   its owner the process whose range of global shard indices holds it,
+   processes in rank order (``shard_routes``: ``simka_tpu``'s device
+   ``hash % n_dev`` in the mesh's order). The rows are binned by owner
+   and traded, first the row counts each pair of processes trades,
+   then each column with those splits; each process then splits what
+   it received by local shard and moves each part to its device;
+3. each process joins its shards (``parallel.sharded.
+   sharded_raw_stats``); the per-bank solid totals are summed over the
+   local shards, then over the processes (``all_reduce``), before any
+   pair term reads them, then the raw statistics are summed
+   (``max_count`` by a max), converted once, and process 0 writes the
+   matrices.
 
-A process runs on one device: with -device cuda the card of index
-``rank % torch.cuda.device_count()`` and the NCCL backend, with -device
-cpu the CPU and gloo. Nothing falls back: where NCCL fails on the card,
-the run fails. Once torch.distributed is initialised every exchange and
-reduction goes through the backend, at one rank too; a process that did
-not initialise it runs the same path alone, as ``simka_tpu`` does.
+A process's home device is its first shard: with -device cuda the
+card NCCL uses, with -device cpu the CPU and gloo. With -n-shards 1
+the home card is the card of index ``rank % torch.cuda.device_count()``
+(one process a card). Two processes whose home cards are one card of
+one host are refused through the process group's store before any
+collective (``check_home_cards``). Nothing falls back: where NCCL
+fails on the card, the run fails. Once torch.distributed is
+initialised every exchange and reduction goes through the backend, at
+one rank too; a process that did not initialise it runs the same path
+alone, as ``simka_tpu`` does.
 """
 
 from __future__ import annotations
 
 import os
+import socket
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -44,14 +58,12 @@ def init_distributed(coordinator: str, num_hosts: Optional[int] = None,
     ``init_distributed``): ``coordinator`` is the rank-0 host's
     ``host:port``, ``num_hosts`` the process count (default 1) and
     ``host_id`` this process's rank (default 0); NCCL on ``cuda``,
-    gloo on ``cpu``. With ``cuda`` the process's card is chosen before
-    the group forms."""
+    gloo on ``cpu``. The process's home card is chosen by
+    ``run_simka_multihost``, before its first collective."""
     world = 1 if num_hosts is None else num_hosts
     rank = 0 if host_id is None else host_id
     if not 0 <= rank < world:
         raise ValueError(f"-host-id {rank} outside [0, {world})")
-    if device == "cuda":
-        torch.cuda.set_device(process_device("cuda", rank))
     dist.init_process_group(
         "nccl" if device == "cuda" else "gloo",
         init_method=(coordinator if "://" in coordinator
@@ -60,15 +72,46 @@ def init_distributed(coordinator: str, num_hosts: Optional[int] = None,
     )
 
 
-def process_device(device: str, rank: int) -> torch.device:
-    """This process's device: the CPU, or the card of index ``rank``
-    modulo the host's card count (one process a card)."""
+def local_shards(device: str, rank: int, n_shards: int) -> List[torch.device]:
+    """This process's shards (``parallel.sharded.shard_devices`` by the
+    reference's rule): -n-shards n over the first n cards of the host
+    (0: every card), the card of index ``rank`` modulo the card count
+    when one shard is asked for or fewer than n cards exist; with
+    -device cpu, n copies of the CPU."""
     from simka_tpu_torch import resolve_device
+    from simka_tpu_torch.parallel.sharded import shard_devices
 
     dev = resolve_device(device)
     if dev.type == "cuda":
-        return torch.device("cuda", rank % torch.cuda.device_count())
-    return dev
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    return shard_devices(n_shards, dev)
+
+
+def home_card(dev: torch.device) -> str:
+    """The host and the physical card of ``dev``: the card's UUID, the
+    same in processes that see the card under other indices
+    (CUDA_VISIBLE_DEVICES)."""
+    return f"{socket.gethostname()} {torch.cuda.get_device_properties(dev).uuid}"
+
+
+def check_home_cards(store, rank: int, world: int, card: str) -> None:
+    """Every process's home card (``home_card``) traded through
+    ``store`` (the process group's); ValueError, in every process, when
+    two of them are one card, which NCCL refuses or waits on. Each
+    call takes its own keys, so a process group may run it again."""
+    call = (store.add("simka_home_calls", 1) - 1) // world
+    store.set(f"simka_home/{call}/{rank}", card)
+    cards = [store.get(f"simka_home/{call}/{r}").decode()
+             for r in range(world)]
+    for a in range(world):
+        for b in range(a + 1, world):
+            if cards[a] == cards[b]:
+                raise ValueError(
+                    f"-coordinator processes {a} and {b} both run on card "
+                    f"{cards[a]}: launch one process a host (its shards "
+                    "are every card of the host), or give each process "
+                    "its own card with -n-shards 1 (card rank % cards) or "
+                    "CUDA_VISIBLE_DEVICES")
 
 
 def _distributed() -> bool:
@@ -89,6 +132,15 @@ def _all_reduce(t: torch.Tensor, op=None) -> torch.Tensor:
     return t
 
 
+def shards_per_rank(n_local: int, home: torch.device) -> List[int]:
+    """Every process's local shard count, in rank order (an
+    ``all_reduce`` of one slot a process, on ``home``)."""
+    rank, world = _rank_world()
+    counts = torch.zeros(world, dtype=torch.int64, device=home)
+    counts[rank] = n_local
+    return _all_reduce(counts).tolist()
+
+
 def datasets_for_process(n_datasets: int, process_id: int,
                          num_processes: int) -> List[int]:
     """Static sample-sharding manifest: which dataset indices this
@@ -96,19 +148,37 @@ def datasets_for_process(n_datasets: int, process_id: int,
     return list(range(process_id, n_datasets, num_processes))
 
 
-def _exchange(cols: Sequence[torch.Tensor], dest: torch.Tensor,
+def shard_routes(words: Sequence[torch.Tensor], k: int,
+                 per_rank: Sequence[int]) -> tuple:
+    """Each k-mer's (owner process, local shard), int64: its global
+    shard ``shard_ids(words, k, G)``, G = sum(per_rank), is
+    ``simka_tpu``'s device ``mix_hash % n_dev`` in a mesh of every
+    process's devices in rank order; its owner is the process whose
+    range of global indices holds it, its local shard the index within
+    that range."""
+    from simka_tpu_torch.parallel.sharded import shard_ids
+
+    sizes = torch.tensor(per_rank, dtype=torch.int64, device=words[0].device)
+    g = shard_ids(words, k, int(sizes.sum()))
+    owner = torch.repeat_interleave(
+        torch.arange(len(per_rank), device=sizes.device), sizes)[g]
+    return owner, g - (torch.cumsum(sizes, 0) - sizes)[owner]
+
+
+def _exchange(cols: Sequence[torch.Tensor], dest: Optional[torch.Tensor],
               world: int) -> tuple:
     """Every process's rows for this one: the rows binned by destination
     (the stable compaction a destination, ``parallel.sharded.
-    split_rows``, in place of the reference's filler sort), the split
-    sizes traded with one ``all_to_all_single``, then one for each
-    column with those splits."""
+    split_rows``, in place of the reference's filler sort; one process
+    sends its rows untouched and takes no ``dest``), the split sizes
+    traded with one ``all_to_all_single``, then one for each column
+    with those splits."""
     from simka_tpu_torch.parallel.sharded import split_rows
 
     parts = split_rows(cols, dest, world)
     if not _distributed():
         return parts[0]
-    dev = dest.device
+    dev = cols[0].device
     send = torch.tensor([p[0].shape[0] for p in parts], dtype=torch.int64,
                         device=dev)
     recv = torch.empty_like(send)
@@ -144,44 +214,65 @@ def _all_reduce_raw(raw: JoinStats) -> JoinStats:
 def multihost_join_from_spectra(
     words32: Sequence[np.ndarray], sid: np.ndarray, counts: np.ndarray,
     abundance_min: int, abundance_max: int, *, k: int, n_banks: int,
-    device: torch.device, simple: bool = False, complex_: bool = False,
+    shards: Sequence[torch.device], per_rank: Sequence[int],
+    simple: bool = False, complex_: bool = False,
 ) -> JoinStats:
     """This process's spectrum rows (``simka_tpu``'s uint32 words, the
     sample ids and counts of its datasets, on the host) joined with
-    every other process's: shipped once to ``device``, exchanged by
-    hash (``_exchange``), joined, the totals and the raw statistics
-    reduced over the processes. Every process calls it; each returns
-    the global ``JoinStats`` on its device."""
+    every other process's: shipped once to its home device
+    (``shards[0]``), exchanged to their owner processes and split there
+    by local shard (``shard_routes``), each part joined on its shard's
+    device, the totals and the raw statistics reduced over the
+    processes. ``per_rank``: every process's shard count
+    (``shards_per_rank``). Every process calls it; each returns the
+    global ``JoinStats`` on its home device. One process with one shard
+    routes nothing."""
     from simka_tpu_torch.ops.countjoin import _finish
     from simka_tpu_torch.ops.spectrum import words_from_host
     from simka_tpu_torch.parallel.sharded import (
         raw_sharded_join_from_spectra,
-        shard_ids,
+        split_rows,
     )
 
-    _, world = _rank_world()
-    words = words_from_host(list(words32), k, device)
+    rank, world = _rank_world()
+    home = shards[0]
+    words = words_from_host(list(words32), k, home)
     nw = len(words)
-    cols = _exchange(
-        (*words, torch.from_numpy(np.asarray(sid, np.int32)).to(device),
-         torch.from_numpy(np.asarray(counts, np.int32)).to(device)),
-        shard_ids(words, k, world), world)
+    cols = (*words,
+            torch.from_numpy(np.asarray(sid, np.int32)).to(home),
+            torch.from_numpy(np.asarray(counts, np.int32)).to(home))
     del words
+    cols = _exchange(
+        cols, shard_routes(cols[:nw], k, per_rank)[0] if world > 1 else None,
+        world)
+    if len(shards) > 1:
+        cols = split_rows(cols, shard_routes(cols[:nw], k, per_rank)[1],
+                          len(shards))
+    else:
+        cols = [cols]
+    parts = [(tuple(c.to(d) for c in p[:nw]), p[nw].to(d), p[nw + 1].to(d))
+             for p, d in zip(cols, shards)]
+    del cols
     raw = raw_sharded_join_from_spectra(
-        [(cols[:nw], cols[nw], cols[nw + 1])], abundance_min, abundance_max,
-        n_banks=n_banks, kmer_bits=2 * k, simple=simple, complex_=complex_,
+        parts, abundance_min, abundance_max, n_banks=n_banks,
+        kmer_bits=2 * k, simple=simple, complex_=complex_,
         all_reduce=_all_reduce,
     )
     return _finish(_all_reduce_raw(raw), complex_)
 
 
-def run_simka_multihost(config, device: str = "cuda") -> None:
+def run_simka_multihost(config, device: str = "cuda",
+                        shards: Optional[Sequence] = None) -> None:
     """Multi-host `simka` (``simka_tpu``'s ``run_simka_multihost``):
     every process counts its manifest datasets and the join runs over
-    every process. Launch one process a host (a card) with the same
-    arguments plus -coordinator / -num-hosts / -host-id; process 0
-    writes the matrices. A process without torch.distributed runs
-    alone."""
+    every process's shards. Launch one process a host with the same
+    arguments plus -coordinator / -num-hosts / -host-id: its shards are
+    ``local_shards`` (every card of the host by default; -n-shards 1,
+    or CUDA_VISIBLE_DEVICES, for one process a card), or ``shards``, a
+    device list of ``device``'s kind where a device may repeat (as the
+    tests pass ``[cpu] * n``). Process 0 writes the matrices. A process
+    without torch.distributed runs alone."""
+    from simka_tpu_torch import resolve_device
     from simka_tpu_torch.core.distances import compute_all_matrices
     from simka_tpu_torch.core.output import write_all_matrices
     from simka_tpu_torch.core.pipeline import (
@@ -192,6 +283,7 @@ def run_simka_multihost(config, device: str = "cuda") -> None:
     from simka_tpu_torch.io.dsl import check_input_validity, parse_input_file
     from simka_tpu_torch.ops import compact
     from simka_tpu_torch.ops.kmers import n_uint32_words
+    from simka_tpu_torch.parallel.sharded import check_shards
     from simka_tpu_torch.utils.metrics import Metrics
 
     datasets = parse_input_file(config.input_filename)
@@ -200,17 +292,28 @@ def run_simka_multihost(config, device: str = "cuda") -> None:
     n = len(ids)
     k = config.kmer_size
     pid, n_proc = _rank_world()
-    dev = process_device(device, pid)
+    shards = (local_shards(device, pid, config.n_shards) if shards is None
+              else check_shards(shards, resolve_device(device)))
+    dev = shards[0]
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        if _distributed():
+            check_home_cards(dist.distributed_c10d._get_default_store(),
+                             pid, n_proc, home_card(dev))
+    per_rank = shards_per_rank(len(shards), dev)
     mine = datasets_for_process(n, pid, n_proc)
     metrics = Metrics()
     metrics.set("n_datasets", n)
     metrics.set("n_processes", n_proc)
     metrics.set("device", str(dev))
+    metrics.set("n_shards", sum(per_rank))
+    metrics.set("shards_per_process", per_rank)
 
     def log(msg):
         if config.verbose:
             print(f"[simka-tpu-torch host {pid}] {msg}", flush=True)
 
+    log(f"shards {[str(d) for d in shards]} of {sum(per_rank)}")
     # -max-reads 0 (auto) resolves to the SAME cap on every process: the
     # per-group read estimates of each process's datasets, summed over
     # the processes, then (min + mean) / 2 of the global list
@@ -262,7 +365,7 @@ def run_simka_multihost(config, device: str = "cuda") -> None:
             [column(p, np.uint32) for p in word_parts],
             column(sids, np.int32), column(cnts, np.int32),
             config.abundance_min, config.abundance_max, k=k, n_banks=n,
-            device=dev, simple=config.simple_dist,
+            shards=shards, per_rank=per_rank, simple=config.simple_dist,
             complex_=config.complex_dist,
         ).to_numpy()
         nb_reads = _all_reduce(nb_reads).cpu().numpy()

@@ -120,12 +120,58 @@ def shard_rows_by_hash(words: Sequence[torch.Tensor], sid: torch.Tensor,
     alone, the counts riding along (``simka_tpu``'s
     ``shard_rows_by_hash``): one (words, sid, counts) entry a shard.
     The rows are split on their own device, which so holds them and
-    every shard's part at once; a caller sizes them to that device's
-    own plan (``core.budget``)."""
+    every shard's part at once (``stage_rows_by_hash`` bounds that by
+    chunks)."""
     nw = len(words)
     parts = _by_hash((*words, sid, counts), words, k, len(devices))
     return [(tuple(c.to(d) for c in p[:nw]), p[nw].to(d), p[nw + 1].to(d))
             for p, d in zip(parts, devices)]
+
+
+def stage_rows_by_hash(rows, k: int, devices: Sequence[torch.device],
+                       device: torch.device) -> List[Rows]:
+    """Spectrum rows on the host (``ops.spectrum.HostRows``) routed to
+    the shards on ``devices`` through ``device``, as
+    ``shard_rows_by_hash`` splits them there. With every shard on
+    ``device``, the rows are shipped and split at once. Otherwise they
+    go in chunks of one device's spectrum plan
+    (``core.budget.spectrum_rows_budget``): each chunk is shipped to
+    ``device`` and split there, its parts move to their shards, and
+    each shard's parts are concatenated on its device. So no device
+    holds more than its own shards' rows and one chunk with its parts,
+    and a shard list plans with every device's memory
+    (``simka_tpu`` routes these rows on the host,
+    ``simka_tpu/core/sweep.py:396-412``)."""
+    from simka_tpu_torch.core.budget import spectrum_rows_budget
+    from simka_tpu_torch.ops.kmers import n_words
+    from simka_tpu_torch.ops.spectrum import rows_from_host
+
+    words32, sid, counts = rows
+    n = len(sid)
+    chunk = (n if all(d == device for d in devices)
+             else spectrum_rows_budget(device, n_words(k), None))
+    if n <= chunk:
+        return shard_rows_by_hash(*rows_from_host(rows, k, device), k,
+                                  devices)
+    pieces = [[] for _ in devices]  # per shard, per chunk: its columns
+    for a in range(0, n, chunk):
+        cut = slice(a, a + chunk)
+        part = (tuple(w[cut] for w in words32), sid[cut], counts[cut])
+        for i, (w, s, c) in enumerate(shard_rows_by_hash(
+                *rows_from_host(part, k, device), k, devices)):
+            pieces[i].append([*w, s, c])
+    out = []
+    for i, chunks in enumerate(pieces):
+        pieces[i] = None
+        cols = []
+        for j in range(len(chunks[0])):
+            # a column at a time, each chunk's column dropped as it
+            # joins: the device holds its part and one column more
+            cols.append(torch.cat([c[j] for c in chunks]))
+            for c in chunks:
+                c[j] = None
+        out.append((tuple(cols[:-2]), cols[-2], cols[-1]))
+    return out
 
 
 def route_packed_batch(batch: dict, sample: int, k: int,

@@ -269,51 +269,148 @@ def test_run_simka_shards_argument_matches_one_device(communities, tmp_path):
     assert len(outs[2][1]["repartition_histogram"]) == 5
 
 
+def test_spectrum_rows_budget_over_shards(monkeypatch):
+    """The out-of-core plan over a shard list, against simka_tpu's
+    spectrum_rows_budget with its mesh's shard count (a k=21 row is 16
+    bytes in both packages): distinct devices add their plans, a device
+    repeated n times plans as one, a device holding m of n shards
+    serves n/m times its plan and the list plans with the least of
+    those, and -max-memory caps the whole range."""
+    import simka_tpu.core.budget as ref_budget
+    from simka_tpu_torch.core.budget import spectrum_rows_budget
+
+    a, b = torch.device("cpu", 0), torch.device("cpu", 1)
+    for hbm in ("0.5", "3", "80000"):
+        monkeypatch.setenv("SIMKA_TPU_HBM_MB", hbm)
+        plan = int(float(hbm) * 1_000_000)  # bytes a device
+        assert spectrum_rows_budget([a, b, b], 1, None) == (
+            plan * 3 // 2 // 128)
+        assert spectrum_rows_budget([a, b, b, a], 1, None) == (
+            2 * plan // 128)
+        for mm in (1, 2, 100, 5000, None):
+            cap = 10**9 if mm is None else mm
+            assert spectrum_rows_budget([a, b], 1, mm) == (
+                ref_budget.spectrum_rows_budget(2, cap, 2))
+            for repeated in ([CPU] * 3, [a, a]):
+                assert spectrum_rows_budget(repeated, 1, mm) == (
+                    spectrum_rows_budget(CPU, 1, mm)) == (
+                    ref_budget.spectrum_rows_budget(2, cap, 1))
+    # 3 MB a device, capped at 4 MB: the pair plans 4 MB, not 6
+    monkeypatch.setenv("SIMKA_TPU_HBM_MB", "3")
+    assert spectrum_rows_budget([a, b], 1, 4) == 4_000_000 // 128 < (
+        spectrum_rows_budget([a, b], 1, None)) == 2 * 3_000_000 // 128
+
+
 @pytest.mark.parametrize("route", ["up-front", "out-tmp"])
 def test_distinct_devices_stage_within_one_device_plan(
         communities, tmp_path, monkeypatch, route):
     """Shards on distinct devices (cpu:0 and cpu:1, two devices to the
-    plan, tensors on the one CPU): the in-memory plan doubles, since
-    each device holds only its own shard, but the out-of-core routes
-    load every range (or, with -out-tmp, every spectrum row) on the
-    run's device and route it there, so they plan with that device
-    alone. The staged row counts equal the one-device run's, the
-    device spill tier is not taken, and the CSVs are the same."""
-    from simka_tpu_torch.core.budget import instance_rows_budget
+    plan, tensors on the one CPU): every plan doubles, so the sweep's
+    range count is the reference's rule over both devices (simka_tpu's
+    HBM plan times the mesh's shards: up front, the projected rows over
+    simka_tpu's spectrum_rows_budget; with -out-tmp, simka_tpu's own
+    run with -n-shards 2 where -max-memory binds both); each range is
+    staged from the host over the shards in chunks of one device's
+    plan, so no device stages more than its plan plus one chunk, and
+    the CSVs equal the one-device run's."""
+    import simka_tpu.core.budget as ref_budget
+    from simka_tpu_torch.core.budget import (
+        estimate_total_instances,
+        instance_rows_budget,
+        spectrum_rows_budget,
+    )
     from simka_tpu_torch.core.pipeline import run_simka
 
     two = [torch.device("cpu", 0), torch.device("cpu", 1)]
-    assert instance_rows_budget(two, 1) == 2 * instance_rows_budget(CPU, 1)
-    assert instance_rows_budget([CPU] * 2, 1) == instance_rows_budget(CPU, 1)
-    real = sharded.shard_rows_by_hash
     monkeypatch.setenv("SIMKA_TPU_HBM_MB", "0.5")
+    assert instance_rows_budget(two, 1) == 2 * instance_rows_budget(CPU, 1)
+    plan = spectrum_rows_budget(CPU, 1, None)  # one device's, k=21 rows
+    assert spectrum_rows_budget(two, 1, None) == 2 * plan
+    real_split, real_stage = sharded.shard_rows_by_hash, sharded.stage_rows_by_hash
+    # -max-memory 1 (MB) equals the pair's plan, so the reference's
+    # -out-tmp count (from -max-memory alone) is the port's too
+    mm = ["-max-memory", "1"] if route == "out-tmp" else []
     outs = {}
     for name, shards in (("one", None), ("two", two)):
-        staged = []
-        monkeypatch.setattr(
-            sharded, "shard_rows_by_hash",
-            lambda w, s, c, k, d: staged.append(s.shape[0]) or real(
-                w, s, c, k, d))
+        chunks, staged = [], []
+
+        def split(w, s, c, k, d):
+            chunks.append(s.shape[0])
+            return real_split(w, s, c, k, d)
+
+        def stage(rows, k, devices, device):
+            parts = real_stage(rows, k, devices, device)
+            staged.append([(d, p[1].shape[0])
+                           for d, p in zip(devices, parts)])
+            return parts
+
+        monkeypatch.setattr(sharded, "shard_rows_by_hash", split)
+        monkeypatch.setattr(sharded, "stage_rows_by_hash", stage)
         out = str(tmp_path / name)
-        cfg = dict(input_filename=communities["plain"], output_dir=out,
-                   verbose=False, simple_dist=True, complex_dist=True)
+        argv = ["-in", communities["plain"], "-out", out, "-verbose", "0",
+                "-simple-dist", "-complex-dist", *mm]
         if route == "out-tmp":
-            cfg.update(output_tmp_dir=str(tmp_path / f"{name}_tmp"))
-        run_simka(SimkaConfig(**cfg), device="cpu", shards=shards,
+            argv += ["-out-tmp", str(tmp_path / f"{name}_tmp")]
+        from simka_tpu_torch.cli import parse_simka_args
+
+        run_simka(parse_simka_args(argv)[1], device="cpu", shards=shards,
                   tier="ram" if route == "up-front" and shards is None
                   else None)
-        outs[name] = (*_outputs(out), staged)
-    (one, one_m, one_staged), (got, got_m, got_staged) = (
+        outs[name] = (*_outputs(out), chunks, staged)
+    (one, one_m, _, _), (got, got_m, chunks, staged) = (
         outs["one"], outs["two"])
     assert got == one and got_m["n_shards"] == 2
-    assert got_staged == one_staged and len(got_staged) > 1
-    assert got_m["sweep_ranges"] == one_m["sweep_ranges"] > 1
+    ranges = got_m["sweep_ranges"]
+    assert 1 < ranges < one_m["sweep_ranges"] and len(staged) == ranges
+    # every row staged once, each device's part within its own plan,
+    # each chunk within one device's plan, some range in several chunks
+    assert sum(r for parts in staged for _, r in parts) == got_m[
+        "spectrum_rows"]
+    assert {d for parts in staged for d, _ in parts} == set(two)
+    assert max(r for parts in staged for _, r in parts) <= plan
+    assert max(chunks) <= plan
+    # up front the ranges are provisioned from the instance estimate,
+    # which the distinct rows fall well below: one chunk a range
+    assert len(chunks) == ranges if route == "up-front" else (
+        len(chunks) > ranges)
     if route == "up-front":
         assert got_m["route"] == "up-front" and got_m["spill_tier"] == "ram"
+        datasets = parse_input_file(communities["plain"])
+        projected = max(int(got_m["per_sample"][0]["rows"] * 5 * 1.3),
+                        estimate_total_instances(datasets, 21))
+        assert ranges == -(-projected // ref_budget.spectrum_rows_budget(
+            2, 5000, 2)) == -(-one_m["sweep_ranges"] // 2)
         with pytest.raises(ValueError, match="every shard"):
             run_simka(SimkaConfig(input_filename=communities["plain"],
                                   output_dir=str(tmp_path / "dev"),
                                   verbose=False),
                       device="cpu", shards=two, tier="device")
     else:
-        assert got_m["memory_budget_bytes"] == one_m["memory_budget_bytes"]
+        from simka_tpu.cli import main as ref_main
+
+        assert got_m["memory_budget_bytes"] == 2 * one_m[
+            "memory_budget_bytes"] == 1_000_000
+        ref_out = str(tmp_path / "ref")
+        assert ref_main(["-in", communities["plain"], "-out", ref_out,
+                         "-verbose", "0", "-n-shards", "2", *mm,
+                         "-out-tmp", str(tmp_path / "ref_tmp")]) == 0
+        assert ranges == _outputs(ref_out)[1]["sweep_ranges"]
+        # the -out-tmp join without a sweep: the spectra's rows between
+        # one device's plan and the pair's, staged in chunks
+        rows = one_m["spectrum_rows"]
+        monkeypatch.setenv("SIMKA_TPU_HBM_MB", str(rows * 128 * 0.75 / 1e6))
+        plan = spectrum_rows_budget(CPU, 1, None)
+        chunks.clear()
+        staged.clear()
+        out = str(tmp_path / "join")
+        run_simka(SimkaConfig(input_filename=communities["plain"],
+                              output_dir=out, verbose=False,
+                              simple_dist=True, complex_dist=True,
+                              output_tmp_dir=str(tmp_path / "join_tmp")),
+                  device="cpu", shards=two)
+        got, got_m = _outputs(out)
+        assert got == one and "sweep_ranges" not in got_m
+        assert plan < rows <= 2 * plan and len(staged) == 1
+        assert len(chunks) == 2 and max(chunks) <= plan
+        assert [d for d, _ in staged[0]] == two
+        assert max(r for _, r in staged[0]) <= plan
