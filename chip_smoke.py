@@ -91,7 +91,9 @@ Phases (each raises on failure; nothing is caught):
      extraction batch (2^17 reads x 80 windows, kept 0.979), at the
      -out-tmp spectra join (word, sample id, count) and at the sweep's
      range extraction (the same columns over every resident spectrum
-     row, kept about 1/R: phase 10's largest);
+     row, kept about 1/R: phase 10's largest) and at phase 13a's shard
+     split (one exact-length compaction a destination of an extraction
+     batch's words, kept 1/2 and 1/4);
  10. the in-memory command out-of-core at full size through the CLI
      (k=21, default distances): (a) the 8 samples with a 30 GB device
      plan (SIMKA_TPU_HBM_MB=30000, for that run only), which the
@@ -185,7 +187,30 @@ Phases (each raises on failure; nothing is caught):
      (d) the -coordinator join as one NCCL rank in this process over the
      local shards [cuda:0] x 2 (run_simka_multihost with shards),
      all distances, byte-equal to phase 7's run. Per run wall, per-shard
-     rows, compaction launches (kept total == n on each), peak memory.
+     rows, compaction launches (kept total == n on each), peak memory;
+ 14. the wide-N exact path: (a) the pair kernel (csrc/pair_sums.cu)
+     against its plain version on the same CUDA tensors, every channel
+     and KL limb equal, at N in {2, 8, 33, 100, 256, 300, 1000} (one
+     launch, channel groups, the global form) on random segment layouts
+     (singletons, full segments, counts up to 2^20 and 2^31 - 1), the
+     default and every channel; (b) 100 samples x 50,000 reads of 20
+     genomes x 200 kbp through the CLI (k=21), the default distances
+     once and every distance twice (identical CSVs), each in memory;
+     per run wall, stages, instances, distinct solid k-mers, solid rows,
+     d_max, pairs, pair-kernel and compaction launches, peak memory;
+     (c) the kernel against its plain version on the default run's own
+     solid rows, equal, each timed with CUDA events beside the bound
+     (the plain loop held on a slice of whole segments when it would
+     pass 60 s), for the default and every channel, beside the
+     kernel's global form on the same rows (equal, timed) and, for
+     every channel, the groups cut in channel order (timed), and
+     _whittaker_all's time there; (d) for three pairs (i, j) a 2-sample
+     CLI run of samples i and j gives the [i, j] entry of every
+     pair-local matrix (tests/test_large_n.py's PAIR_LOCAL) of the
+     every-distance run, Jensen-Shannon to one unit of its 6th decimal.
+     Every CLI run that joins on the card (phases 7, 8, 10, 13a, 13b,
+     13d, 14) launches the pair kernel, and the plain pair sums raise
+     on a CUDA tensor while the path runs.
 
 Prints, before the last line, the kernels' JSON record (per kernel:
 launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
@@ -194,7 +219,12 @@ function -- launches_out_tmp, launches_sweep and launches_sketch, the
 compaction's launches in phase 8's run 1, in phase 10's 16-sample run
 and in phase 11's -nb-kmers 100000 run, whose hash-kernel launches are
 murmur_kmers' launches; launches_shards_2 and launches_shards_4, the
-compaction's in phase 13a, launches_coordinator_shards_2 in phase 13d;
+compaction's in phase 13a, launches_coordinator_shards_2 in phase 13d,
+and the compaction's shard_split_* times at 13a's split; pair_sums'
+launches in phase 7's default run, launches_wide_n in phase 14b's
+default run, the other launches_* as the compaction's, its times at
+phase 14c's rows (all_*: every channel; global_ms the global form,
+all_in_order_ms the groups in channel order, slots a launch's);
 min_pair_distance's launches are phase 12c's
 `min pipeline -nb-kmers 1000000`'s, its times at that run's sketches
 (l2_floor_ms: the design's L2 floor), wide_* at phase 12a's 100 x
@@ -227,7 +257,7 @@ from simka_tpu_torch.core import sweep
 from simka_tpu_torch.minhash import device as minhash
 from simka_tpu_torch.minhash import device_distance as dd
 from simka_tpu_torch.minhash.sketch import STAGES
-from simka_tpu_torch.ops import _kernels, compact
+from simka_tpu_torch.ops import _kernels, compact, countjoin
 from simka_tpu_torch.profiling import probes, trace
 
 INT64_MAX = (1 << 63) - 1
@@ -250,7 +280,7 @@ MURMUR_REPLACES = "simka_tpu/minhash/device.py:50"
 # min_distance.cu, probes.cu): a device time counts only the trace's
 # events of these
 HAND_KERNELS = ("compact_onepass", "murmur_kmers", "min_pair_tallies",
-                "probe_")
+                "pair_sums", "probe_")
 SKETCH_SIZES = (100_000, 1_000_000)  # `min sketch` and `min pipeline`
 PAIR_REPLACES = "simka_tpu/minhash/device_distance.py:85"
 WIDE_N, WIDE_S = 100, 1_000_000  # phase 12a's in-memory sketches
@@ -724,7 +754,9 @@ class ShapeRecorder:
     each call's device-side kept total beside the caller's n, compared
     by ``check_totals`` after a run (the sync is there, not on the
     path). The sweep's range extractions are kept apart: ``range_shape``
-    holds the (dtypes, E, n) of the largest."""
+    holds the (dtypes, E, n) of the largest. The plain pair sums raise
+    on a CUDA tensor while it is installed: on the card the path takes
+    the kernel."""
 
     def __init__(self):
         self.shapes = {}
@@ -733,6 +765,7 @@ class ShapeRecorder:
         self._in_range = False
         self._orig = compact.compact_rows
         self._orig_range = sweep.range_extract
+        self._orig_plain = countjoin._pair_sums_plain
 
     def __enter__(self):
         def recording(arrays, kept, fills, n=None):
@@ -757,8 +790,15 @@ class ShapeRecorder:
             finally:
                 self._in_range = False
 
+        def plain_guard(sid, *args, **kw):
+            if sid.device.type == "cuda":
+                raise AssertionError("the plain pair sums ran on a CUDA "
+                                     "tensor on the path")
+            return self._orig_plain(sid, *args, **kw)
+
         compact.compact_rows = recording
         sweep.range_extract = range_recording
+        countjoin._pair_sums_plain = plain_guard
         return self
 
     def check_totals(self) -> int:
@@ -775,6 +815,7 @@ class ShapeRecorder:
     def __exit__(self, *exc):
         compact.compact_rows = self._orig
         sweep.range_extract = self._orig_range
+        countjoin._pair_sums_plain = self._orig_plain
 
 
 def gpu_vs_cpu(tmp: str, tag: str, inp: str, n_matrices: int,
@@ -927,17 +968,19 @@ def check_matrices(texts: dict, n: int) -> None:
 
 
 def cli_run(tag: str, argv: list, out: str, recorder: ShapeRecorder,
-            run=None):
+            run=None, joins: bool = True):
     """One CLI run on the card (or ``run()``, another entry point
     writing to ``out`` and returning the run's metrics) with the
-    compaction's launch count and peak memory reset before it; every
-    launch's kept total checked after it. Returns (record, the metrics:
-    simka_metrics.json of a CLI run)."""
+    compaction's and the pair kernel's launch counts and peak memory
+    reset before it; every launch's kept total checked after it, and,
+    for a run that ``joins``, the pair kernel launched. Returns
+    (record, the metrics: simka_metrics.json of a CLI run)."""
     from simka_tpu_torch.cli import main as cli_main
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     compact.launches = 0
+    countjoin.launches = 0
     t1 = time.perf_counter()
     rc, m = (cli_main(argv), None) if run is None else (0, run())
     torch.cuda.synchronize()
@@ -947,12 +990,16 @@ def cli_run(tag: str, argv: list, out: str, recorder: ShapeRecorder,
     if compact.launches <= 0:
         raise AssertionError(
             f"{tag}: the run never launched the compaction kernel")
+    if joins and countjoin.launches <= 0:
+        raise AssertionError(
+            f"{tag}: the run never launched the pair-sums kernel")
     checked = recorder.check_totals()
     if checked != compact.launches:
         raise AssertionError(f"{tag}: {checked} kept totals checked, "
                              f"{compact.launches} launches")
     rec = {
         "launches": compact.launches,
+        "pair_launches": countjoin.launches,
         "wall_s": wall,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
@@ -1005,6 +1052,7 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
                 f"{rec['instances']}, distinct solid "
                 f"{c['nb_distinct_kmers']}, compact launches "
                 f"{rec['launches']} (kernel kept total == n on each), "
+                f"pair-sums launches {rec['pair_launches']}, "
                 f"peak device memory {rec['peak_gib']:.2f} GiB"
             )
             runs.append((csv_texts(out), rec))
@@ -1099,7 +1147,8 @@ def out_tmp_full_size(tmp: str, inp8: str, inp9: str, yardsticks: dict,
             f"{m['stages']['output']}; datasets resumed {resumed or 0}; "
             f"spectrum rows {c['spectrum_rows']} x 16 B x 8 against the "
             f"budget {c['memory_budget_bytes']} B{sweep_line}; compact "
-            f"launches {rec['launches']} (kernel kept total == n on each); "
+            f"launches {rec['launches']} (kernel kept total == n on each), "
+            f"pair-sums launches {rec['pair_launches']}; "
             f"peak device memory {rec['peak_gib']:.2f} GiB; CSVs "
             + {0: "== phase 7's default run (run 0)", 1: "== run 1",
                3: "== run 3", "7all": "== phase 7's all-distances k=21 run",
@@ -1173,7 +1222,8 @@ def out_of_core_full_size(tmp: str, seed: int, inp8: str, inp9: str,
                         if key.startswith("stage_"))
             + f"; per-sample spectra {min(spectra)}-{max(spectra)} s; "
             f"output {m['stages']['output']} s; compact launches "
-            f"{rec['launches']} (kernel kept total == n on each); peak "
+            f"{rec['launches']} (kernel kept total == n on each), "
+            f"pair-sums launches {rec['pair_launches']}; peak "
             f"device memory {rec['peak_gib']:.2f} GiB")
 
     # (a) the 8 samples with a 30 GB plan: the estimate (8 x 52 MB of
@@ -1301,7 +1351,8 @@ def restart_run(tmp: str, inp8: str, yardsticks: dict,
         + ", ".join(f"{key} {v:.4f}" for key, v in
                     sorted(o["stage_timers"].items()))
         + f"; output {o['output_s']:.3f} s); compact launches "
-        f"{rec['launches']} (kernel kept total == n on each); peak device "
+        f"{rec['launches']} (kernel kept total == n on each), "
+        f"pair-sums launches {rec['pair_launches']}; peak device "
         f"memory {rec['peak_gib']:.2f} GiB; CSVs == phase 7's default run")
 
 
@@ -1309,7 +1360,8 @@ def compaction_at_path_shapes(shapes: dict, join_rows: int, range_shape,
                               dev, seed: int) -> tuple:
     """Phase 9; returns (max_abs_err, timings at the k=21 join shape,
     at the extraction-batch shape, at the -out-tmp spectra join's
-    abundance filter and at the sweep's largest range extraction)."""
+    abundance filter, at the sweep's largest range extraction and, by
+    shard count, at phase 13a's shard split)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     saved = compact.launches
@@ -1366,8 +1418,20 @@ def compaction_at_path_shapes(shapes: dict, join_rows: int, range_shape,
         f"sid, i32 count, frac {n / E:.4f})", cols, kept, fills, 5)
     del cols, kept
     torch.cuda.empty_cache()
+    # the shard split of phase 13a (parallel/sharded.py::split_rows): one
+    # exact-length compaction a destination of an extraction batch's
+    # words, each keeping about 1/n
+    split = {}
+    for n in SHARD_COUNTS:
+        cols, kept, fills = rows(EXTRACT_ROWS, 1 / n, gen, dev,
+                                 (torch.int64,))
+        err = max(err, compare(cols, kept, fills))
+        split[n] = time_compaction(
+            f"at the shard split over {n} (i64 word, frac 1/{n}, one "
+            "destination)", cols, kept, fills, 20)
+        del cols, kept
     compact.launches = saved
-    return err, join, extract, spectra, ranged
+    return err, join, extract, spectra, ranged, split
 
 
 # ---- phase 11: SimkaMin's sketch ----------------------------------------
@@ -1579,7 +1643,8 @@ def sketch_run(tag: str, argv: list, out: str, recorder) -> tuple:
     kernel's and the compaction's launch counts and the peak memory
     reset before it; returns (record, metrics)."""
     minhash.launches = 0
-    rec, m = cli_run(tag, [], out, recorder, run=lambda: min_cli(argv))
+    rec, m = cli_run(tag, [], out, recorder, run=lambda: min_cli(argv),
+                     joins=False)
     rec["murmur_launches"] = minhash.launches
     if minhash.launches <= 0:
         raise AssertionError(f"{tag}: the run never launched the hash kernel")
@@ -1637,7 +1702,8 @@ def sketch_full_size(tmp: str, inp8: str, recorder, dev) -> dict:
     rec, m = cli_run("per-sample route", [], out, recorder,
                      run=lambda: sketch_command(inp8, out, 21, SKETCH_SIZES[0],
                                                 100, verbose=False,
-                                                instance_limit=0))
+                                                instance_limit=0),
+                     joins=False)
     if m["sketch_route"] != "per-sample" or sketch_bytes(out) != sketch_bytes(
             files[SKETCH_SIZES[0]]):
         raise AssertionError("min sketch per-sample route: the file differs "
@@ -1720,7 +1786,7 @@ def filter_past_threshold(tmp: str, inp8: str, recorder, dev) -> dict:
         r, mm = cli_run(f"min sketch {tag} of one 24-file sample", [], path,
                         recorder, run=lambda: sketch_command(
                             inp, path, 21, SKETCH_SIZES[0], 100, use_filter,
-                            verbose=False, **kw))
+                            verbose=False, **kw), joins=False)
         if mm["sample_routes"] != ["streaming"]:
             raise AssertionError(f"min sketch {tag}: {mm['sample_routes']}")
         runs[tag] = (sketch_bytes(path), SketchFile(path).read_slot(0))
@@ -2180,7 +2246,8 @@ def min_pipeline_run(tag: str, argv: list, out: str, recorder) -> tuple:
     it; returns (record, metrics)."""
     minhash.launches = 0
     dd.launches = 0
-    rec, m = cli_run(tag, [], out, recorder, run=lambda: min_cli(argv))
+    rec, m = cli_run(tag, [], out, recorder, run=lambda: min_cli(argv),
+                     joins=False)
     rec["murmur_launches"] = minhash.launches
     rec["pair_launches"] = dd.launches
     if minhash.launches <= 0 or dd.launches <= 0:
@@ -2327,7 +2394,8 @@ def shards_in_memory(tmp: str, inp8: str, yardsticks: dict, instances: int,
                 f"{key} {c[key]}" for key in sorted(c)
                 if key.startswith("stage_"))
             + f"; instances per shard {rows} (of {instances}); compact "
-            f"launches {rec['launches']} (kept total == n on each); peak "
+            f"launches {rec['launches']} (kept total == n on each), "
+            f"pair-sums launches {rec['pair_launches']}; peak "
             f"device memory {rec['peak_gib']:.2f} GiB")
         recs[n] = {**rec, "shard_rows": rows}
     return recs
@@ -2352,7 +2420,8 @@ def shards_from_checkpoints(tmp: str, inp8: str, ckpt: str, csvs: dict,
         raise AssertionError(f"{tag}: CSVs differ from phase 7's")
     say(f"{tag}: CSVs == phase 7's default run; wall {rec['wall_s']:.3f} s; "
         f"stages count {m['stages']['count']}, merge {m['stages']['merge']}; "
-        f"compact launches {rec['launches']} (kept total == n on each); "
+        f"compact launches {rec['launches']} (kept total == n on each), "
+        f"pair-sums launches {rec['pair_launches']}; "
         f"peak device memory {rec['peak_gib']:.2f} GiB")
 
 
@@ -2454,9 +2523,401 @@ def coordinator_shards(tmp: str, inp8: str, yardsticks: dict,
     say(f"{tag}: CSVs == phase 7's all-distances k=21 run; wall "
         f"{rec['wall_s']:.3f} s (process group formed before); stages count "
         f"{m['stages']['count']}, merge {m['stages']['merge']}; compact "
-        f"launches {rec['launches']} (kept total == n on each); peak device "
+        f"launches {rec['launches']} (kept total == n on each), "
+        f"pair-sums launches {rec['pair_launches']}; peak device "
         f"memory {rec['peak_gib']:.2f} GiB")
     return rec
+
+
+# ---- phase 14: the wide-N exact path --------------------------------------
+
+PAIR_SUMS_REPLACES = "simka_tpu/ops/countjoin.py:1112"
+# phase 14a's sample counts: one channel group (every channel to N = 33),
+# several groups (N = 100: three with every channel), the global form
+# (N >= 242 on an H100: one channel's triangle past the shared memory)
+PAIR_SUMS_NS = (2, 8, 33, 100, 256, 300, 1000)
+# the counts' largest values: past 2^20, and int32's largest (the
+# Whittaker terms' wrap)
+PAIR_SUMS_CMAX = (1 << 20, (1 << 31) - 1)
+# the bound's integer instructions a pair and channel: one 64-bit add,
+# two 32-bit instructions (the index arithmetic and the f64 terms are
+# not counted: the bound stays a floor)
+PAIR_SUMS_INT_OPS = 2
+# the matrices whose [i, j] depends on samples i and j alone
+# (tests/test_large_n.py::PAIR_LOCAL)
+PAIR_LOCAL = ("mat_abundance_braycurtis", "mat_abundance_jaccard",
+              "mat_presenceAbsence_jaccard", "mat_presenceAbsence_ochiai",
+              "mat_presenceAbsence_chord", "mat_abundance_chord",
+              "mat_abundance_hellinger", "mat_abundance_whittaker",
+              "mat_abundance_jensenshannon", "mat_abundance_canberra")
+# Jensen-Shannon may differ by one unit of its 6th decimal (ROADMAP
+# section 3); every other pair-local entry is equal
+JS_MATRIX = "mat_abundance_jensenshannon"
+# past this predicted time the plain loop is held on a slice of whole
+# segments of the N = 100 run's rows
+PLAIN_PAIR_SECONDS = 60.0
+PAIR_SUMS_PLAIN = countjoin._pair_sums_plain
+
+
+def pair_outputs(N: int, simple: bool, complex_: bool, dev):
+    """Zeroed pair channels (``countjoin.pair_sums``' flat and kl)."""
+    names = countjoin.PAIR_CHANNELS[:4 + 2 * simple] + (
+        countjoin.PAIR_CHANNELS[6:] if complex_ else ())
+    flat = {name: torch.zeros(N * N, dtype=torch.int64, device=dev)
+            for name in names}
+    kl = torch.zeros((N * N, 1 + countjoin.KL_FRAC_LIMBS),
+                     dtype=torch.int64, device=dev)
+    return flat, kl
+
+
+def pair_channels(simple: bool, complex_: bool) -> list:
+    """The kernel's channel numbers (csrc/pair_sums.cu) of a run: the
+    default four, the simple two, the complex two and the KL limbs."""
+    return list(range(4 + 2 * simple)) + (
+        list(range(6, 9 + countjoin.KL_FRAC_LIMBS)) if complex_ else [])
+
+
+def segment_rows(N: int, n_segs: int, cmax: int, rng, dev):
+    """Solid rows of n_segs random k-mers over N samples, as the join
+    hands them to pair_sums: (sid, count, starts, seg_len, K). Each
+    segment a singleton (40%), every sample (10%) or 2..N samples, the
+    first two a full segment and a singleton; its samples a sorted
+    random subset; counts uniform in [1, cmax], one in 20 at cmax; K
+    the per-bank sums of the counts."""
+    kind = rng.choice(3, size=n_segs, p=(0.1, 0.4, 0.5))
+    kind[:2] = (0, 1)
+    lens = np.where(kind == 0, N, np.where(
+        kind == 1, 1, rng.integers(2, N + 1, size=n_segs)))
+    sid = np.concatenate([np.arange(N) if L == N else
+                          np.sort(rng.choice(N, L, replace=False))
+                          for L in lens])
+    count = rng.integers(1, cmax + 1, size=sid.size)
+    count[rng.random(sid.size) < 0.05] = cmax
+    K = np.zeros(N, np.int64)
+    np.add.at(K, sid, count)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    as_dev = (lambda a, dt=torch.int64:
+              torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt))
+    return (as_dev(sid), as_dev(count), as_dev(starts), as_dev(lens),
+            as_dev(K, torch.float64))
+
+
+def same_pair_sums(tag: str, got, want, complex_: bool) -> int:
+    """Two pair_sums outputs (flat, kl) equal in every channel and KL
+    limb (anything else raises); returns the max abs error, 0."""
+    torch.cuda.synchronize()
+    for name in got[0]:
+        if not torch.equal(got[0][name], want[0][name]):
+            bad = (got[0][name] != want[0][name]).nonzero()[:5].flatten()
+            raise AssertionError(f"pair_sums {tag}: {name} kernel != plain "
+                                 f"at bins {bad.tolist()}")
+    if not torch.equal(got[1], want[1]):
+        bad = (got[1] != want[1]).nonzero()[:5].tolist()
+        raise AssertionError(f"pair_sums {tag}: KL limbs kernel != plain at "
+                             f"{bad}")
+    if not got[0]["distinct"].any() or complex_ and not got[1].any():
+        raise AssertionError(f"pair_sums {tag}: the channels stayed empty")
+    return 0
+
+
+def pair_sums_compare(tag: str, rows, simple: bool, complex_: bool) -> int:
+    """Kernel against plain on the same CUDA rows (``same_pair_sums``)."""
+    N = rows[4].shape[0]
+    d_max = int(rows[3].max())
+    got, want = (pair_outputs(N, simple, complex_, rows[0].device)
+                 for _ in range(2))
+    countjoin.pair_sums(*rows, *got, d_max=d_max)
+    PAIR_SUMS_PLAIN(*rows, *want, d_max=d_max)
+    return same_pair_sums(tag, got, want, complex_)
+
+
+def pair_sums_vs_plain(dev, seed: int) -> int:
+    """Phase 14a: the pair kernel against its plain version on random
+    segment layouts at every N of PAIR_SUMS_NS, each count bound, the
+    default and every channel; returns the max abs error."""
+    rng = np.random.default_rng(seed + 14)
+    saved = countjoin.launches
+    lib = _kernels.lib()
+    forms = set()
+    for N in PAIR_SUMS_NS:
+        n_segs = max(40, min(3000, 60_000 // N))
+        slots = lib.simka_pair_sums_slots(N)
+        line = []
+        for cmax in PAIR_SUMS_CMAX:
+            rows = segment_rows(N, n_segs, cmax, rng, dev)
+            for simple, complex_ in ((False, False), (True, True)):
+                groups = countjoin.pair_groups(
+                    pair_channels(simple, complex_), slots)
+                n0 = countjoin.launches
+                pair_sums_compare(f"N={N} cmax={cmax}", rows, simple,
+                                  complex_)
+                if countjoin.launches - n0 != len(groups):
+                    raise AssertionError(
+                        f"pair_sums N={N}: {countjoin.launches - n0} "
+                        f"launches, expected {len(groups)}")
+                forms.add("global" if slots == 0 else
+                          "one group" if len(groups) == 1 else "groups")
+                line.append(len(groups))
+        sl = rows[3]
+        say(f"pair_sums N={N}: kernel == plain in every channel and KL "
+            f"limb ({n_segs} segments, {int(rows[0].shape[0])} rows, "
+            f"{int((sl * (sl - 1) // 2).sum())} pairs at cmax 2^31 - 1; "
+            + ("the global form" if slots == 0 else
+               f"shared partials, {slots} channels a launch: "
+               f"{line[0]} / {line[1]} launches for the default / every "
+               "channel") + ")")
+    if forms != {"global", "one group", "groups"}:
+        raise AssertionError(f"pair_sums forms held: {sorted(forms)}")
+    countjoin.launches = saved  # comparison launches are not the path's
+    return 0
+
+
+class PairRecorder:
+    """Keeps the inputs (sid, count, starts, seg_len, K) of the largest
+    pair_sums call on the card while installed: the join's own rows."""
+
+    def __init__(self):
+        self.args = None
+        self._orig = countjoin.pair_sums
+
+    def __enter__(self):
+        def recording(sid, count, starts, seg_len, K, flat, kl, *, d_max):
+            if sid.device.type == "cuda" and (
+                    self.args is None or sid.shape[0] > self.args[0].shape[0]):
+                self.args = (sid, count, starts, seg_len, K)
+            return self._orig(sid, count, starts, seg_len, K, flat, kl,
+                              d_max=d_max)
+
+        countjoin.pair_sums = recording
+        return self
+
+    def __exit__(self, *exc):
+        countjoin.pair_sums = self._orig
+
+
+def wide_n_runs(tmp: str, seed: int, recorder: ShapeRecorder):
+    """Phase 14b: the N = 100 community through the CLI, default
+    distances, then every distance twice. Returns (the input, the
+    all-distances CSVs, the default run's record, its join's rows)."""
+    from simka_tpu_torch.utils.community import (WIDE_COMMUNITY,
+                                                 write_community)
+
+    t0 = time.perf_counter()
+    inp = write_community(os.path.join(tmp, "wide"), seed=seed,
+                          **WIDE_COMMUNITY)
+    N = WIDE_COMMUNITY["n_samples"]
+    say(f"phase 14: wide-N data written in {time.perf_counter() - t0:.2f} s "
+        f"({N} samples x {WIDE_COMMUNITY['reads_per_sample']} reads x 100 "
+        f"bp, {WIDE_COMMUNITY['n_genomes']} genomes x "
+        f"{WIDE_COMMUNITY['genome_len']} bp)")
+    texts, first, rows = {}, None, None
+    for tag, flags, r in (("default", [], 0),
+                          ("all distances", ALL_DISTANCES, 0),
+                          ("all distances", ALL_DISTANCES, 1)):
+        out = os.path.join(tmp, f"wide_{len(flags)}_{r}")
+        argv = ["-in", inp, "-out", out, "-kmer-size", "21",
+                "-abundance-min", "2", "-verbose", "0", "-device", "cuda",
+                *flags]
+        name = f"phase 14b: N={N} {tag} run {r}"
+        with PairRecorder() as pr:
+            rec, m = cli_run(name, argv, out, recorder)
+        c = m["counters"]
+        if c["route"] != "in-memory":
+            raise AssertionError(f"{name}: route {c['route']}, expected "
+                                 "in-memory")
+        sid, _, starts, seg_len, _ = pr.args
+        d_max, pairs = torch.stack(
+            [seg_len.max(), (seg_len * (seg_len - 1) // 2).sum()]).tolist()
+        rec.update(instances=int(sum(c["repartition_histogram"])),
+                   distinct=c["nb_distinct_kmers"], rows=sid.shape[0],
+                   d_max=d_max, pairs=pairs, stages={
+                       k: c[k] for k in sorted(c) if k.startswith("stage_")})
+        say(f"{name}: route {c['route']}; wall {rec['wall_s']:.3f} s; stages "
+            + ", ".join(f"{k} {v}" for k, v in rec["stages"].items())
+            + f", count {m['stages']['count']}, output "
+            f"{m['stages']['output']}; reads {c['reads']}, instances "
+            f"{rec['instances']}, distinct solid {rec['distinct']}, solid "
+            f"rows {rec['rows']}, d_max {d_max}, pairs {pairs}; pair-sums "
+            f"launches {rec['pair_launches']}, compact launches "
+            f"{rec['launches']}; peak device memory {rec['peak_gib']:.2f} "
+            "GiB")
+        if rows is None:
+            first, rows = rec, pr.args
+        del pr, sid, starts, seg_len
+        got = csv_texts(out)
+        check_matrices(got, N)
+        if r == 1 and got != texts:
+            raise AssertionError(f"{name}: CSVs differ from run 0's")
+        texts = got
+    say(f"phase 14b: N={N} all distances, both runs identical, "
+        f"{len(texts)} matrices")
+    return inp, texts, first, rows
+
+
+def once_ms(fn) -> float:
+    """CUDA-event time of one call of fn."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def pair_sums_at_wide_n(rows) -> dict:
+    """Phase 14c: the kernel against its plain version on the N = 100
+    run's own solid rows, equal, each timed with CUDA events, with the
+    bound, for the default channels and for every channel; the plain
+    loop on a slice of whole segments when its time on all rows is
+    predicted past PLAIN_PAIR_SECONDS. Beside the path's form, the
+    kernel's global form (every channel straight into the outputs) on
+    the same rows, equal and timed, and for every channel the groups
+    cut in channel order (the KL limbs across two launches). And
+    _whittaker_all's time."""
+    sid, count, starts, seg_len, K = rows
+    N, n, S = K.shape[0], sid.shape[0], starts.shape[0]
+    d_max, pairs = torch.stack(
+        [seg_len.max(), (seg_len * (seg_len - 1) // 2).sum()]).tolist()
+    saved = countjoin.launches
+    slots = _kernels.lib().simka_pair_sums_slots(N)
+    # whole segments covering about a sixteenth of the rows
+    s_cut = max(1, int(torch.searchsorted(starts, n // 16)))
+    cut = int(starts[s_cut]) if s_cut < S else n
+    part = (sid[:cut], count[:cut], starts[:s_cut], seg_len[:s_cut], K)
+    d_part = int(part[3].max())
+    res = {"slots": slots}
+    for label, simple, complex_ in (("", False, False),
+                                    ("all_", True, True)):
+        chans = pair_channels(simple, complex_)
+        want = pair_outputs(N, simple, complex_, sid.device)
+        plain_ms = once_ms(lambda: PAIR_SUMS_PLAIN(*part, *want,
+                                                   d_max=d_part))
+        whole = plain_ms * n / max(cut, 1) < PLAIN_PAIR_SECONDS * 1e3
+        held, dm = (rows, d_max) if whole else (part, d_part)
+        if whole:
+            want = pair_outputs(N, simple, complex_, sid.device)
+            plain_ms = once_ms(lambda: PAIR_SUMS_PLAIN(*rows, *want,
+                                                       d_max=d_max))
+        got = pair_outputs(N, simple, complex_, sid.device)
+        countjoin.pair_sums(*held, *got, d_max=dm)
+        same_pair_sums(f"N={N} run's rows" + ("" if whole else
+                                              f", rows [0, {cut})"),
+                       got, want, complex_)
+        # the global form on all rows, equal to the path's form
+        glob = pair_outputs(N, simple, complex_, sid.device)
+        countjoin._launch_pair_sums(*rows, *glob, [chans], shared=False)
+        path = pair_outputs(N, simple, complex_, sid.device)
+        countjoin.pair_sums(*rows, *path, d_max=d_max)
+        same_pair_sums(f"N={N} run's rows, global form", glob, path,
+                       complex_)
+        del got, want, glob, path
+        out = pair_outputs(N, simple, complex_, sid.device)
+        ms = time_ms(lambda: countjoin.pair_sums(*rows, *out, d_max=d_max),
+                     reps=5)
+        global_ms = time_ms(lambda: countjoin._launch_pair_sums(
+            *rows, *out, [chans], shared=False), reps=5)
+        nbytes = 16 * n + 16 * S + 8 * N + len(chans) * N * N * 8
+        b_ms, b_by = bound(nbytes, pairs * len(chans) * PAIR_SUMS_INT_OPS,
+                           INT32_OPS_PER_S)
+        res.update({f"{label}ms": ms, f"{label}plain_ms": plain_ms,
+                    f"{label}plain_rows": held[0].shape[0],
+                    f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
+                    f"{label}global_ms": global_ms,
+                    f"{label}group_launches": len(countjoin.pair_groups(chans,
+                                                                        slots))})
+        if complex_:
+            # the earlier cut: consecutive groups in channel order
+            in_order = [chans[g:g + slots] for g in range(0, len(chans),
+                                                          slots)]
+            res["all_in_order_ms"] = time_ms(
+                lambda: countjoin._launch_pair_sums(*rows, *out, in_order,
+                                                    shared=True), reps=5)
+        say(f"pair_sums at the N={N} run's rows ({n} rows, {S} segments, "
+            f"d_max {d_max}, {pairs} pairs), "
+            + ("default channels" if not simple else "every channel")
+            + f": kernel {ms:.4f} ms in "
+            f"{res[label + 'group_launches']} launch(es) of {slots} slots (bound "
+            f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}%); the global "
+            f"form {global_ms:.4f} ms in one launch"
+            + (f"; groups in channel order {res['all_in_order_ms']:.4f} ms"
+               if complex_ else "") + "; plain "
+            + (f"{plain_ms:.4f} ms on all rows" if whole else
+               f"{plain_ms:.4f} ms on rows [0, {cut}) (all rows predicted "
+               f"past {PLAIN_PAIR_SECONDS:.0f} s), the kernel held there")
+            + "; kernel == plain in every channel and limb, the global "
+            "form == the kernel's path")
+        del out
+    res["whittaker_all_ms"] = time_ms(
+        lambda: countjoin._whittaker_all(sid, count, K, N), reps=3)
+    say(f"_whittaker_all at the N={N} run's rows: "
+        f"{res['whittaker_all_ms']:.4f} ms (torch ops)")
+    countjoin.launches = saved  # timing launches are not the path's
+    res.update(rows=n, segments=S, d_max=d_max, pairs=pairs)
+    return res
+
+
+def csv_cell(text: str, i: int, j: int) -> str:
+    return text.splitlines()[1 + i].split(";")[1 + j]
+
+
+def pair_local_oracle(tmp: str, inp: str, texts: dict, seed: int,
+                      recorder: ShapeRecorder) -> None:
+    """Phase 14d: for three pairs (i, j) a 2-sample CLI run of samples i
+    and j gives the [i, j] entry of every pair-local matrix of the
+    N = 100 all-distances run (Jensen-Shannon to one unit of its 6th
+    decimal)."""
+    with open(inp) as f:
+        lines = f.readlines()
+    N = len(lines)
+    rng = np.random.default_rng(seed + 141)
+    for _ in range(3):
+        i, j = sorted(int(x) for x in rng.choice(N, 2, replace=False))
+        two = os.path.join(tmp, f"wide_pair_{i}_{j}.txt")
+        with open(two, "w") as f:
+            f.writelines([lines[i], lines[j]])
+        out = os.path.join(tmp, f"wide_pair_{i}_{j}")
+        rec, _ = cli_run(f"phase 14d: samples {i} and {j}", [
+            "-in", two, "-out", out, "-kmer-size", "21", "-abundance-min",
+            "2", "-verbose", "0", "-device", "cuda", *ALL_DISTANCES],
+            out, recorder)
+        pair = csv_texts(out)
+        worst = 0.0
+        for name in PAIR_LOCAL:
+            key = name + ".csv.gz"
+            got, want = csv_cell(texts[key], i, j), csv_cell(pair[key], 0, 1)
+            diff = abs(float(got) - float(want))
+            if name == JS_MATRIX and diff <= 1.0000001e-6:
+                worst = max(worst, diff)
+            elif got != want:
+                raise AssertionError(f"phase 14d: {name}[{i}, {j}] {got} != "
+                                     f"{want} of the 2-sample run")
+        say(f"phase 14d: samples {i} and {j}: every pair-local entry of the "
+            f"N={N} run == the 2-sample run's (Jensen-Shannon off by "
+            f"{worst:.1e}; wall {rec['wall_s']:.3f} s)")
+
+
+def wide_n_phase(tmp: str, seed: int, recorder: ShapeRecorder, dev) -> dict:
+    """Phase 14; returns the pair kernel's numbers for its record."""
+    t0 = time.perf_counter()
+    err = pair_sums_vs_plain(dev, seed)
+    inp, texts, run, rows = wide_n_runs(tmp, seed, recorder)
+    times = pair_sums_at_wide_n(rows)
+    del rows
+    torch.cuda.empty_cache()
+    pair_local_oracle(tmp, inp, texts, seed, recorder)
+    say(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": err, "run": run, **times}
+
+
+def wide_n_alone(seed: int = 0) -> dict:
+    """Phase 14 on its own, the kernels built first:
+    python3 -c "import chip_smoke; chip_smoke.wide_n_alone()"."""
+    _kernels.build()
+    with tempfile.TemporaryDirectory(prefix="simka_chip_smoke_") as tmp, \
+            ShapeRecorder() as rec:
+        return wide_n_phase(tmp, seed, rec, torch.device("cuda", 0))
 
 
 def main() -> int:
@@ -2505,6 +2966,7 @@ def main() -> int:
             coordinator_runs(tmp, inp8, yardsticks)
             coord_shards = coordinator_shards(tmp, inp8, yardsticks, rec,
                                               dev)
+            wide_n = wide_n_phase(tmp, args.seed, rec, dev)
             m_err = murmur_vs_plain(dev, args.seed)
             small_sketch_gpu_vs_cpu(tmp, args.seed)
             rec.check_totals()
@@ -2518,7 +2980,7 @@ def main() -> int:
             pipe_main, pipe_times = min_pipeline_full_size(tmp, inp8, inp9,
                                                            rec, dev)
     main_run = paths["default k=21"]
-    c_err, join, extract, spectra, ranged = compaction_at_path_shapes(
+    c_err, join, extract, spectra, ranged, split = compaction_at_path_shapes(
         rec.shapes, main_run["instances"], rec.range_shape, dev, args.seed)
     err = max(err, c_err)
 
@@ -2546,6 +3008,8 @@ def main() -> int:
         **{f"sweep_extract_{k}": ranged[k] for k in (
             "ms", "plain_ms", "bound_ms", "library_ms", "fill_ms",
             "plain_fill_ms", "fill_bound_ms")},
+        **{f"shard_split_{n}_{k}": split[n][k] for n in split
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "launches_sketch": sketch_main["launches"],
         **{f"sketch_prefilter_{k}": prefilter[k] for k in (
             "ms", "plain_ms", "bound_ms", "library_ms", "fill_ms",
@@ -2578,6 +3042,31 @@ def main() -> int:
                                           "bound_by", "device_ms",
                                           "l2_floor_ms")},
     }]
+    kernels.append({
+        "name": "pair_sums",
+        "route": "cuda",
+        "source": "simka_tpu_torch/csrc/pair_sums.cu",
+        "replaces": PAIR_SUMS_REPLACES,
+        "launches": main_run["pair_launches"],
+        "launches_wide_n": wide_n["run"]["pair_launches"],
+        "launches_out_tmp": out_tmp_run["pair_launches"],
+        "launches_sweep": sweep_run["pair_launches"],
+        **{f"launches_shards_{n}": r["pair_launches"]
+           for n, r in shard_recs.items()},
+        "launches_coordinator_shards_2": coord_shards["pair_launches"],
+        "max_abs_err": wide_n["max_abs_err"],
+        # at the N = 100 run's own rows; all_*: every channel
+        **{k: wide_n[k] for k in ("ms", "plain_ms", "bound_ms",
+                                  "bound_by")},
+        "library_ms": None,  # no torch call computes the pair sums
+        **{k: wide_n[k] for k in ("plain_rows", "all_ms", "all_plain_ms",
+                                  "all_plain_rows", "all_bound_ms",
+                                  "all_bound_by", "global_ms",
+                                  "all_global_ms", "all_in_order_ms",
+                                  "slots", "all_group_launches",
+                                  "whittaker_all_ms", "rows", "segments",
+                                  "d_max", "pairs")},
+    })
     gram = probe["gram"]
     kernels.append({
         "name": "probe_gram_bf16",

@@ -114,6 +114,7 @@ def lib():
                 ("simka_compact_tile_rows", i64, []),
                 ("simka_min_pair_segment", i32, []),
                 ("simka_min_pair_scratch_words", i64, [i64, i64]),
+                ("simka_pair_sums_slots", i32, [i64]),
             ):
                 fn = getattr(handle, name)
                 fn.restype = res
@@ -127,6 +128,9 @@ def lib():
                 # csrc/min_distance.cu
                 ("simka_min_pair_tallies", [vp] * 10 + [i64, i64, vp, vp,
                                                       vp]),
+                # csrc/pair_sums.cu
+                ("simka_pair_sums", [vp, vp, vp, vp, i64, i64, vp, i64, vp,
+                                     vp, i32, vp]),
                 # csrc/probes.cu
                 ("simka_probe_map", [i32, vp, vp, i64, i32, ctypes.c_float,
                                      vp, vp]),

@@ -9,9 +9,11 @@ The torch counterpart of ``simka_tpu.ops.countjoin.count_join_stats``:
      compaction (``ops.compact``) -- order stays (k-mer, sample)
      ascending;
   3. per-bank totals, then segments of equal k-mers;
-  4. pair sums in direct form: for each offset d, rows i and i + d of
-     one segment are a co-present pair (a, b) with a < b, added into
-     flat [N * N] int64 sums with ``index_add_``.
+  4. pair sums in direct form: every two rows of one segment are a
+     co-present pair (a, b) with a < b, added into flat [N * N] int64
+     sums (``pair_sums``: on a CUDA tensor the hand-written kernel of
+     ``csrc/pair_sums.cu``, on a CPU tensor its plain torch version,
+     ``_pair_sums_plain``, one offset d at a time with ``index_add_``).
 
 Every integer channel is an exact sum, so it equals the reference bit
 for bit on any device. The two float channels are made
@@ -45,6 +47,7 @@ totals.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Sequence, Union
 
 import torch
@@ -65,6 +68,15 @@ KL_LIMB_BITS = 28
 KL_FRAC_LIMBS = 4
 
 _TWO32 = 2.0**32
+
+# the pair channels of ``pair_sums`` in the kernel's order
+# (csrc/pair_sums.cu): the default four, the simple two, the complex
+# two; the KL limbs follow as channels 8..12
+PAIR_CHANNELS = ("ab", "ba", "distinct", "bray", "hellinger", "chord",
+                 "whittaker", "s12")
+
+# pair-kernel launches on the CUDA path (the CPU path does not count)
+launches = 0
 
 
 class JoinStats(NamedTuple):
@@ -236,55 +248,18 @@ def _kl_from_limbs(sums: torch.Tensor) -> torch.Tensor:
     return torch.tensor(vals, dtype=torch.float64, device=sums.device)
 
 
-def _raw_stats_from_rows(
-    words, sid, count, *, n_banks: int, simple: bool = False,
-    complex_: bool = False, solid_override=None,
-) -> JoinStats:
-    """Per-bank totals, segments and pair sums over solid rows in
-    (k-mer, sample)-ascending order (``_stats_from_rows`` with
-    ``_pair_accumulate``; the simple and complex channels only when
-    asked for), in the raw form that sums exactly: every field as in
-    ``JoinStats`` except ``chord_ninj``, still its int64 sum, and
-    ``kullback_leibler``, its [N * N, 1 + KL_FRAC_LIMBS] int64 limb
-    sums. Raw stats of disjoint k-mer sets add field by field
-    (``max_count`` by max); ``_finish`` converts them once.
-
-    ``solid_override``: [N] int64 per-bank solid totals to use as K in
-    the Whittaker and KL terms instead of these rows' own (the sweep's
-    whole-sample totals, ``simka_tpu``'s ``solid_override``); the
-    returned ``solid_per_bank`` stays these rows' own."""
-    N = n_banks
-    dev = sid.device
+def _pair_sums_plain(sid, count, starts, seg_len, K, flat, kl, *,
+                     d_max: int) -> None:
+    """The plain torch version of ``pair_sums``: for each offset
+    d < d_max, rows i and i + d of one segment are a pair, gathered
+    with one ``nonzero`` and added with one ``index_add_`` a channel."""
+    N = K.shape[0]
     i64, f64 = torch.int64, torch.float64
-    sid = sid.to(i64)
-    c64 = count.to(i64)
-    n = sid.shape[0]
-
-    def per_bank(values):
-        return torch.zeros(N, dtype=i64, device=dev).index_add_(0, sid, values)
-
-    distinct_per_bank = per_bank(torch.ones_like(c64))
-    solid_per_bank = per_bank(c64)
-    chord_n2_per_bank = per_bank(c64 * c64)
-    K = solid_per_bank if solid_override is None else solid_override.to(dev)
-
-    newk = _first_of_run(*words)
-    seg = torch.cumsum(newk, 0)
-    starts = newk.nonzero().squeeze(1)
-    seg_len = torch.cat([starts[1:], starts.new_tensor([n])]) - starts
-    nb_distinct = torch.tensor(starts.shape[0], dtype=i64, device=dev)
-    nb_shared = (seg_len >= 2).sum().to(i64)
-    d_max = int(seg_len.max()) if n else 0
-
-    names = ["ab", "ba", "distinct", "bray"]
-    if simple:
-        names += ["hellinger", "chord"]
-    if complex_:
-        names += ["whittaker", "s12"]
-    flat = {name: torch.zeros(N * N, dtype=i64, device=dev) for name in names}
-    kl = torch.zeros((N * N, 1 + KL_FRAC_LIMBS), dtype=i64, device=dev)
-    # the global per-bank totals of the Whittaker and KL terms
-    Kf = K.to(f64)
+    seg = torch.repeat_interleave(
+        torch.arange(starts.shape[0], device=sid.device), seg_len,
+        output_size=sid.shape[0])
+    c64, Kf = count, K
+    simple, complex_ = "hellinger" in flat, "whittaker" in flat
     for d in range(1, d_max):
         pair = (seg[d:] == seg[:-d]).nonzero().squeeze(1)
         a, b = sid[pair], sid[pair + d]
@@ -321,6 +296,169 @@ def _raw_stats_from_rows(
             d1 = (caf / torch.clamp(Ka, min=1.0)) * torch.log(2.0 * xY / den)
             d2 = (cbf / torch.clamp(Kb, min=1.0)) * torch.log(2.0 * yX / den)
             kl.index_add_(0, idx, _kl_limbs(d1 + d2))
+
+
+def _pair_sums_cuda(sid, count, starts, seg_len, K, flat, kl) -> None:
+    """The kernel of ``csrc/pair_sums.cu``: the channels in groups whose
+    per-CTA partials fit the card's shared memory, one launch a group
+    (one launch of every channel past the N where one does not fit)."""
+    from simka_tpu_torch.ops import _kernels
+
+    with torch.cuda.device(sid.device):
+        slots = _kernels.lib().simka_pair_sums_slots(K.shape[0])
+    if slots < 0:
+        raise RuntimeError("pair_sums: the device's shared memory could not "
+                           "be read")
+    chans = [c for c, name in enumerate(PAIR_CHANNELS) if name in flat]
+    if "whittaker" in flat:
+        chans += [len(PAIR_CHANNELS) + j for j in range(1 + KL_FRAC_LIMBS)]
+    _launch_pair_sums(sid, count, starts, seg_len, K, flat, kl,
+                      pair_groups(chans, slots), shared=slots > 0)
+
+
+def _launch_pair_sums(sid, count, starts, seg_len, K, flat, kl, groups, *,
+                      shared: bool) -> None:
+    """One launch of the kernel a group of channels (kernel channel
+    numbers: PAIR_CHANNELS' index, the KL limbs 8..12), in shared
+    partials or (``shared=False``, one group) straight into the outputs.
+    ``chip_smoke.py`` also calls it to time other groupings."""
+    global launches
+    from simka_tpu_torch.ops import _kernels
+
+    lib = _kernels.lib()
+    n_all = len(PAIR_CHANNELS) + 1 + KL_FRAC_LIMBS
+    outs = (ctypes.c_void_p * n_all)()
+    for c, name in enumerate(PAIR_CHANNELS):
+        if name in flat:
+            outs[c] = flat[name].data_ptr()
+    for j in range(1 + KL_FRAC_LIMBS):
+        outs[len(PAIR_CHANNELS) + j] = kl.data_ptr() + 8 * j
+    with torch.cuda.device(sid.device):
+        stream = torch.cuda.current_stream(sid.device).cuda_stream
+        for group in groups:
+            slot = (ctypes.c_int * n_all)(*([-1] * n_all))
+            for s, c in enumerate(group):
+                slot[c] = s
+            code = lib.simka_pair_sums(
+                sid.data_ptr(), count.data_ptr(), starts.data_ptr(),
+                seg_len.data_ptr(), sid.shape[0], starts.shape[0],
+                K.data_ptr(), K.shape[0], ctypes.addressof(outs),
+                ctypes.addressof(slot), int(shared), stream)
+            _kernels.check(code, "pair_sums")
+            launches += 1
+
+
+def pair_groups(channels: Sequence[int], slots: int) -> list:
+    """The kernel's launches over ``channels`` (kernel channel numbers):
+    with 0 slots (the global form) or when all fit, one; else groups of
+    ``slots`` (the channels one launch's shared partials hold), the KL
+    limbs first so that their f64 term is computed in as few launches
+    as the slots allow."""
+    if slots <= 0 or len(channels) <= slots:
+        return [list(channels)]
+    order = sorted(channels, key=lambda c: c < len(PAIR_CHANNELS))
+    return [order[g:g + slots] for g in range(0, len(order), slots)]
+
+
+def pair_sums(sid, count, starts, seg_len, K, flat, kl, *,
+              d_max: int) -> None:
+    """Add the pair terms of every two rows of one segment into ``flat``
+    and ``kl`` (``simka_tpu``'s ``_pair_accumulate``).
+
+    Args:
+      sid, count: [n] int64 solid rows in (k-mer, sample)-ascending
+        order (within a segment the sample ids ascend).
+      starts, seg_len: [S] int64 first row and length of each segment
+        of one k-mer, in order (starts[0] = 0, lengths summing to n).
+      K: [N] float64 per-bank totals of the Whittaker and KL terms.
+      flat: {name: [N * N] int64} the channels to add into, at
+        a * N + b: ab, ba, distinct and bray; hellinger and chord for
+        the simple distances; whittaker and s12 for the complex ones,
+        which also add the KL limbs into ``kl``.
+      kl: [N * N, 1 + KL_FRAC_LIMBS] int64 limb sums.
+      d_max: the longest segment (at most N).
+
+    On CUDA tensors this launches the kernel of ``csrc/pair_sums.cu``
+    or raises; on CPU tensors it is the plain version. Every channel
+    is an integer sum, so the two agree bit for bit.
+    """
+    N = K.shape[0]
+    dev = sid.device
+    i64 = torch.int64
+    cols = (sid, count, starts, seg_len)
+    if (any(t.dtype != i64 or t.dim() != 1 or t.device != dev for t in cols)
+            or K.dtype != torch.float64 or K.shape != (N,)
+            or K.device != dev):
+        raise ValueError("pair_sums: rows, starts and lengths must be 1-D "
+                         "int64 and K [N] float64, on one device")
+    if not set(PAIR_CHANNELS[:4]) <= set(flat) <= set(PAIR_CHANNELS):
+        raise ValueError(f"pair_sums: channels {sorted(flat)}")
+    outs = (*flat.values(), kl)
+    if (any(t.dtype != i64 or t.device != dev for t in outs)
+            or any(t.shape != (N * N,) for t in flat.values())
+            or kl.shape != (N * N, 1 + KL_FRAC_LIMBS)):
+        raise ValueError("pair_sums: outputs must be int64 [N * N] and "
+                         f"[N * N, {1 + KL_FRAC_LIMBS}] on the rows' device")
+    if dev.type == "cpu":
+        return _pair_sums_plain(sid, count, starts, seg_len, K, flat, kl,
+                                d_max=d_max)
+    if dev.type != "cuda":
+        raise ValueError(f"pair_sums: unsupported device {dev}")
+    if not all(t.is_contiguous() for t in (*cols, K, *outs)):
+        raise ValueError("pair_sums needs contiguous tensors on CUDA")
+    if d_max < 2 or N < 2:
+        return None  # no segment holds a pair
+    return _pair_sums_cuda(sid, count, starts, seg_len, K, flat, kl)
+
+
+def _raw_stats_from_rows(
+    words, sid, count, *, n_banks: int, simple: bool = False,
+    complex_: bool = False, solid_override=None,
+) -> JoinStats:
+    """Per-bank totals, segments and pair sums over solid rows in
+    (k-mer, sample)-ascending order (``_stats_from_rows`` with
+    ``_pair_accumulate``; the simple and complex channels only when
+    asked for), in the raw form that sums exactly: every field as in
+    ``JoinStats`` except ``chord_ninj``, still its int64 sum, and
+    ``kullback_leibler``, its [N * N, 1 + KL_FRAC_LIMBS] int64 limb
+    sums. Raw stats of disjoint k-mer sets add field by field
+    (``max_count`` by max); ``_finish`` converts them once.
+
+    ``solid_override``: [N] int64 per-bank solid totals to use as K in
+    the Whittaker and KL terms instead of these rows' own (the sweep's
+    whole-sample totals, ``simka_tpu``'s ``solid_override``); the
+    returned ``solid_per_bank`` stays these rows' own."""
+    N = n_banks
+    dev = sid.device
+    i64, f64 = torch.int64, torch.float64
+    sid = sid.to(i64)
+    c64 = count.to(i64)
+    n = sid.shape[0]
+
+    def per_bank(values):
+        return torch.zeros(N, dtype=i64, device=dev).index_add_(0, sid, values)
+
+    distinct_per_bank = per_bank(torch.ones_like(c64))
+    solid_per_bank = per_bank(c64)
+    chord_n2_per_bank = per_bank(c64 * c64)
+    K = solid_per_bank if solid_override is None else solid_override.to(dev)
+
+    newk = _first_of_run(*words)
+    starts = newk.nonzero().squeeze(1)
+    seg_len = torch.cat([starts[1:], starts.new_tensor([n])]) - starts
+    nb_distinct = torch.tensor(starts.shape[0], dtype=i64, device=dev)
+    nb_shared = (seg_len >= 2).sum().to(i64)
+    d_max = int(seg_len.max()) if n else 0
+
+    names = ["ab", "ba", "distinct", "bray"]
+    if simple:
+        names += ["hellinger", "chord"]
+    if complex_:
+        names += ["whittaker", "s12"]
+    flat = {name: torch.zeros(N * N, dtype=i64, device=dev) for name in names}
+    kl = torch.zeros((N * N, 1 + KL_FRAC_LIMBS), dtype=i64, device=dev)
+    # the global per-bank totals of the Whittaker and KL terms
+    pair_sums(sid, c64, starts, seg_len, K.to(f64), flat, kl, d_max=d_max)
 
     def pairs(name):
         if name in flat:

@@ -6,14 +6,27 @@ abundances, half of them reverse-complemented, with a small share of
 the abundance filter and every distance matrix have work to do
 (uniform random reads would make every k-mer a singleton).
 Vectorised numpy throughout: no per-read Python loop.
+
+    python -m simka_tpu_torch.utils.community OUT_DIR [--seed 0]
+
+writes ``WIDE_COMMUNITY`` (``chip_smoke.py`` phase 14's 100 samples)
+and prints the path of its ``input.txt``.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
+import sys
 from typing import List
 
 import numpy as np
+
+# 100 samples x 50,000 reads x 100 bp of 20 genomes x 200 kbp: 1.25x
+# coverage a sample, most solid k-mers shared by many samples (the
+# wide-N community of chip_smoke.py phase 14 and of the command line)
+WIDE_COMMUNITY = dict(n_samples=100, n_genomes=20, genome_len=200_000,
+                      reads_per_sample=50_000, read_len=100, n_frac=0.001)
 
 _BASES = np.frombuffer(b"ACGT", np.uint8)
 _N = ord("N")
@@ -107,3 +120,17 @@ def write_community(
     with open(input_path, "w") as f:
         f.writelines(lines)
     return input_path
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Write the wide-N community (WIDE_COMMUNITY).")
+    ap.add_argument("out_dir")
+    ap.add_argument("--seed", type=int, default=0)
+    a = ap.parse_args(argv)
+    print(write_community(a.out_dir, seed=a.seed, **WIDE_COMMUNITY))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

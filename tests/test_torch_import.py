@@ -55,4 +55,4 @@ def test_port_builds_only_its_own_sources():
     assert os.path.exists(native.SRC)
     names = [os.path.basename(s) for s in _kernels.sources()]
     assert {"compact.cu", "minhash.cu", "min_distance.cu",
-            "probes.cu"} <= set(names)
+            "pair_sums.cu", "probes.cu"} <= set(names)
