@@ -60,7 +60,8 @@ Phases (each raises on failure; nothing is caught):
      identical CSVs, each run's compaction launch count > 0, and the
      kernel's own kept total equal to the caller's n on every call of
      the run (held on the card and compared after the run: no sync on
-     the path);
+     the path); then one more default run keeps its join's pair-kernel
+     inputs for phase 14c's timing at N = 8;
   8. the -out-tmp checkpoint path at full size through the CLI (k=21,
      default distances, -max-memory 50000 unless said): run 1 counts the
      8 samples into checkpoints, its CSVs byte-equal to phase 7's
@@ -189,28 +190,31 @@ Phases (each raises on failure; nothing is caught):
      all distances, byte-equal to phase 7's run. Per run wall, per-shard
      rows, compaction launches (kept total == n on each), peak memory;
  14. the wide-N exact path: (a) the pair kernel (csrc/pair_sums.cu)
-     against its plain version on the same CUDA tensors, every channel
-     and KL limb equal, at N in {2, 8, 33, 100, 256, 300, 1000} (one
-     launch, channel groups, the global form) on random segment layouts
+     against its plain version on the same CUDA tensors, every channel,
+     KL limb and whittaker_all entry (against _whittaker_all) equal, in
+     one launch, at N in {2, 8, 33, 100, 256, 300, 1000} (a private copy
+     of the partials a warp, copies shared by teams of warps, one copy,
+     sample groups, the global form) on random segment layouts
      (singletons, full segments, counts up to 2^20 and 2^31 - 1), the
      default and every channel; (b) 100 samples x 50,000 reads of 20
      genomes x 200 kbp through the CLI (k=21), the default distances
-     once and every distance twice (identical CSVs), each in memory;
-     per run wall, stages, instances, distinct solid k-mers, solid rows,
-     d_max, pairs, pair-kernel and compaction launches, peak memory;
-     (c) the kernel against its plain version on the default run's own
-     solid rows, equal, each timed with CUDA events beside the bound
-     (the plain loop held on a slice of whole segments when it would
-     pass 60 s), for the default and every channel, beside the
-     kernel's global form on the same rows (equal, timed) and, for
-     every channel, the groups cut in channel order (timed), and
-     _whittaker_all's time there; (d) for three pairs (i, j) a 2-sample
-     CLI run of samples i and j gives the [i, j] entry of every
-     pair-local matrix (tests/test_large_n.py's PAIR_LOCAL) of the
-     every-distance run, Jensen-Shannon to one unit of its 6th decimal.
-     Every CLI run that joins on the card (phases 7, 8, 10, 13a, 13b,
-     13d, 14) launches the pair kernel, and the plain pair sums raise
-     on a CUDA tensor while the path runs.
+     once and every distance twice (identical CSVs), each in memory and
+     with one pair-kernel launch; per run wall, stages, instances,
+     distinct solid k-mers, solid rows, d_max, pairs, pair-kernel and
+     compaction launches, peak memory; (c) the kernel against its plain
+     version on the default run's own solid rows, equal, each timed
+     with CUDA events beside the bound (the plain loop held on a slice
+     of whole segments when it would pass 60 s), for the default
+     channels and every channel with whittaker_all, beside the kernel's
+     global form on the same rows (equal, timed), and _whittaker_all's
+     time there (the same on phase 7's rows, N = 8, after phase 7); (d)
+     for three pairs (i, j) a 2-sample CLI run of samples i and j gives
+     the [i, j] entry of every pair-local matrix
+     (tests/test_large_n.py's PAIR_LOCAL) of the every-distance run,
+     Jensen-Shannon to one unit of its 6th decimal. Every CLI run that
+     joins on the card (phases 7, 8, 10, 13a, 13b, 13d, 14) launches the
+     pair kernel, and the plain pair sums and _whittaker_all raise on a
+     CUDA tensor while the path runs.
 
 Prints, before the last line, the kernels' JSON record (per kernel:
 launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
@@ -221,10 +225,13 @@ and in phase 11's -nb-kmers 100000 run, whose hash-kernel launches are
 murmur_kmers' launches; launches_shards_2 and launches_shards_4, the
 compaction's in phase 13a, launches_coordinator_shards_2 in phase 13d,
 and the compaction's shard_split_* times at 13a's split; pair_sums'
-launches in phase 7's default run, launches_wide_n in phase 14b's
-default run, the other launches_* as the compaction's, its times at
-phase 14c's rows (all_*: every channel; global_ms the global form,
-all_in_order_ms the groups in channel order, slots a launch's);
+launches in phase 7's default run, launches_wide_n and
+launches_wide_n_all in phase 14b's default and first every-distance
+run, the other launches_* as the compaction's, its times at phase 14c's
+rows (all_*: every channel with whittaker_all; plan the launch's
+layout; global_ms the global form; all_wall_plain_ms _whittaker_all's
+torch ops; sample_counts the rows' distinct (sample, count), which
+whittaker_all's bound counts N terms each), n8_* at phase 7's rows;
 min_pair_distance's launches are phase 12c's
 `min pipeline -nb-kmers 1000000`'s, its times at that run's sketches
 (l2_floor_ms: the design's L2 floor), wide_* at phase 12a's 100 x
@@ -748,15 +755,31 @@ def metrics_of(out_dir: str) -> dict:
         return json.load(f)
 
 
+# set while a comparison runs the plain pair sums on CUDA tensors
+PLAIN_ON_CARD = [False]
+
+
+class plain_on_card:
+    """Lets the plain pair sums and ``_whittaker_all`` run on CUDA
+    tensors inside ``ShapeRecorder`` (a comparison, not the path)."""
+
+    def __enter__(self):
+        PLAIN_ON_CARD[0] = True
+
+    def __exit__(self, *exc):
+        PLAIN_ON_CARD[0] = False
+
+
 class ShapeRecorder:
     """Records (column dtypes) -> largest E of the compactions the
     card runs while installed (the shapes the main paths give it), and
     each call's device-side kept total beside the caller's n, compared
     by ``check_totals`` after a run (the sync is there, not on the
     path). The sweep's range extractions are kept apart: ``range_shape``
-    holds the (dtypes, E, n) of the largest. The plain pair sums raise
-    on a CUDA tensor while it is installed: on the card the path takes
-    the kernel."""
+    holds the (dtypes, E, n) of the largest. The plain pair sums and
+    ``_whittaker_all`` raise on a CUDA tensor while it is installed
+    (outside ``plain_on_card``): on the card the path takes the
+    kernel."""
 
     def __init__(self):
         self.shapes = {}
@@ -766,6 +789,7 @@ class ShapeRecorder:
         self._orig = compact.compact_rows
         self._orig_range = sweep.range_extract
         self._orig_plain = countjoin._pair_sums_plain
+        self._orig_wall = countjoin._whittaker_all
 
     def __enter__(self):
         def recording(arrays, kept, fills, n=None):
@@ -790,15 +814,19 @@ class ShapeRecorder:
             finally:
                 self._in_range = False
 
-        def plain_guard(sid, *args, **kw):
-            if sid.device.type == "cuda":
-                raise AssertionError("the plain pair sums ran on a CUDA "
-                                     "tensor on the path")
-            return self._orig_plain(sid, *args, **kw)
+        def guard(name, orig):
+            def guarded(sid, *args, **kw):
+                if sid.device.type == "cuda" and not PLAIN_ON_CARD[0]:
+                    raise AssertionError(f"{name} ran on a CUDA tensor on "
+                                         "the path")
+                return orig(sid, *args, **kw)
+            return guarded
 
         compact.compact_rows = recording
         sweep.range_extract = range_recording
-        countjoin._pair_sums_plain = plain_guard
+        countjoin._pair_sums_plain = guard("the plain pair sums",
+                                           self._orig_plain)
+        countjoin._whittaker_all = guard("_whittaker_all", self._orig_wall)
         return self
 
     def check_totals(self) -> int:
@@ -816,6 +844,7 @@ class ShapeRecorder:
         compact.compact_rows = self._orig
         sweep.range_extract = self._orig_range
         countjoin._pair_sums_plain = self._orig_plain
+        countjoin._whittaker_all = self._orig_wall
 
 
 def gpu_vs_cpu(tmp: str, tag: str, inp: str, n_matrices: int,
@@ -1062,6 +1091,20 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
         say(f"full {tag}: both runs identical, {len(runs[0][0])} matrices")
         paths[tag] = runs[0][1]
         yardsticks[tag] = runs[0][0]
+    # one more default run keeps its join's pair-kernel inputs (apart
+    # from the runs above, whose peak memory they would raise)
+    out = os.path.join(tmp, "full_21_rows")
+    with PairRecorder() as pr:
+        cli_run("default k=21, the join's rows kept", [
+            "-in", inp, "-out", out, "-kmer-size", "21", "-abundance-min",
+            "2", "-verbose", "0", "-device", "cuda"], out, recorder)
+    if csv_texts(out) != yardsticks["default k=21"]:
+        raise AssertionError("full default k=21: the rows-kept run's CSVs "
+                             "differ from run 0's")
+    paths["default k=21"]["n8"] = pair_sums_at_rows(
+        f"phase 7's rows (N={n})", pr.args, compare_global=False)
+    del pr
+    torch.cuda.empty_cache()
     return paths, inp, inp9, yardsticks
 
 
@@ -2532,17 +2575,28 @@ def coordinator_shards(tmp: str, inp8: str, yardsticks: dict,
 # ---- phase 14: the wide-N exact path --------------------------------------
 
 PAIR_SUMS_REPLACES = "simka_tpu/ops/countjoin.py:1112"
-# phase 14a's sample counts: one channel group (every channel to N = 33),
-# several groups (N = 100: three with every channel), the global form
-# (N >= 242 on an H100: one channel's triangle past the shared memory)
+# phase 14a's sample counts: a private copy of the partials a warp (N =
+# 2, 8), teams (N = 33), one copy (N = 100, default), sample groups (N =
+# 100 every channel, 256 and 300 default), the global form (every
+# channel from N = 256, N = 1000)
 PAIR_SUMS_NS = (2, 8, 33, 100, 256, 300, 1000)
 # the counts' largest values: past 2^20, and int32's largest (the
 # Whittaker terms' wrap)
 PAIR_SUMS_CMAX = (1 << 20, (1 << 31) - 1)
-# the bound's integer instructions a pair and channel: one 64-bit add,
-# two 32-bit instructions (the index arithmetic and the f64 terms are
-# not counted: the bound stays a floor)
+# an N whose row stage and K alone pass a CTA's shared memory
+PAIR_SUMS_WIDEST_N = 20_000
+# the bound's 32-bit integer instructions a pair and channel, and a
+# whittaker_all term: one 64-bit add each (the index arithmetic, the
+# loads and the products are not counted: the bound stays a floor)
 PAIR_SUMS_INT_OPS = 2
+# the f64 operations a pair of the complex channels takes, a division
+# and a log one each (the floor of every channel): xY and yX, their sum,
+# 2 xY and 2 yX, two divisions, two logs, two products and a sum, then
+# the limbs' abs, 5 floors, 5 subtractions, 4 scalings and 5 signs
+PAIR_SUMS_F64_OPS = 32
+# f64 instructions a second: the datasheet's 34 TFLOP/s FP64 outside the
+# tensor cores (64 f64 lanes an SM), an FMA two operations
+F64_OPS_PER_S = 34e12 / 2
 # the matrices whose [i, j] depends on samples i and j alone
 # (tests/test_large_n.py::PAIR_LOCAL)
 PAIR_LOCAL = ("mat_abundance_braycurtis", "mat_abundance_jaccard",
@@ -2554,27 +2608,52 @@ PAIR_LOCAL = ("mat_abundance_braycurtis", "mat_abundance_jaccard",
 # section 3); every other pair-local entry is equal
 JS_MATRIX = "mat_abundance_jensenshannon"
 # past this predicted time the plain loop is held on a slice of whole
-# segments of the N = 100 run's rows
+# segments of the run's rows
 PLAIN_PAIR_SECONDS = 60.0
 PAIR_SUMS_PLAIN = countjoin._pair_sums_plain
+WHITTAKER_ALL_PLAIN = countjoin._whittaker_all
 
 
 def pair_outputs(N: int, simple: bool, complex_: bool, dev):
-    """Zeroed pair channels (``countjoin.pair_sums``' flat and kl)."""
+    """Zeroed pair outputs: (flat, kl, whittaker_all or None), as
+    ``countjoin.pair_sums`` takes them."""
     names = countjoin.PAIR_CHANNELS[:4 + 2 * simple] + (
         countjoin.PAIR_CHANNELS[6:] if complex_ else ())
     flat = {name: torch.zeros(N * N, dtype=torch.int64, device=dev)
             for name in names}
     kl = torch.zeros((N * N, 1 + countjoin.KL_FRAC_LIMBS),
                      dtype=torch.int64, device=dev)
-    return flat, kl
+    wall = (torch.zeros(N * N, dtype=torch.int64, device=dev) if complex_
+            else None)
+    return flat, kl, wall
 
 
-def pair_channels(simple: bool, complex_: bool) -> list:
-    """The kernel's channel numbers (csrc/pair_sums.cu) of a run: the
-    default four, the simple two, the complex two and the KL limbs."""
-    return list(range(4 + 2 * simple)) + (
-        list(range(6, 9 + countjoin.KL_FRAC_LIMBS)) if complex_ else [])
+def kernel_pair_sums(rows, out, d_max: int) -> None:
+    countjoin.pair_sums(*rows, out[0], out[1], d_max=d_max,
+                        whittaker_all=out[2])
+
+
+def plain_pair_sums(rows, out, d_max: int) -> None:
+    with plain_on_card():
+        PAIR_SUMS_PLAIN(*rows, out[0], out[1], d_max=d_max,
+                        whittaker_all=out[2])
+
+
+def pair_plan_of(N: int, simple: bool, complex_: bool, d_max: int):
+    """The plan ``countjoin.pair_sums`` takes for these channels."""
+    flat = pair_outputs(1, simple, complex_, "cpu")[0]
+    budget = _kernels.lib().simka_pair_sums_budget(N, int(complex_))
+    return countjoin.pair_plan(N, len(countjoin._kernel_channels(flat)),
+                               complex_, budget, d_max)
+
+
+def plan_text(plan) -> str:
+    if plan.form == "global":
+        return "the global form"
+    copies = countjoin.PAIR_WARPS // plan.team_warps
+    return (f"{len(plan.groups) - 1} sample group(s) {list(plan.groups)}, "
+            f"{copies} cop{'y' if copies == 1 else 'ies'} of "
+            f"{plan.smem // copies} B of partials a CTA")
 
 
 def segment_rows(N: int, n_segs: int, cmax: int, rng, dev):
@@ -2603,8 +2682,9 @@ def segment_rows(N: int, n_segs: int, cmax: int, rng, dev):
 
 
 def same_pair_sums(tag: str, got, want, complex_: bool) -> int:
-    """Two pair_sums outputs (flat, kl) equal in every channel and KL
-    limb (anything else raises); returns the max abs error, 0."""
+    """Two pair_sums outputs (flat, kl, whittaker_all) equal in every
+    channel, KL limb and whittaker_all entry (anything else raises);
+    returns the max abs error, 0."""
     torch.cuda.synchronize()
     for name in got[0]:
         if not torch.equal(got[0][name], want[0][name]):
@@ -2615,7 +2695,12 @@ def same_pair_sums(tag: str, got, want, complex_: bool) -> int:
         bad = (got[1] != want[1]).nonzero()[:5].tolist()
         raise AssertionError(f"pair_sums {tag}: KL limbs kernel != plain at "
                              f"{bad}")
-    if not got[0]["distinct"].any() or complex_ and not got[1].any():
+    if complex_ and not torch.equal(got[2], want[2]):
+        bad = (got[2] != want[2]).nonzero()[:5].flatten()
+        raise AssertionError(f"pair_sums {tag}: whittaker_all kernel != "
+                             f"plain at {bad.tolist()}")
+    if not got[0]["distinct"].any() or complex_ and not (
+            got[1].any() and got[2].any()):
         raise AssertionError(f"pair_sums {tag}: the channels stayed empty")
     return 0
 
@@ -2626,48 +2711,54 @@ def pair_sums_compare(tag: str, rows, simple: bool, complex_: bool) -> int:
     d_max = int(rows[3].max())
     got, want = (pair_outputs(N, simple, complex_, rows[0].device)
                  for _ in range(2))
-    countjoin.pair_sums(*rows, *got, d_max=d_max)
-    PAIR_SUMS_PLAIN(*rows, *want, d_max=d_max)
+    kernel_pair_sums(rows, got, d_max)
+    plain_pair_sums(rows, want, d_max)
     return same_pair_sums(tag, got, want, complex_)
 
 
 def pair_sums_vs_plain(dev, seed: int) -> int:
     """Phase 14a: the pair kernel against its plain version on random
     segment layouts at every N of PAIR_SUMS_NS, each count bound, the
-    default and every channel; returns the max abs error."""
+    default and every channel (with whittaker_all): one launch each;
+    returns the max abs error."""
     rng = np.random.default_rng(seed + 14)
     saved = countjoin.launches
-    lib = _kernels.lib()
     forms = set()
     for N in PAIR_SUMS_NS:
         n_segs = max(40, min(3000, 60_000 // N))
-        slots = lib.simka_pair_sums_slots(N)
-        line = []
+        plans = [pair_plan_of(N, s, s, N) for s in (False, True)]
         for cmax in PAIR_SUMS_CMAX:
             rows = segment_rows(N, n_segs, cmax, rng, dev)
             for simple, complex_ in ((False, False), (True, True)):
-                groups = countjoin.pair_groups(
-                    pair_channels(simple, complex_), slots)
                 n0 = countjoin.launches
                 pair_sums_compare(f"N={N} cmax={cmax}", rows, simple,
                                   complex_)
-                if countjoin.launches - n0 != len(groups):
+                if countjoin.launches - n0 != 1:
                     raise AssertionError(
                         f"pair_sums N={N}: {countjoin.launches - n0} "
-                        f"launches, expected {len(groups)}")
-                forms.add("global" if slots == 0 else
-                          "one group" if len(groups) == 1 else "groups")
-                line.append(len(groups))
+                        "launches, expected 1")
+        for plan in plans:
+            forms.add("global" if plan.form == "global" else
+                      "groups" if len(plan.groups) > 2 else
+                      "copies" if plan.team_warps < countjoin.PAIR_WARPS
+                      else "one copy")
         sl = rows[3]
-        say(f"pair_sums N={N}: kernel == plain in every channel and KL "
-            f"limb ({n_segs} segments, {int(rows[0].shape[0])} rows, "
-            f"{int((sl * (sl - 1) // 2).sum())} pairs at cmax 2^31 - 1; "
-            + ("the global form" if slots == 0 else
-               f"shared partials, {slots} channels a launch: "
-               f"{line[0]} / {line[1]} launches for the default / every "
-               "channel") + ")")
-    if forms != {"global", "one group", "groups"}:
+        say(f"pair_sums N={N}: kernel == plain in every channel, KL limb "
+            f"and whittaker_all entry ({n_segs} segments, "
+            f"{int(rows[0].shape[0])} rows, "
+            f"{int((sl * (sl - 1) // 2).sum())} pairs at cmax 2^31 - 1), "
+            f"one launch each; default: {plan_text(plans[0])}; every "
+            f"channel: {plan_text(plans[1])}")
+    if forms != {"global", "groups", "copies", "one copy"}:
         raise AssertionError(f"pair_sums forms held: {sorted(forms)}")
+    # past N ~ 16,600 the row stage and K alone fill a CTA's shared
+    # memory: the budget is 0 (the global form), never negative
+    wide = [_kernels.lib().simka_pair_sums_budget(PAIR_SUMS_WIDEST_N, kl)
+            for kl in (0, 1)]
+    if wide != [0, 0]:
+        raise AssertionError(f"pair_sums budget at N={PAIR_SUMS_WIDEST_N}: "
+                             f"{wide}, expected [0, 0]")
+    say(f"pair_sums budget at N={PAIR_SUMS_WIDEST_N}: 0 B (the global form)")
     countjoin.launches = saved  # comparison launches are not the path's
     return 0
 
@@ -2681,12 +2772,11 @@ class PairRecorder:
         self._orig = countjoin.pair_sums
 
     def __enter__(self):
-        def recording(sid, count, starts, seg_len, K, flat, kl, *, d_max):
+        def recording(sid, count, starts, seg_len, K, flat, kl, **kw):
             if sid.device.type == "cuda" and (
                     self.args is None or sid.shape[0] > self.args[0].shape[0]):
                 self.args = (sid, count, starts, seg_len, K)
-            return self._orig(sid, count, starts, seg_len, K, flat, kl,
-                              d_max=d_max)
+            return self._orig(sid, count, starts, seg_len, K, flat, kl, **kw)
 
         countjoin.pair_sums = recording
         return self
@@ -2697,8 +2787,10 @@ class PairRecorder:
 
 def wide_n_runs(tmp: str, seed: int, recorder: ShapeRecorder):
     """Phase 14b: the N = 100 community through the CLI, default
-    distances, then every distance twice. Returns (the input, the
-    all-distances CSVs, the default run's record, its join's rows)."""
+    distances, then every distance twice (one pair-kernel launch each).
+    Returns (the input, the all-distances CSVs, the default run's
+    record, the first every-distance run's record, the default run's
+    join's rows)."""
     from simka_tpu_torch.utils.community import (WIDE_COMMUNITY,
                                                  write_community)
 
@@ -2710,7 +2802,7 @@ def wide_n_runs(tmp: str, seed: int, recorder: ShapeRecorder):
         f"({N} samples x {WIDE_COMMUNITY['reads_per_sample']} reads x 100 "
         f"bp, {WIDE_COMMUNITY['n_genomes']} genomes x "
         f"{WIDE_COMMUNITY['genome_len']} bp)")
-    texts, first, rows = {}, None, None
+    texts, recs, rows = {}, [], None
     for tag, flags, r in (("default", [], 0),
                           ("all distances", ALL_DISTANCES, 0),
                           ("all distances", ALL_DISTANCES, 1)):
@@ -2725,6 +2817,9 @@ def wide_n_runs(tmp: str, seed: int, recorder: ShapeRecorder):
         if c["route"] != "in-memory":
             raise AssertionError(f"{name}: route {c['route']}, expected "
                                  "in-memory")
+        if rec["pair_launches"] != 1:
+            raise AssertionError(f"{name}: {rec['pair_launches']} pair-kernel "
+                                 "launches, expected 1 (one join)")
         sid, _, starts, seg_len, _ = pr.args
         d_max, pairs = torch.stack(
             [seg_len.max(), (seg_len * (seg_len - 1) // 2).sum()]).tolist()
@@ -2742,7 +2837,8 @@ def wide_n_runs(tmp: str, seed: int, recorder: ShapeRecorder):
             f"{rec['launches']}; peak device memory {rec['peak_gib']:.2f} "
             "GiB")
         if rows is None:
-            first, rows = rec, pr.args
+            rows = pr.args
+        recs.append(rec)
         del pr, sid, starts, seg_len
         got = csv_texts(out)
         check_matrices(got, N)
@@ -2751,7 +2847,7 @@ def wide_n_runs(tmp: str, seed: int, recorder: ShapeRecorder):
         texts = got
     say(f"phase 14b: N={N} all distances, both runs identical, "
         f"{len(texts)} matrices")
-    return inp, texts, first, rows
+    return inp, texts, recs[0], recs[1], rows
 
 
 def once_ms(fn) -> float:
@@ -2766,95 +2862,112 @@ def once_ms(fn) -> float:
     return a.elapsed_time(b)
 
 
-def pair_sums_at_wide_n(rows) -> dict:
-    """Phase 14c: the kernel against its plain version on the N = 100
-    run's own solid rows, equal, each timed with CUDA events, with the
-    bound, for the default channels and for every channel; the plain
-    loop on a slice of whole segments when its time on all rows is
-    predicted past PLAIN_PAIR_SECONDS. Beside the path's form, the
-    kernel's global form (every channel straight into the outputs) on
-    the same rows, equal and timed, and for every channel the groups
-    cut in channel order (the KL limbs across two launches). And
-    _whittaker_all's time."""
+def pair_sums_bound(n: int, S: int, N: int, pairs: int, n_chans: int,
+                    complex_: bool, sample_counts: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of one pair_sums call: rows
+    and segments read once, outputs written once; the larger of the
+    32-bit integer instructions (PAIR_SUMS_INT_OPS a pair and channel
+    and a whittaker_all term) at INT32_OPS_PER_S and the f64 floor
+    (PAIR_SUMS_F64_OPS a pair) at F64_OPS_PER_S. A whittaker_all term
+    |w32(c K_j)| depends on (c, j) alone, so A[a][.] needs N terms for
+    each distinct (sample, count) of the rows, ``sample_counts`` of
+    them, each added times its rows (the rows are read in the bytes)."""
+    nbytes = 16 * n + 16 * S + 8 * N + (n_chans + complex_) * N * N * 8
+    int_ops = (pairs * n_chans + complex_ * sample_counts * N
+               ) * PAIR_SUMS_INT_OPS
+    f64_ms = complex_ * pairs * PAIR_SUMS_F64_OPS / F64_OPS_PER_S * 1e3
+    b_ms, b_by = bound(nbytes, int_ops, INT32_OPS_PER_S)
+    return (f64_ms, "operations") if f64_ms > b_ms else (b_ms, b_by)
+
+
+def pair_sums_at_rows(tag: str, rows, compare_global: bool) -> dict:
+    """Phase 14c (and phase 7's rows): the kernel against its plain
+    version on a run's own solid rows, equal, each timed with CUDA
+    events, with the bound, for the default channels and for every
+    channel with whittaker_all; the plain loop on a slice of whole
+    segments when its time on all rows is predicted past
+    PLAIN_PAIR_SECONDS; _whittaker_all's time (the plain version of
+    that part). With ``compare_global``, the kernel's global form
+    (every add straight into the outputs) on the same rows, equal to
+    the path's and timed."""
     sid, count, starts, seg_len, K = rows
     N, n, S = K.shape[0], sid.shape[0], starts.shape[0]
     d_max, pairs = torch.stack(
         [seg_len.max(), (seg_len * (seg_len - 1) // 2).sum()]).tolist()
+    # the distinct (sample, count) of the rows: whittaker_all's terms / N
+    sample_counts = torch.unique(
+        sid * (int(count.max()) + 1) + count).numel()
     saved = countjoin.launches
-    slots = _kernels.lib().simka_pair_sums_slots(N)
     # whole segments covering about a sixteenth of the rows
     s_cut = max(1, int(torch.searchsorted(starts, n // 16)))
     cut = int(starts[s_cut]) if s_cut < S else n
     part = (sid[:cut], count[:cut], starts[:s_cut], seg_len[:s_cut], K)
     d_part = int(part[3].max())
-    res = {"slots": slots}
+    res = {}
     for label, simple, complex_ in (("", False, False),
                                     ("all_", True, True)):
-        chans = pair_channels(simple, complex_)
+        plan = pair_plan_of(N, simple, complex_, d_max)
+        flat = pair_outputs(N, simple, complex_, "cpu")[0]
+        n_chans = len(countjoin._kernel_channels(flat))
         want = pair_outputs(N, simple, complex_, sid.device)
-        plain_ms = once_ms(lambda: PAIR_SUMS_PLAIN(*part, *want,
-                                                   d_max=d_part))
+        plain_ms = once_ms(lambda: plain_pair_sums(part, want, d_part))
         whole = plain_ms * n / max(cut, 1) < PLAIN_PAIR_SECONDS * 1e3
         held, dm = (rows, d_max) if whole else (part, d_part)
         if whole:
             want = pair_outputs(N, simple, complex_, sid.device)
-            plain_ms = once_ms(lambda: PAIR_SUMS_PLAIN(*rows, *want,
-                                                       d_max=d_max))
+            plain_ms = once_ms(lambda: plain_pair_sums(rows, want, d_max))
         got = pair_outputs(N, simple, complex_, sid.device)
-        countjoin.pair_sums(*held, *got, d_max=dm)
-        same_pair_sums(f"N={N} run's rows" + ("" if whole else
-                                              f", rows [0, {cut})"),
+        n0 = countjoin.launches
+        kernel_pair_sums(held, got, dm)
+        if countjoin.launches - n0 != 1:
+            raise AssertionError(f"pair_sums {tag}: "
+                                 f"{countjoin.launches - n0} launches")
+        same_pair_sums(f"{tag}" + ("" if whole else f", rows [0, {cut})"),
                        got, want, complex_)
-        # the global form on all rows, equal to the path's form
-        glob = pair_outputs(N, simple, complex_, sid.device)
-        countjoin._launch_pair_sums(*rows, *glob, [chans], shared=False)
-        path = pair_outputs(N, simple, complex_, sid.device)
-        countjoin.pair_sums(*rows, *path, d_max=d_max)
-        same_pair_sums(f"N={N} run's rows, global form", glob, path,
-                       complex_)
-        del got, want, glob, path
+        del got, want
         out = pair_outputs(N, simple, complex_, sid.device)
-        ms = time_ms(lambda: countjoin.pair_sums(*rows, *out, d_max=d_max),
-                     reps=5)
-        global_ms = time_ms(lambda: countjoin._launch_pair_sums(
-            *rows, *out, [chans], shared=False), reps=5)
-        nbytes = 16 * n + 16 * S + 8 * N + len(chans) * N * N * 8
-        b_ms, b_by = bound(nbytes, pairs * len(chans) * PAIR_SUMS_INT_OPS,
-                           INT32_OPS_PER_S)
+        ms = time_ms(lambda: kernel_pair_sums(rows, out, d_max), reps=5)
+        b_ms, b_by = pair_sums_bound(n, S, N, pairs, n_chans, complex_,
+                                     sample_counts)
         res.update({f"{label}ms": ms, f"{label}plain_ms": plain_ms,
                     f"{label}plain_rows": held[0].shape[0],
                     f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
-                    f"{label}global_ms": global_ms,
-                    f"{label}group_launches": len(countjoin.pair_groups(chans,
-                                                                        slots))})
-        if complex_:
-            # the earlier cut: consecutive groups in channel order
-            in_order = [chans[g:g + slots] for g in range(0, len(chans),
-                                                          slots)]
-            res["all_in_order_ms"] = time_ms(
-                lambda: countjoin._launch_pair_sums(*rows, *out, in_order,
-                                                    shared=True), reps=5)
-        say(f"pair_sums at the N={N} run's rows ({n} rows, {S} segments, "
-            f"d_max {d_max}, {pairs} pairs), "
-            + ("default channels" if not simple else "every channel")
-            + f": kernel {ms:.4f} ms in "
-            f"{res[label + 'group_launches']} launch(es) of {slots} slots (bound "
-            f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}%); the global "
-            f"form {global_ms:.4f} ms in one launch"
-            + (f"; groups in channel order {res['all_in_order_ms']:.4f} ms"
-               if complex_ else "") + "; plain "
+                    f"{label}plan": plan_text(plan)})
+        line = ""
+        if compare_global:
+            glob = pair_outputs(N, simple, complex_, sid.device)
+            countjoin._launch_pair_sums(*rows, *glob, countjoin.GLOBAL_PLAN)
+            path = pair_outputs(N, simple, complex_, sid.device)
+            kernel_pair_sums(rows, path, d_max)
+            same_pair_sums(f"{tag}, global form", glob, path, complex_)
+            del glob, path
+            res[f"{label}global_ms"] = time_ms(
+                lambda: countjoin._launch_pair_sums(*rows, *out,
+                                                    countjoin.GLOBAL_PLAN),
+                reps=5)
+            line = (f"; the global form {res[label + 'global_ms']:.4f} ms "
+                    "(== the path's)")
+        say(f"pair_sums at {tag} ({n} rows, {S} segments, d_max {d_max}, "
+            f"{pairs} pairs, {sample_counts} distinct (sample, count)), "
+            + ("default channels" if not simple else
+               "every channel with whittaker_all")
+            + f": kernel {ms:.4f} ms in one launch, {plan_text(plan)} "
+            f"(bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}%){line}; "
+            "plain "
             + (f"{plain_ms:.4f} ms on all rows" if whole else
                f"{plain_ms:.4f} ms on rows [0, {cut}) (all rows predicted "
                f"past {PLAIN_PAIR_SECONDS:.0f} s), the kernel held there")
-            + "; kernel == plain in every channel and limb, the global "
-            "form == the kernel's path")
+            + "; kernel == plain in every channel, limb and whittaker_all "
+            "entry")
         del out
-    res["whittaker_all_ms"] = time_ms(
-        lambda: countjoin._whittaker_all(sid, count, K, N), reps=3)
-    say(f"_whittaker_all at the N={N} run's rows: "
-        f"{res['whittaker_all_ms']:.4f} ms (torch ops)")
+    with plain_on_card():
+        res["all_wall_plain_ms"] = time_ms(
+            lambda: WHITTAKER_ALL_PLAIN(sid, count, K, N), reps=3)
+    say(f"_whittaker_all (torch ops, the plain version of that part) at "
+        f"{tag}: {res['all_wall_plain_ms']:.4f} ms")
     countjoin.launches = saved  # timing launches are not the path's
-    res.update(rows=n, segments=S, d_max=d_max, pairs=pairs)
+    res.update(rows=n, segments=S, d_max=d_max, pairs=pairs,
+               sample_counts=sample_counts)
     return res
 
 
@@ -2902,13 +3015,14 @@ def wide_n_phase(tmp: str, seed: int, recorder: ShapeRecorder, dev) -> dict:
     """Phase 14; returns the pair kernel's numbers for its record."""
     t0 = time.perf_counter()
     err = pair_sums_vs_plain(dev, seed)
-    inp, texts, run, rows = wide_n_runs(tmp, seed, recorder)
-    times = pair_sums_at_wide_n(rows)
+    inp, texts, run, run_all, rows = wide_n_runs(tmp, seed, recorder)
+    times = pair_sums_at_rows(f"the N={len(rows[4])} run's rows", rows,
+                              compare_global=True)
     del rows
     torch.cuda.empty_cache()
     pair_local_oracle(tmp, inp, texts, seed, recorder)
     say(f"phase 14: {time.perf_counter() - t0:.1f} s")
-    return {"max_abs_err": err, "run": run, **times}
+    return {"max_abs_err": err, "run": run, "run_all": run_all, **times}
 
 
 def wide_n_alone(seed: int = 0) -> dict:
@@ -3055,17 +3169,26 @@ def main() -> int:
            for n, r in shard_recs.items()},
         "launches_coordinator_shards_2": coord_shards["pair_launches"],
         "max_abs_err": wide_n["max_abs_err"],
-        # at the N = 100 run's own rows; all_*: every channel
+        # at the N = 100 run's own rows; all_*: every channel with
+        # whittaker_all, all_wall_plain_ms _whittaker_all's torch ops
         **{k: wide_n[k] for k in ("ms", "plain_ms", "bound_ms",
                                   "bound_by")},
         "library_ms": None,  # no torch call computes the pair sums
-        **{k: wide_n[k] for k in ("plain_rows", "all_ms", "all_plain_ms",
-                                  "all_plain_rows", "all_bound_ms",
-                                  "all_bound_by", "global_ms",
-                                  "all_global_ms", "all_in_order_ms",
-                                  "slots", "all_group_launches",
-                                  "whittaker_all_ms", "rows", "segments",
-                                  "d_max", "pairs")},
+        # launches per join at N = 100 with every distance (14b)
+        "launches_wide_n_all": wide_n["run_all"]["pair_launches"],
+        **{k: wide_n[k] for k in ("plain_rows", "plan", "all_ms",
+                                  "all_plain_ms", "all_plain_rows",
+                                  "all_bound_ms", "all_bound_by",
+                                  "all_plan", "all_wall_plain_ms",
+                                  "global_ms", "all_global_ms", "rows",
+                                  "segments", "d_max", "pairs",
+                                  "sample_counts")},
+        # at phase 7's own rows (N = 8, the main path)
+        **{f"n8_{k}": main_run["n8"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "all_ms",
+            "all_plain_ms", "all_bound_ms", "all_bound_by",
+            "all_wall_plain_ms", "rows", "segments", "d_max", "pairs",
+            "sample_counts")},
     })
     gram = probe["gram"]
     kernels.append({

@@ -114,7 +114,7 @@ def lib():
                 ("simka_compact_tile_rows", i64, []),
                 ("simka_min_pair_segment", i32, []),
                 ("simka_min_pair_scratch_words", i64, [i64, i64]),
-                ("simka_pair_sums_slots", i32, [i64]),
+                ("simka_pair_sums_budget", i64, [i64, i32]),
             ):
                 fn = getattr(handle, name)
                 fn.restype = res
@@ -130,7 +130,7 @@ def lib():
                                                       vp]),
                 # csrc/pair_sums.cu
                 ("simka_pair_sums", [vp, vp, vp, vp, i64, i64, vp, i64, vp,
-                                     vp, i32, vp]),
+                                     vp, i32, i32, i32, vp, vp, vp]),
                 # csrc/probes.cu
                 ("simka_probe_map", [i32, vp, vp, i64, i32, ctypes.c_float,
                                      vp, vp]),

@@ -11,9 +11,11 @@ The torch counterpart of ``simka_tpu.ops.countjoin.count_join_stats``:
   3. per-bank totals, then segments of equal k-mers;
   4. pair sums in direct form: every two rows of one segment are a
      co-present pair (a, b) with a < b, added into flat [N * N] int64
-     sums (``pair_sums``: on a CUDA tensor the hand-written kernel of
+     sums, with Whittaker's all-rows sums in the same pass
+     (``pair_sums``: on a CUDA tensor the hand-written kernel of
      ``csrc/pair_sums.cu``, on a CPU tensor its plain torch version,
-     ``_pair_sums_plain``, one offset d at a time with ``index_add_``).
+     ``_pair_sums_plain``, one offset d at a time with ``index_add_``,
+     and ``_whittaker_all``).
 
 Every integer channel is an exact sum, so it equals the reference bit
 for bit on any device. The two float channels are made
@@ -249,10 +251,11 @@ def _kl_from_limbs(sums: torch.Tensor) -> torch.Tensor:
 
 
 def _pair_sums_plain(sid, count, starts, seg_len, K, flat, kl, *,
-                     d_max: int) -> None:
+                     d_max: int, whittaker_all=None) -> None:
     """The plain torch version of ``pair_sums``: for each offset
     d < d_max, rows i and i + d of one segment are a pair, gathered
-    with one ``nonzero`` and added with one ``index_add_`` a channel."""
+    with one ``nonzero`` and added with one ``index_add_`` a channel;
+    Whittaker's all-rows sums by ``_whittaker_all``."""
     N = K.shape[0]
     i64, f64 = torch.int64, torch.float64
     seg = torch.repeat_interleave(
@@ -260,6 +263,8 @@ def _pair_sums_plain(sid, count, starts, seg_len, K, flat, kl, *,
         output_size=sid.shape[0])
     c64, Kf = count, K
     simple, complex_ = "hellinger" in flat, "whittaker" in flat
+    if whittaker_all is not None:
+        whittaker_all += _whittaker_all(sid, c64, Kf, N).view(-1)
     for d in range(1, d_max):
         pair = (seg[d:] == seg[:-d]).nonzero().squeeze(1)
         a, b = sid[pair], sid[pair + d]
@@ -298,72 +303,155 @@ def _pair_sums_plain(sid, count, starts, seg_len, K, flat, kl, *,
             kl.index_add_(0, idx, _kl_limbs(d1 + d2))
 
 
-def _pair_sums_cuda(sid, count, starts, seg_len, K, flat, kl) -> None:
-    """The kernel of ``csrc/pair_sums.cu``: the channels in groups whose
-    per-CTA partials fit the card's shared memory, one launch a group
-    (one launch of every channel past the N where one does not fit)."""
-    from simka_tpu_torch.ops import _kernels
+# csrc/pair_sums.cu's warps a CTA (kWarps), rows a chunk (kChunk) and
+# sample groups a launch of the shared form (kMaxGroups)
+PAIR_WARPS = 16
+PAIR_CHUNK_ROWS = 1024
+PAIR_MAX_GROUPS = 8
 
-    with torch.cuda.device(sid.device):
-        slots = _kernels.lib().simka_pair_sums_slots(K.shape[0])
-    if slots < 0:
-        raise RuntimeError("pair_sums: the device's shared memory could not "
-                           "be read")
+
+class PairPlan(NamedTuple):
+    """How one launch of ``csrc/pair_sums.cu`` lays out its partials.
+
+    ``form`` "shared": each CTA holds the partials of the samples
+    ``groups[g] <= a < groups[g + 1]`` of its group g (every channel's
+    bins (a, b), b > a, and whittaker_all's row A[a]), one copy for
+    each team of ``team_warps`` warps (``PAIR_WARPS // team_warps``
+    copies); ``warp_bounds[g]`` gives each warp of a team its samples.
+    ``smem``: the bytes of partials a CTA. "global": every add goes
+    straight into the outputs (the other fields are empty)."""
+
+    form: str
+    groups: tuple
+    team_warps: int
+    warp_bounds: tuple
+    smem: int
+
+
+GLOBAL_PLAN = PairPlan("global", (), 0, (), 0)
+
+
+def _warp_split(weights: Sequence[int], lo: int, hi: int, warps: int) -> tuple:
+    """Sample bounds of ``warps`` contiguous ranges of [lo, hi), cut at
+    equal shares of the samples' weights (a sample goes to the warp of
+    the weight before it)."""
+    total = sum(weights[lo:hi])
+    owner, before = [], 0
+    for a in range(lo, hi):
+        owner.append(before * warps // total if total else 0)
+        before += weights[a]
+    return (lo, *(lo + sum(o < k for o in owner) for k in range(1, warps)),
+            hi)
+
+
+def pair_plan(n_banks: int, n_slots: int, whittaker_all: bool, budget: int,
+              d_max: int = 0) -> PairPlan:
+    """The kernel's plan at N = ``n_banks`` for ``n_slots`` channels (and
+    whittaker_all's rows when ``whittaker_all``) when a CTA may hold
+    ``budget`` bytes of partials (``simka_pair_sums_budget``).
+
+    A sample a takes 8 (n_slots (N - 1 - a) + N whittaker_all) bytes.
+    The shared form with one group and as many copies (teams) as fit,
+    16, 8, 4, 2 or 1; else one copy and the samples cut into the fewest
+    groups, at most PAIR_MAX_GROUPS, of equal bytes (``_warp_split``)
+    that each fit; else (or when a segment can pass a chunk, ``d_max``
+    or N > PAIR_CHUNK_ROWS) the global form. Within a group, the team's
+    warps take equal bytes too."""
+    N = n_banks
+    if (max(d_max, N) > PAIR_CHUNK_ROWS or budget <= 0 or N < 1
+            or n_slots + whittaker_all == 0):
+        return GLOBAL_PLAN
+    per = [8 * (n_slots * (N - 1 - a) + (N if whittaker_all else 0))
+           for a in range(N)]
+    total = sum(per)
+    teams = PAIR_WARPS
+    while teams >= 1:
+        if teams * total <= budget:
+            wt = PAIR_WARPS // teams
+            return PairPlan("shared", (0, N), wt, (_warp_split(per, 0, N, wt),),
+                            teams * total)
+        teams //= 2
+    for n_groups in range(2, PAIR_MAX_GROUPS + 1):
+        bounds = _warp_split(per, 0, N, n_groups)
+        spans = list(zip(bounds, bounds[1:]))
+        if all(lo < hi and sum(per[lo:hi]) <= budget for lo, hi in spans):
+            return PairPlan("shared", bounds, PAIR_WARPS,
+                            tuple(_warp_split(per, lo, hi, PAIR_WARPS)
+                                  for lo, hi in spans),
+                            max(sum(per[lo:hi]) for lo, hi in spans))
+    return GLOBAL_PLAN
+
+
+def _kernel_channels(flat) -> list:
+    """The kernel's channel numbers on in ``flat`` (PAIR_CHANNELS'
+    index; the KL limbs 8..12 with the complex channels)."""
     chans = [c for c, name in enumerate(PAIR_CHANNELS) if name in flat]
     if "whittaker" in flat:
         chans += [len(PAIR_CHANNELS) + j for j in range(1 + KL_FRAC_LIMBS)]
-    _launch_pair_sums(sid, count, starts, seg_len, K, flat, kl,
-                      pair_groups(chans, slots), shared=slots > 0)
+    return chans
 
 
-def _launch_pair_sums(sid, count, starts, seg_len, K, flat, kl, groups, *,
-                      shared: bool) -> None:
-    """One launch of the kernel a group of channels (kernel channel
-    numbers: PAIR_CHANNELS' index, the KL limbs 8..12), in shared
-    partials or (``shared=False``, one group) straight into the outputs.
-    ``chip_smoke.py`` also calls it to time other groupings."""
+def _pair_sums_cuda(sid, count, starts, seg_len, K, flat, kl, wall, *,
+                    d_max: int) -> None:
+    """The kernel of ``csrc/pair_sums.cu`` in one launch, planned by
+    ``pair_plan`` from the card's shared memory."""
+    from simka_tpu_torch.ops import _kernels
+
+    with torch.cuda.device(sid.device):
+        budget = _kernels.lib().simka_pair_sums_budget(
+            K.shape[0], int("whittaker" in flat))
+    if budget < 0:
+        raise RuntimeError("pair_sums: the device's shared memory could not "
+                           "be read")
+    plan = pair_plan(K.shape[0], len(_kernel_channels(flat)),
+                     wall is not None, budget, d_max)
+    _launch_pair_sums(sid, count, starts, seg_len, K, flat, kl, wall, plan)
+
+
+def _launch_pair_sums(sid, count, starts, seg_len, K, flat, kl, wall,
+                      plan: PairPlan) -> None:
+    """One launch of the kernel with ``plan`` over the channels of
+    ``flat`` (and whittaker_all into ``wall`` unless None).
+    ``chip_smoke.py`` also calls it to time the global form."""
     global launches
     from simka_tpu_torch.ops import _kernels
 
     lib = _kernels.lib()
+    chans = _kernel_channels(flat)
     n_all = len(PAIR_CHANNELS) + 1 + KL_FRAC_LIMBS
-    outs = (ctypes.c_void_p * n_all)()
+    outs = (ctypes.c_void_p * (n_all + 1))()
     for c, name in enumerate(PAIR_CHANNELS):
         if name in flat:
             outs[c] = flat[name].data_ptr()
     for j in range(1 + KL_FRAC_LIMBS):
         outs[len(PAIR_CHANNELS) + j] = kl.data_ptr() + 8 * j
+    if wall is not None:
+        outs[n_all] = wall.data_ptr()
+    slot = (ctypes.c_int * n_all)(*([-1] * n_all))
+    for s, c in enumerate(chans):
+        slot[c] = s
+    shared = plan.form == "shared"
+    groups = len(plan.groups) - 1 if shared else 0
+    bounds = (ctypes.c_int * max(1, groups + 1))(*plan.groups)
+    warp_bounds = (ctypes.c_int * max(1, groups * (plan.team_warps + 1)))(
+        *(a for wb in plan.warp_bounds for a in wb))
     with torch.cuda.device(sid.device):
         stream = torch.cuda.current_stream(sid.device).cuda_stream
-        for group in groups:
-            slot = (ctypes.c_int * n_all)(*([-1] * n_all))
-            for s, c in enumerate(group):
-                slot[c] = s
-            code = lib.simka_pair_sums(
-                sid.data_ptr(), count.data_ptr(), starts.data_ptr(),
-                seg_len.data_ptr(), sid.shape[0], starts.shape[0],
-                K.data_ptr(), K.shape[0], ctypes.addressof(outs),
-                ctypes.addressof(slot), int(shared), stream)
-            _kernels.check(code, "pair_sums")
-            launches += 1
-
-
-def pair_groups(channels: Sequence[int], slots: int) -> list:
-    """The kernel's launches over ``channels`` (kernel channel numbers):
-    with 0 slots (the global form) or when all fit, one; else groups of
-    ``slots`` (the channels one launch's shared partials hold), the KL
-    limbs first so that their f64 term is computed in as few launches
-    as the slots allow."""
-    if slots <= 0 or len(channels) <= slots:
-        return [list(channels)]
-    order = sorted(channels, key=lambda c: c < len(PAIR_CHANNELS))
-    return [order[g:g + slots] for g in range(0, len(order), slots)]
+        code = lib.simka_pair_sums(
+            sid.data_ptr(), count.data_ptr(), starts.data_ptr(),
+            seg_len.data_ptr(), sid.shape[0], starts.shape[0], K.data_ptr(),
+            K.shape[0], ctypes.addressof(outs), ctypes.addressof(slot),
+            int(shared), groups, plan.team_warps, ctypes.addressof(bounds),
+            ctypes.addressof(warp_bounds), stream)
+    _kernels.check(code, "pair_sums")
+    launches += 1
 
 
 def pair_sums(sid, count, starts, seg_len, K, flat, kl, *,
-              d_max: int) -> None:
+              d_max: int, whittaker_all=None) -> None:
     """Add the pair terms of every two rows of one segment into ``flat``
-    and ``kl`` (``simka_tpu``'s ``_pair_accumulate``).
+    and ``kl`` (``simka_tpu``'s ``_pair_accumulate``), and Whittaker's
+    all-rows sums into ``whittaker_all`` (its ``_whittaker_all_banks``).
 
     Args:
       sid, count: [n] int64 solid rows in (k-mer, sample)-ascending
@@ -377,10 +465,13 @@ def pair_sums(sid, count, starts, seg_len, K, flat, kl, *,
         which also add the KL limbs into ``kl``.
       kl: [N * N, 1 + KL_FRAC_LIMBS] int64 limb sums.
       d_max: the longest segment (at most N).
+      whittaker_all: None, or [N * N] int64: adds, at a * N + j, the
+        sum over the rows (a, c) of |int32(u64(c * K_j))| (every row,
+        singletons too).
 
     On CUDA tensors this launches the kernel of ``csrc/pair_sums.cu``
-    or raises; on CPU tensors it is the plain version. Every channel
-    is an integer sum, so the two agree bit for bit.
+    once or raises; on CPU tensors it is the plain version. Every
+    channel is an integer sum, so the two agree bit for bit.
     """
     N = K.shape[0]
     dev = sid.device
@@ -391,24 +482,30 @@ def pair_sums(sid, count, starts, seg_len, K, flat, kl, *,
             or K.device != dev):
         raise ValueError("pair_sums: rows, starts and lengths must be 1-D "
                          "int64 and K [N] float64, on one device")
-    if not set(PAIR_CHANNELS[:4]) <= set(flat) <= set(PAIR_CHANNELS):
+    if (not set(PAIR_CHANNELS[:4]) <= set(flat) <= set(PAIR_CHANNELS)
+            or ("hellinger" in flat) != ("chord" in flat)
+            or ("whittaker" in flat) != ("s12" in flat)):
         raise ValueError(f"pair_sums: channels {sorted(flat)}")
-    outs = (*flat.values(), kl)
+    outs = (*flat.values(), kl) + (
+        () if whittaker_all is None else (whittaker_all,))
     if (any(t.dtype != i64 or t.device != dev for t in outs)
             or any(t.shape != (N * N,) for t in flat.values())
-            or kl.shape != (N * N, 1 + KL_FRAC_LIMBS)):
+            or kl.shape != (N * N, 1 + KL_FRAC_LIMBS)
+            or whittaker_all is not None
+            and whittaker_all.shape != (N * N,)):
         raise ValueError("pair_sums: outputs must be int64 [N * N] and "
                          f"[N * N, {1 + KL_FRAC_LIMBS}] on the rows' device")
     if dev.type == "cpu":
         return _pair_sums_plain(sid, count, starts, seg_len, K, flat, kl,
-                                d_max=d_max)
+                                d_max=d_max, whittaker_all=whittaker_all)
     if dev.type != "cuda":
         raise ValueError(f"pair_sums: unsupported device {dev}")
     if not all(t.is_contiguous() for t in (*cols, K, *outs)):
         raise ValueError("pair_sums needs contiguous tensors on CUDA")
-    if d_max < 2 or N < 2:
-        return None  # no segment holds a pair
-    return _pair_sums_cuda(sid, count, starts, seg_len, K, flat, kl)
+    if sid.shape[0] == 0 or whittaker_all is None and (d_max < 2 or N < 2):
+        return None  # no row, or no segment holds a pair
+    return _pair_sums_cuda(sid, count, starts, seg_len, K, flat, kl,
+                           whittaker_all, d_max=d_max)
 
 
 def _raw_stats_from_rows(
@@ -457,8 +554,10 @@ def _raw_stats_from_rows(
         names += ["whittaker", "s12"]
     flat = {name: torch.zeros(N * N, dtype=i64, device=dev) for name in names}
     kl = torch.zeros((N * N, 1 + KL_FRAC_LIMBS), dtype=i64, device=dev)
+    wall = torch.zeros(N * N, dtype=i64, device=dev) if complex_ else None
     # the global per-bank totals of the Whittaker and KL terms
-    pair_sums(sid, c64, starts, seg_len, K.to(f64), flat, kl, d_max=d_max)
+    pair_sums(sid, c64, starts, seg_len, K.to(f64), flat, kl, d_max=d_max,
+              whittaker_all=wall)
 
     def pairs(name):
         if name in flat:
@@ -478,10 +577,8 @@ def _raw_stats_from_rows(
         chord_ninj=pairs("chord"),
         hellinger=pairs("hellinger"),
         whittaker=pairs("whittaker"),
-        whittaker_all=(
-            _whittaker_all(sid, c64, K, N) if complex_
-            else pairs("whittaker_all")
-        ),
+        whittaker_all=wall.view(N, N) if complex_ else pairs(
+            "whittaker_all"),
         whittaker_s12=pairs("s12"),
         kullback_leibler=kl,
         max_count=(c64.max() if n else torch.zeros((), dtype=i64, device=dev)),

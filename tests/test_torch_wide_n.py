@@ -6,8 +6,9 @@ SPLIT_MIN_BANKS = 33 samples) and its direct join; the pair sums at
 N = 256, past any N the reference has run (VERDICT.md), against a
 brute-force numpy oracle of every pair channel; the port's CLI at
 N = 40 against simka_tpu's run_simka (n_shards=1: the split path); the
-kernel's channel groups; and, on the card only, the kernel of
-``csrc/pair_sums.cu`` against its plain version.
+kernel's plan; Whittaker's all-rows sums of the plain pair_sums
+against simka_tpu's _whittaker_all_banks; and, on the card only, the
+kernel of ``csrc/pair_sums.cu`` against its plain version.
 
 Integer channels are held exactly. Kullback-Leibler: against
 simka_tpu within its f32 panel-sum error bound (FLOAT_RTOL,
@@ -25,7 +26,8 @@ import torch
 
 from simka_tpu.config import SimkaConfig as RefConfig
 from simka_tpu.core.pipeline import run_simka as run_ref
-from simka_tpu.ops.countjoin import SPLIT_MIN_BANKS, use_split_join
+from simka_tpu.ops.countjoin import (SPLIT_MIN_BANKS, _whittaker_all_banks,
+                                     use_split_join)
 from simka_tpu.ops.countjoin import count_join_stats as count_join_ref
 from simka_tpu.ops.countjoin import count_join_stats_split as count_join_split_ref
 from simka_tpu_torch.cli import main as port_main
@@ -210,23 +212,122 @@ def test_cli_at_n40_matches_the_split_pipeline(tmp_path):
     assert got_m["nb_distinct_kmers"] > 0
 
 
-_ALL = list(range(13))  # the kernel's channels: 0-7, the KL limbs 8-12
+def _plan_ok(plan, N, budget):
+    """A shared plan's groups and warp ranges tile [0, N) in order, and
+    its partials fit the budget."""
+    g = plan.groups
+    assert g[0] == 0 and g[-1] == N and all(a < b for a, b in zip(g, g[1:]))
+    assert len(plan.warp_bounds) == len(g) - 1
+    for lo, hi, wb in zip(g, g[1:], plan.warp_bounds):
+        assert len(wb) == plan.team_warps + 1
+        assert wb[0] == lo and wb[-1] == hi
+        assert all(a <= b for a, b in zip(wb, wb[1:]))
+    assert countjoin.PAIR_WARPS % plan.team_warps == 0
+    assert 0 < plan.smem <= budget
 
 
-@pytest.mark.parametrize("channels,slots,groups", [
-    ([0, 1, 2, 3], 5, [[0, 1, 2, 3]]),
-    (_ALL, 5, [[8, 9, 10, 11, 12], [0, 1, 2, 3, 4], [5, 6, 7]]),
-    (_ALL, 7, [[8, 9, 10, 11, 12, 0, 1], [2, 3, 4, 5, 6, 7]]),
-    (_ALL, 4, [[8, 9, 10, 11], [12, 0, 1, 2], [3, 4, 5, 6], [7]]),
-    (_ALL, 13, [_ALL]),
-    (list(range(6)), 1, [[c] for c in range(6)]),
-    (_ALL, 0, [_ALL]),
+@pytest.mark.parametrize("N,n_slots,wall,budget,d_max,groups,team_warps", [
+    # phase 7's N = 8: a private copy a warp
+    (8, 4, False, 214_000, 8, (0, 8), 1),
+    (8, 13, True, 207_648, 8, (0, 8), 1),
+    # N = 33: two copies (every channel) or eight (default)
+    (33, 4, False, 214_000, 33, (0, 33), 2),
+    (33, 13, True, 207_328, 33, (0, 33), 8),
+    # N = 100: one copy (default), two and three sample groups
+    (100, 4, False, 214_736, 49, (0, 100), 16),
+    (100, 6, False, 214_736, 49, (0, 30, 100), 16),
+    (100, 13, True, 206_544, 49, (0, 20, 46, 100), 16),
+    (256, 4, False, 212_864, 256, (0, 27, 58, 94, 142, 256), 16),
+    # the global form: past PAIR_MAX_GROUPS groups, past a chunk, no
+    # shared memory
+    (300, 13, True, 204_144, 300, (), 0),
+    (2000, 4, False, 200_000, 30, (), 0),
+    (100, 4, False, 0, 49, (), 0),
+    (100, 4, False, 214_736, 2000, (), 0),
 ])
-def test_pair_groups(channels, slots, groups):
-    """The kernel's launches: channel groups that fit one launch's
-    shared partials, the KL limbs together where the slots allow, or
-    every channel in one launch of the global form (slots 0)."""
-    assert countjoin.pair_groups(channels, slots) == groups
+def test_pair_plan(N, n_slots, wall, budget, d_max, groups, team_warps):
+    """The kernel's plan from N, the channels and a CTA's shared bytes:
+    as many copies of the partials as fit, else the fewest sample
+    groups of equal bytes that fit, else the global form (every add
+    into device memory)."""
+    plan = countjoin.pair_plan(N, n_slots, wall, budget, d_max)
+    assert (plan.groups, plan.team_warps) == (groups, team_warps)
+    if groups:
+        assert plan.form == "shared"
+        _plan_ok(plan, N, budget)
+        per = [8 * (n_slots * (N - 1 - a) + N * wall) for a in range(N)]
+        copies = countjoin.PAIR_WARPS // team_warps
+        assert plan.smem == copies * max(
+            sum(per[lo:hi]) for lo, hi in zip(groups, groups[1:]))
+    else:
+        assert plan == countjoin.GLOBAL_PLAN
+
+
+@pytest.mark.parametrize("budget,form", [
+    (206_544, "shared"),
+    # what the library returns where the row stage and K alone fill a
+    # CTA's shared memory (N >= 16,630 on an H100): the global form
+    (0, "global"),
+    (-1, None),  # the device could not be read
+])
+def test_cuda_path_plans_from_the_librarys_budget(monkeypatch, budget, form):
+    """``_pair_sums_cuda`` plans with the budget the library gives: a
+    budget of 0 takes the global form, only -1 raises."""
+    import contextlib
+
+    from simka_tpu_torch.ops import _kernels
+
+    class Lib:
+        def simka_pair_sums_budget(self, n_banks, kl):
+            return budget
+
+    planned = []
+    monkeypatch.setattr(_kernels, "lib", Lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(countjoin, "_launch_pair_sums",
+                        lambda *args: planned.append(args[-1]))
+    args = _pair_args(100, 50, 100, 0, "cpu")
+    flat, kl = _outputs_for(100, True, "cpu")
+    wall = torch.zeros(100 * 100, dtype=torch.int64)
+    call = lambda: countjoin._pair_sums_cuda(  # noqa: E731
+        *args, flat, kl, wall, d_max=int(args[3].max()))
+    if form is None:
+        with pytest.raises(RuntimeError):
+            call()
+        assert planned == []
+    else:
+        call()
+        assert [p.form for p in planned] == [form]
+
+
+@pytest.mark.parametrize("N", [2, 8, 33, 100])
+@pytest.mark.parametrize("cmax", [1 << 20, (1 << 31) - 1])
+def test_plain_whittaker_all_matches_the_reference(N, cmax):
+    """pair_sums' whittaker_all output (the plain version on the CPU)
+    against simka_tpu's _whittaker_all_banks (JAX on the CPU) and the
+    port's _whittaker_all: every row's |int32(u64(c K_j))|, with counts
+    up to 2^31 - 1, where c K_j passes 2^53 and 2^63."""
+    word, sid, count, lens = _segment_rows(N, 3000 // N + 20, cmax, seed=N)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    K = np.zeros(N, np.int64)
+    np.add.at(K, sid, count)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    flat, kl = _outputs_for(N, False, "cpu")
+    wall = torch.zeros(N * N, dtype=torch.int64)
+    countjoin.pair_sums(t(sid), t(count), t(starts), t(lens),
+                        t(K.astype(np.float64)), flat, kl,
+                        d_max=int(lens.max()), whittaker_all=wall)
+    ref = np.asarray(_whittaker_all_banks(
+        jnp.asarray(sid.astype(np.int32)), jnp.asarray(count.astype(np.int32)),
+        jnp.asarray(K), n_banks=N))
+    np.testing.assert_array_equal(wall.view(N, N).numpy(), ref)
+    np.testing.assert_array_equal(
+        wall.view(N, N).numpy(),
+        countjoin._whittaker_all(t(sid), t(count), t(K), N).numpy())
+    if cmax > 1 << 20:
+        assert count.max() * float(K.max()) > 2.0**63
+    assert ref.any()
 
 
 def test_community_command_writes_the_wide_community(monkeypatch, capsys):
@@ -271,35 +372,54 @@ def test_pair_sums_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):  # a channel it does not know
         countjoin.pair_sums(*args, {**flat, "other": flat["ab"]}, kl,
                             d_max=8)
+    with pytest.raises(ValueError):  # half of the simple pair
+        countjoin.pair_sums(*args, {k: v for k, v in flat.items()
+                                    if k != "chord"}, kl, d_max=8)
     with pytest.raises(ValueError):  # limbs of the wrong width
         countjoin.pair_sums(*args, flat, kl[:, :3], d_max=8)
+    wall = torch.zeros(64, dtype=torch.int64)
+    with pytest.raises(ValueError):  # whittaker_all of the wrong shape
+        countjoin.pair_sums(*args, flat, kl, d_max=8,
+                            whittaker_all=wall.view(8, 8))
+    with pytest.raises(ValueError):  # whittaker_all of the wrong dtype
+        countjoin.pair_sums(*args, flat, kl, d_max=8,
+                            whittaker_all=wall.to(torch.int32))
     meta = tuple(t.to("meta") for t in args)
     mflat = {n: t.to("meta") for n, t in flat.items()}
     with pytest.raises(ValueError):  # neither the CPU nor CUDA
         countjoin.pair_sums(*meta, mflat, kl.to("meta"), d_max=8)
     before = countjoin.launches
-    countjoin.pair_sums(*args, flat, kl, d_max=int(args[3].max()))
+    countjoin.pair_sums(*args, flat, kl, d_max=int(args[3].max()),
+                        whittaker_all=wall)
     assert countjoin.launches == before  # the CPU path launches nothing
-    assert flat["distinct"].any() and kl.any()
+    assert flat["distinct"].any() and kl.any() and wall.any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [8, 300])
+@pytest.mark.parametrize("N", [8, 100, 300])
 @pytest.mark.parametrize("complex_", [False, True])
 def test_kernel_matches_plain_on_cuda(N, complex_):
-    """csrc/pair_sums.cu against the plain loop on the same CUDA rows:
-    N = 8 shared partials in one launch, N = 300 the global form."""
+    """csrc/pair_sums.cu against the plain version on the same CUDA rows,
+    in one launch: N = 8 a private copy a warp, N = 100 one copy
+    (default) or three sample groups (every channel with
+    whittaker_all), N = 300 sample groups (default) or the global form
+    (every channel)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     args = _pair_args(N, 200, (1 << 31) - 1, N, "cuda")
     d_max = int(args[3].max())
     got, want = _outputs_for(N, complex_, "cuda"), _outputs_for(
         N, complex_, "cuda")
+    walls = [torch.zeros(N * N, dtype=torch.int64, device="cuda")
+             if complex_ else None for _ in range(2)]
     before = countjoin.launches
-    countjoin.pair_sums(*args, *got, d_max=d_max)
-    countjoin._pair_sums_plain(*args, *want, d_max=d_max)
+    countjoin.pair_sums(*args, *got, d_max=d_max, whittaker_all=walls[0])
+    countjoin._pair_sums_plain(*args, *want, d_max=d_max,
+                               whittaker_all=walls[1])
     torch.cuda.synchronize()
-    assert countjoin.launches > before
+    assert countjoin.launches == before + 1
     for name in got[0]:
         assert torch.equal(got[0][name], want[0][name]), name
     assert torch.equal(got[1], want[1])
+    if complex_:
+        assert torch.equal(walls[0], walls[1]) and walls[0].any()
