@@ -215,6 +215,30 @@ Phases (each raises on failure; nothing is caught):
      joins on the card (phases 7, 8, 10, 13a, 13b, 13d, 14) launches the
      pair kernel, and the plain pair sums and _whittaker_all raise on a
      CUDA tensor while the path runs.
+ 15. the extraction, run-count and segment kernels (csrc/kmers.cu,
+     csrc/runs.cu): (a) each against its plain version on the card, bit
+     for bit: extract_kmers (words of every window, keep mask, kept
+     count, histogram) at k in {1, 15, 16, 21, 31, 32, 33, 48, 62, 63,
+     64, 127} x comp_xor {3, 2} x the Shannon filter {off, 1.0, 1.5} x
+     the histogram {off, on} on 1,024 reads of 160 slots (ragged, all-N,
+     shorter than k, empty, low-complexity repeats), and the codes
+     entry point; run_counts (count, keep, total) with every row its
+     own run, one run of 2^24 rows, runs ending at and beside every
+     tile edge, runs of 1-8 rows under the bounds [3, 6] (counts at
+     amin - 1 .. amax + 1) and E = 1, keys of 1 and 6 columns;
+     segment_stats (per-bank totals, newk, nb_distinct, nb_shared,
+     d_max, max_count) at N in {1, 2, 8, 100, 1000, 20000} (shared bins,
+     then device-memory atomics; N = 20000's first segment spans five
+     tiles); (b) timed with CUDA events beside the bound and the plain
+     version: the extraction at phase 7's first full batch (k=21 and
+     k=63), run_counts at phase 7's sorted packed key (beside
+     torch.unique_consecutive(return_counts=True)) and segment_stats at
+     phase 14's solid rows (beside its plain version's three index_add_
+     totals), each input kept by the path's own run. Every CLI run that
+     joins launches the segment kernel; phase 7's runs launch the
+     extraction once a batch (32) and run_counts and segment_stats once,
+     phase 14b's 100 / 1 / 1; the plain extraction, run counts and
+     segment pass raise on a CUDA tensor while the path runs.
 
 Prints, before the last line, the kernels' JSON record (per kernel:
 launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
@@ -237,7 +261,11 @@ min_pair_distance's launches are phase 12c's
 (l2_floor_ms: the design's L2 floor), wide_* at phase 12a's 100 x
 1,000,000; probe_dma_add1's, probe_map's and probe_onehot_f32's per
 launch, with launch_floor_ms and per_probe, the last with
-store_floor_ms and store_floor_device_ms; extra fields) and the card's
+store_floor_ms and store_floor_device_ms; extract_kmers', run_counts'
+and segment_stats' launches in phase 7's default run, the other
+launches_* as the compaction's, their times at phase 15b's shapes
+(k63_* the extraction at k=63; index_add_ms the plain segment pass's
+three index_add_ totals); extra fields) and the card's
 nvidia-smi
 line; the last
 line is the JSON result. Exits non-zero without a result when no CUDA
@@ -264,7 +292,7 @@ from simka_tpu_torch.core import sweep
 from simka_tpu_torch.minhash import device as minhash
 from simka_tpu_torch.minhash import device_distance as dd
 from simka_tpu_torch.minhash.sketch import STAGES
-from simka_tpu_torch.ops import _kernels, compact, countjoin
+from simka_tpu_torch.ops import _kernels, compact, countjoin, kmers
 from simka_tpu_torch.profiling import probes, trace
 
 INT64_MAX = (1 << 63) - 1
@@ -283,11 +311,12 @@ INT32_OPS_PER_S = 67e12 / 4
 # the hash kernel's 32-bit integer instructions a window (csrc/minhash.cu)
 MURMUR_INT_OPS = 66
 MURMUR_REPLACES = "simka_tpu/minhash/device.py:50"
-# the hand kernels' __global__ names in csrc/ (compact.cu, minhash.cu,
-# min_distance.cu, probes.cu): a device time counts only the trace's
-# events of these
-HAND_KERNELS = ("compact_onepass", "murmur_kmers", "min_pair_tallies",
-                "pair_sums", "probe_")
+# the hand kernels' __global__ names in csrc/ (compact.cu, kmers.cu,
+# minhash.cu, min_distance.cu, pair_sums.cu, probes.cu, runs.cu): a
+# device time counts only the trace's events of these
+HAND_KERNELS = ("compact_onepass", "extract_kmers", "murmur_kmers",
+                "min_pair_tallies", "pair_sums", "probe_", "run_bounds",
+                "run_lengths", "segment_stats")
 SKETCH_SIZES = (100_000, 1_000_000)  # `min sketch` and `min pipeline`
 PAIR_REPLACES = "simka_tpu/minhash/device_distance.py:85"
 WIDE_N, WIDE_S = 100, 1_000_000  # phase 12a's in-memory sketches
@@ -307,6 +336,7 @@ PHASE9_MAX_ROWS = 1 << 29
 EXTRACT_ROWS = (1 << 17) * 80  # a 2^17-read batch of 100 bp reads, k=21
 # the -out-tmp join's abundance filter at k=21: (word, sample id, count)
 SPECTRA_JOIN = (torch.int64, torch.int32, torch.int32)
+BATCH_READS = 1 << 17  # the in-memory ingest's reads a batch
 
 
 def say(msg: str) -> None:
@@ -755,13 +785,15 @@ def metrics_of(out_dir: str) -> dict:
         return json.load(f)
 
 
-# set while a comparison runs the plain pair sums on CUDA tensors
+# set while a comparison runs a plain version on CUDA tensors
 PLAIN_ON_CARD = [False]
 
 
 class plain_on_card:
-    """Lets the plain pair sums and ``_whittaker_all`` run on CUDA
-    tensors inside ``ShapeRecorder`` (a comparison, not the path)."""
+    """Lets the plain versions of the hand kernels (the pair sums,
+    ``_whittaker_all``, the extraction, the run counts, the segment
+    pass) run on CUDA tensors inside ``ShapeRecorder`` (a comparison,
+    not the path)."""
 
     def __enter__(self):
         PLAIN_ON_CARD[0] = True
@@ -776,10 +808,17 @@ class ShapeRecorder:
     each call's device-side kept total beside the caller's n, compared
     by ``check_totals`` after a run (the sync is there, not on the
     path). The sweep's range extractions are kept apart: ``range_shape``
-    holds the (dtypes, E, n) of the largest. The plain pair sums and
-    ``_whittaker_all`` raise on a CUDA tensor while it is installed
-    (outside ``plain_on_card``): on the card the path takes the
-    kernel."""
+    holds the (dtypes, E, n) of the largest. The plain versions of the
+    hand kernels (``GUARDED``) raise on a CUDA tensor while it is
+    installed (outside ``plain_on_card``): on the card the path takes
+    the kernels."""
+
+    GUARDED = ((countjoin, "_pair_sums_plain", "the plain pair sums"),
+               (countjoin, "_whittaker_all", "_whittaker_all"),
+               (kmers, "_extract_kmers_plain", "the plain extraction"),
+               (countjoin, "_run_counts_plain", "the plain run counts"),
+               (countjoin, "_segment_stats_plain",
+                "the plain per-bank and segment pass"))
 
     def __init__(self):
         self.shapes = {}
@@ -788,8 +827,7 @@ class ShapeRecorder:
         self._in_range = False
         self._orig = compact.compact_rows
         self._orig_range = sweep.range_extract
-        self._orig_plain = countjoin._pair_sums_plain
-        self._orig_wall = countjoin._whittaker_all
+        self._orig_plain = [getattr(m, a) for m, a, _ in self.GUARDED]
 
     def __enter__(self):
         def recording(arrays, kept, fills, n=None):
@@ -815,18 +853,18 @@ class ShapeRecorder:
                 self._in_range = False
 
         def guard(name, orig):
-            def guarded(sid, *args, **kw):
-                if sid.device.type == "cuda" and not PLAIN_ON_CARD[0]:
+            def guarded(first, *args, **kw):
+                t = first[0] if isinstance(first, (tuple, list)) else first
+                if t.device.type == "cuda" and not PLAIN_ON_CARD[0]:
                     raise AssertionError(f"{name} ran on a CUDA tensor on "
                                          "the path")
-                return orig(sid, *args, **kw)
+                return orig(first, *args, **kw)
             return guarded
 
         compact.compact_rows = recording
         sweep.range_extract = range_recording
-        countjoin._pair_sums_plain = guard("the plain pair sums",
-                                           self._orig_plain)
-        countjoin._whittaker_all = guard("_whittaker_all", self._orig_wall)
+        for (mod, attr, name), orig in zip(self.GUARDED, self._orig_plain):
+            setattr(mod, attr, guard(name, orig))
         return self
 
     def check_totals(self) -> int:
@@ -843,8 +881,8 @@ class ShapeRecorder:
     def __exit__(self, *exc):
         compact.compact_rows = self._orig
         sweep.range_extract = self._orig_range
-        countjoin._pair_sums_plain = self._orig_plain
-        countjoin._whittaker_all = self._orig_wall
+        for (mod, attr, _), orig in zip(self.GUARDED, self._orig_plain):
+            setattr(mod, attr, orig)
 
 
 def gpu_vs_cpu(tmp: str, tag: str, inp: str, n_matrices: int,
@@ -999,10 +1037,10 @@ def check_matrices(texts: dict, n: int) -> None:
 def cli_run(tag: str, argv: list, out: str, recorder: ShapeRecorder,
             run=None, joins: bool = True):
     """One CLI run on the card (or ``run()``, another entry point
-    writing to ``out`` and returning the run's metrics) with the
-    compaction's and the pair kernel's launch counts and peak memory
-    reset before it; every launch's kept total checked after it, and,
-    for a run that ``joins``, the pair kernel launched. Returns
+    writing to ``out`` and returning the run's metrics) with the hand
+    kernels' launch counts and peak memory reset before it; every
+    compaction's kept total checked after it, and, for a run that
+    ``joins``, the pair kernel and the segment pass launched. Returns
     (record, the metrics: simka_metrics.json of a CLI run)."""
     from simka_tpu_torch.cli import main as cli_main
 
@@ -1010,6 +1048,9 @@ def cli_run(tag: str, argv: list, out: str, recorder: ShapeRecorder,
     torch.cuda.reset_peak_memory_stats()
     compact.launches = 0
     countjoin.launches = 0
+    kmers.launches = 0
+    countjoin.run_counts_launches = 0
+    countjoin.segment_stats_launches = 0
     t1 = time.perf_counter()
     rc, m = (cli_main(argv), None) if run is None else (0, run())
     torch.cuda.synchronize()
@@ -1022,6 +1063,9 @@ def cli_run(tag: str, argv: list, out: str, recorder: ShapeRecorder,
     if joins and countjoin.launches <= 0:
         raise AssertionError(
             f"{tag}: the run never launched the pair-sums kernel")
+    if joins and countjoin.segment_stats_launches <= 0:
+        raise AssertionError(
+            f"{tag}: the run never launched the segment kernel")
     checked = recorder.check_totals()
     if checked != compact.launches:
         raise AssertionError(f"{tag}: {checked} kept totals checked, "
@@ -1029,6 +1073,9 @@ def cli_run(tag: str, argv: list, out: str, recorder: ShapeRecorder,
     rec = {
         "launches": compact.launches,
         "pair_launches": countjoin.launches,
+        "extract_launches": kmers.launches,
+        "run_counts_launches": countjoin.run_counts_launches,
+        "segment_launches": countjoin.segment_stats_launches,
         "wall_s": wall,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
@@ -1038,16 +1085,14 @@ def cli_run(tag: str, argv: list, out: str, recorder: ShapeRecorder,
 def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
     """Phase 7; returns (each path's first-run record, the inputs of the
     first 8 and of all 9 samples, each path's first CSVs)."""
-    from simka_tpu_torch.utils.community import write_community
+    from simka_tpu_torch.utils.community import (FULL_COMMUNITY,
+                                                 write_community)
 
-    n = 8
+    n = FULL_COMMUNITY["n_samples"]
     t0 = time.perf_counter()
     # nine samples: the first eight are the community of 8 of this seed
-    inp9 = write_community(
-        os.path.join(tmp, "full"), seed=seed, n_samples=n + 1, n_genomes=20,
-        genome_len=2_000_000, reads_per_sample=500_000, read_len=100,
-        n_frac=0.001,
-    )
+    inp9 = write_community(os.path.join(tmp, "full"), seed=seed,
+                           **{**FULL_COMMUNITY, "n_samples": n + 1})
     inp = os.path.join(tmp, "full", "input8.txt")
     with open(inp9) as f, open(inp, "w") as g:
         g.writelines(f.readlines()[:n])
@@ -1069,6 +1114,14 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
             if c["route"] != "in-memory":
                 raise AssertionError(f"full {tag}: route {c['route']}, "
                                      "expected in-memory")
+            # one extraction launch a batch, one run count and one
+            # segment pass for the one join
+            launches = (rec["extract_launches"], rec["run_counts_launches"],
+                        rec["segment_launches"])
+            per = -(-FULL_COMMUNITY["reads_per_sample"] // BATCH_READS)
+            if launches != (n * per, 1, 1):
+                raise AssertionError(f"full {tag}: extraction, run-count "
+                                     f"and segment launches {launches}")
             # in memory the histogram counts every instance
             rec["instances"] = int(sum(c["repartition_histogram"]))
             say(
@@ -1081,7 +1134,10 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
                 f"{rec['instances']}, distinct solid "
                 f"{c['nb_distinct_kmers']}, compact launches "
                 f"{rec['launches']} (kernel kept total == n on each), "
-                f"pair-sums launches {rec['pair_launches']}, "
+                f"pair-sums launches {rec['pair_launches']}, extraction "
+                f"{rec['extract_launches']}, run counts "
+                f"{rec['run_counts_launches']}, segment pass "
+                f"{rec['segment_launches']}, "
                 f"peak device memory {rec['peak_gib']:.2f} GiB"
             )
             runs.append((csv_texts(out), rec))
@@ -1094,7 +1150,7 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
     # one more default run keeps its join's pair-kernel inputs (apart
     # from the runs above, whose peak memory they would raise)
     out = os.path.join(tmp, "full_21_rows")
-    with PairRecorder() as pr:
+    with PairRecorder() as pr, KernelInputs(segments=False) as inputs:
         cli_run("default k=21, the join's rows kept", [
             "-in", inp, "-out", out, "-kmer-size", "21", "-abundance-min",
             "2", "-verbose", "0", "-device", "cuda"], out, recorder)
@@ -1103,6 +1159,8 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
                              "differ from run 0's")
     paths["default k=21"]["n8"] = pair_sums_at_rows(
         f"phase 7's rows (N={n})", pr.args, compare_global=False)
+    inputs.to_host()
+    paths["default k=21"]["inputs"] = inputs
     del pr
     torch.cuda.empty_cache()
     return paths, inp, inp9, yardsticks
@@ -2787,10 +2845,11 @@ class PairRecorder:
 
 def wide_n_runs(tmp: str, seed: int, recorder: ShapeRecorder):
     """Phase 14b: the N = 100 community through the CLI, default
-    distances, then every distance twice (one pair-kernel launch each).
-    Returns (the input, the all-distances CSVs, the default run's
+    distances, then every distance twice (one pair-kernel launch, one
+    run-count launch, one segment pass and an extraction launch a batch
+    each). Returns (the input, the all-distances CSVs, the default run's
     record, the first every-distance run's record, the default run's
-    join's rows)."""
+    join's pair-kernel rows, its segment pass's rows on the host)."""
     from simka_tpu_torch.utils.community import (WIDE_COMMUNITY,
                                                  write_community)
 
@@ -2811,8 +2870,19 @@ def wide_n_runs(tmp: str, seed: int, recorder: ShapeRecorder):
                 "-abundance-min", "2", "-verbose", "0", "-device", "cuda",
                 *flags]
         name = f"phase 14b: N={N} {tag} run {r}"
-        with PairRecorder() as pr:
+        # the last run's segment rows kept (the same rows as every run's)
+        with PairRecorder() as pr, KernelInputs(
+                extract=False, runs=False, segments=r == 1) as inputs:
             rec, m = cli_run(name, argv, out, recorder)
+        launches = (rec["extract_launches"], rec["run_counts_launches"],
+                    rec["segment_launches"])
+        per = -(-WIDE_COMMUNITY["reads_per_sample"] // BATCH_READS)
+        if launches != (N * per, 1, 1):
+            raise AssertionError(f"{name}: extraction, run-count and "
+                                 f"segment launches {launches}")
+        if r == 1:
+            inputs.to_host()
+            segment_rows = inputs.segments
         c = m["counters"]
         if c["route"] != "in-memory":
             raise AssertionError(f"{name}: route {c['route']}, expected "
@@ -2834,8 +2904,9 @@ def wide_n_runs(tmp: str, seed: int, recorder: ShapeRecorder):
             f"{rec['instances']}, distinct solid {rec['distinct']}, solid "
             f"rows {rec['rows']}, d_max {d_max}, pairs {pairs}; pair-sums "
             f"launches {rec['pair_launches']}, compact launches "
-            f"{rec['launches']}; peak device memory {rec['peak_gib']:.2f} "
-            "GiB")
+            f"{rec['launches']}, extraction {launches[0]}, run counts "
+            f"{launches[1]}, segment pass {launches[2]}; peak device memory "
+            f"{rec['peak_gib']:.2f} GiB")
         if rows is None:
             rows = pr.args
         recs.append(rec)
@@ -2847,7 +2918,7 @@ def wide_n_runs(tmp: str, seed: int, recorder: ShapeRecorder):
         texts = got
     say(f"phase 14b: N={N} all distances, both runs identical, "
         f"{len(texts)} matrices")
-    return inp, texts, recs[0], recs[1], rows
+    return inp, texts, recs[0], recs[1], rows, segment_rows
 
 
 def once_ms(fn) -> float:
@@ -3015,14 +3086,16 @@ def wide_n_phase(tmp: str, seed: int, recorder: ShapeRecorder, dev) -> dict:
     """Phase 14; returns the pair kernel's numbers for its record."""
     t0 = time.perf_counter()
     err = pair_sums_vs_plain(dev, seed)
-    inp, texts, run, run_all, rows = wide_n_runs(tmp, seed, recorder)
+    inp, texts, run, run_all, rows, segment_rows = wide_n_runs(tmp, seed,
+                                                                recorder)
     times = pair_sums_at_rows(f"the N={len(rows[4])} run's rows", rows,
                               compare_global=True)
     del rows
     torch.cuda.empty_cache()
     pair_local_oracle(tmp, inp, texts, seed, recorder)
     say(f"phase 14: {time.perf_counter() - t0:.1f} s")
-    return {"max_abs_err": err, "run": run, "run_all": run_all, **times}
+    return {"max_abs_err": err, "run": run, "run_all": run_all,
+            "segment_rows": segment_rows, **times}
 
 
 def wide_n_alone(seed: int = 0) -> dict:
@@ -3032,6 +3105,392 @@ def wide_n_alone(seed: int = 0) -> dict:
     with tempfile.TemporaryDirectory(prefix="simka_chip_smoke_") as tmp, \
             ShapeRecorder() as rec:
         return wide_n_phase(tmp, seed, rec, torch.device("cuda", 0))
+
+
+# ---- phase 15: the extraction, run-count and segment kernels ----------
+
+EXTRACT_REPLACES = "simka_tpu/core/pipeline.py:794"
+RUN_COUNTS_REPLACES = "simka_tpu/ops/countjoin.py:376"
+SEGMENT_REPLACES = "simka_tpu/ops/countjoin.py:1080"
+EXTRACT_KS = (1, 15, 16, 21, 31, 32, 33, 48, 62, 63, 64, 127)
+SEGMENT_NS = (1, 2, 8, 100, 1000, 20000)
+RUN_TILE = 4096  # csrc/runs.cu's rows a tile
+# low-complexity repeats of phase 15a's batch: Shannon indices 0, 0.81,
+# 1.0, 1.5 and 2.0 at k a multiple of 4
+LOW_PATTERNS = (b"AAAA", b"AAAC", b"AACC", b"AACG", b"ACGT")
+
+
+class KernelInputs:
+    """Keeps, while installed, the inputs of the largest call on the
+    card of the extraction kernel (its packed batch and k), of
+    ``run_counts`` (its key columns and bounds) and of ``segment_stats``
+    (its rows and N): the main path's own shapes, for phase 15b. It
+    holds references, no copy, so the run's stages are not slowed;
+    ``to_host`` moves the columns to the host after the run."""
+
+    def __init__(self, extract: bool = True, runs: bool = True,
+                 segments: bool = True):
+        self.want = (extract, runs, segments)
+        self.extract = self.runs = self.segments = None
+        self._rows = [0, 0, 0]  # the rows of each kept call
+        self._orig = (kmers.extract_kmers, countjoin.run_counts,
+                      countjoin.segment_stats)
+
+    def __enter__(self):
+        ex, rc, ss = self._orig
+
+        def bigger(i: int, t) -> bool:
+            if self.want[i] and t.is_cuda and t.shape[0] > self._rows[i]:
+                self._rows[i] = t.shape[0]
+                return True
+            return False
+
+        def extract(packed, validbits, k, **kw):
+            if bigger(0, packed):
+                self.extract = (packed, validbits, k)
+            return ex(packed, validbits, k, **kw)
+
+        def runs(cols, *bounds):
+            cols = tuple(cols)
+            if bigger(1, cols[0]):
+                self.runs = (cols, *bounds)
+            return rc(cols, *bounds)
+
+        def segments(words, sid, count, *, n_banks):
+            if bigger(2, sid):
+                self.segments = (tuple(words), sid, count, n_banks)
+            return ss(words, sid, count, n_banks=n_banks)
+
+        kmers.extract_kmers = extract
+        countjoin.run_counts = runs
+        countjoin.segment_stats = segments
+        return self
+
+    def __exit__(self, *exc):
+        (kmers.extract_kmers, countjoin.run_counts,
+         countjoin.segment_stats) = self._orig
+
+    def to_host(self) -> None:
+        """The kept key columns and rows moved to the host."""
+        if self.runs is not None:
+            cols, *bounds = self.runs
+            self.runs = (tuple(c.cpu() for c in cols), *bounds)
+        if self.segments is not None:
+            words, sid, count, N = self.segments
+            self.segments = (tuple(w.cpu() for w in words), sid.cpu(),
+                             count.cpu(), N)
+        torch.cuda.empty_cache()
+
+
+def flat(outs) -> list:
+    """A kernel's outputs (tensors, None, tuples of them) as one list."""
+    return [t for o in outs for t in (
+        flat(o) if isinstance(o, (tuple, list)) else [o])]
+
+
+def same(tag: str, got, want) -> None:
+    """Outputs (tensors or None, nested in tuples) equal pairwise, bit
+    for bit."""
+    got, want = flat(got), flat(want)
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} outputs, {len(want)} "
+                             "expected")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (g is None) != (w is None) or g is not None and (
+                g.shape != w.shape or not torch.equal(g, w)):
+            raise AssertionError(f"{tag}: output {i} of the kernel differs "
+                                 "from the plain version's")
+
+
+def extract_batch(seed: int, n: int = 1024, width: int = 160):
+    """Phase 15a's read batch as [n, width] codes (255 invalid): ragged
+    reads with N bases, all-N reads, reads shorter than most k, empty
+    slots, and every other read a low-complexity repeat."""
+    from simka_tpu_torch.io.bank import encode_batch
+
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGTN", np.uint8)
+    reads = []
+    for i in range(n):
+        kind = i % 16
+        if kind == 0:
+            reads.append(b"N" * int(rng.integers(1, width + 1)))
+        elif kind == 1:
+            reads.append(b"")
+        elif kind in (2, 3):
+            reads.append(bytes(rng.choice(bases[:4], size=int(
+                rng.integers(1, 40)))))
+        elif i % 2:
+            pat = np.frombuffer(LOW_PATTERNS[(i // 2) % len(LOW_PATTERNS)],
+                                np.uint8)
+            reads.append(bytes(np.tile(pat, width // 4)[:width]))
+        else:
+            reads.append(bytes(rng.choice(
+                bases, size=int(rng.integers(width // 2, width + 1)),
+                p=[0.2475] * 4 + [0.01])))
+    return encode_batch(reads, max_len=width)[0]
+
+
+def extract_vs_plain(dev, seed: int) -> int:
+    """Phase 15a, the extraction kernel == its plain version bit for bit
+    (words of every window, keep mask, kept count, histogram) at every k
+    of EXTRACT_KS, comp_xor 3 and 2, the Shannon filter off, 1.0 and
+    1.5, the histogram on and off; and the codes entry point."""
+    from simka_tpu_torch.io.packed import pack_codes_host
+
+    codes = extract_batch(seed)
+    packed, vb = (torch.from_numpy(a).to(dev) for a in pack_codes_host(codes))
+    codes_d = torch.from_numpy(codes).to(dev)
+    saved, cases = kmers.launches, 0
+    for k in EXTRACT_KS:
+        for cx in (3, 2):
+            for thr in (0.0, 1.0, 1.5):
+                for hist in (False, True):
+                    got = kmers.extract_kmers(packed, vb, k, comp_xor=cx,
+                                              min_shannon=thr, with_hist=hist)
+                    with plain_on_card():
+                        want = kmers._extract_kmers_plain(
+                            kmers.unpack_codes(packed, vb), k, cx, thr, hist)
+                    same(f"extract_kmers k={k} comp_xor={cx} shannon={thr} "
+                         f"hist={hist}", got, want)
+                    cases += 1
+            got = kmers.extract_kmers_codes(codes_d, k, comp_xor=cx)
+            with plain_on_card():
+                want = kmers._extract_kmers_plain(codes_d, k, cx, 0.0, False)
+            same(f"extract_kmers_codes k={k} comp_xor={cx}", got, want)
+            cases += 1
+    torch.cuda.synchronize()
+    if kmers.launches - saved != cases:
+        raise AssertionError(f"extract_kmers: {kmers.launches - saved} "
+                             f"launches for {cases} calls")
+    kmers.launches = saved
+    say(f"phase 15a: extract_kmers == plain bit for bit in {cases} cases "
+        f"(k {EXTRACT_KS}, comp_xor 3 and 2, Shannon off / 1.0 / 1.5, "
+        f"histogram on / off, the codes entry point; {codes.shape[0]} reads "
+        f"x {codes.shape[1]}: ragged, all-N, shorter than k, empty, "
+        "low-complexity)")
+    return 0
+
+
+def run_keys(flags: torch.Tensor, n_cols: int):
+    """Key columns whose runs start where ``flags`` is set: int64 run
+    ids spread over ``n_cols`` columns (the last int32 with 2 or more)."""
+    rid = torch.cumsum(flags.to(torch.int64), 0)
+    if n_cols == 1:
+        return (rid * 0x9E3779B1,)
+    cols = [(rid >> (8 * (n_cols - 2 - j))) & 0xFF for j in range(n_cols - 1)]
+    return (*cols, (rid & 0x7FFFFFFF).to(torch.int32))
+
+
+def run_counts_vs_plain(dev, seed: int) -> int:
+    """Phase 15a, run_counts == its plain version bit for bit (count,
+    keep, total): every row its own run; one run of 2^24 rows; runs
+    ending at, one before and one after every tile edge; random runs
+    of 1-8 rows with the bounds (3, 6), so counts at amin - 1, amin,
+    amax and amax + 1; E = 1; keys of 1 and 6 columns."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 15)
+    E = 64 * RUN_TILE + 123
+    edges = torch.zeros(E, dtype=torch.bool, device=dev)
+    at = torch.arange(RUN_TILE, E, RUN_TILE, device=dev)
+    for d in (-1, 0, 1):
+        edges[at + d] = True
+    short = torch.randint(1, 9, (E,), generator=gen, device=dev)
+    starts = torch.cumsum(short, 0)
+    randoms = torch.zeros(E, dtype=torch.bool, device=dev)
+    randoms[starts[starts < E]] = True
+    kinds = {
+        "every row its own run": torch.ones(E, dtype=torch.bool, device=dev),
+        "one run of 2^24 rows": torch.zeros(1 << 24, dtype=torch.bool,
+                                            device=dev),
+        "runs at every tile edge": edges,
+        "runs of 1-8 rows": randoms,
+        "E = 1": torch.ones(1, dtype=torch.bool, device=dev),
+    }
+    saved, cases = countjoin.run_counts_launches, 0
+    for kind, flags in kinds.items():
+        flags[0] = True
+        for n_cols in (1, 6):
+            cols = run_keys(flags, n_cols)
+            for amin, amax in ((1, countjoin.INT32_MAX), (3, 6),
+                               (1 << 24, 1 << 24)):
+                got = countjoin.run_counts(cols, amin, amax)
+                with plain_on_card():
+                    want = countjoin._run_counts_plain(cols, amin, amax)
+                same(f"run_counts, {kind}, {n_cols} columns, [{amin}, "
+                     f"{amax}]", got, want)
+                cases += 1
+    torch.cuda.synchronize()
+    if countjoin.run_counts_launches - saved != cases:
+        raise AssertionError("run_counts: one launch a call expected")
+    countjoin.run_counts_launches = saved
+    say(f"phase 15a: run_counts == plain bit for bit in {cases} cases "
+        f"({', '.join(kinds)}; 1 and 6 key columns; bounds [1, INT32_MAX], "
+        "[3, 6], [2^24, 2^24])")
+    return 0
+
+
+def segment_rows_of(N: int, gen, dev, n_pairs: int = 1 << 20):
+    """Solid rows in (k-mer, sample) order over N samples: about
+    ``n_pairs`` random (k-mer, sample) pairs made unique, k-mer 0 in
+    every sample (a segment of N rows), three int64 words (k = 63),
+    int32 sample ids, int32 counts up to 2^31 - 1."""
+    n_kmers = max(1, n_pairs // 4)
+    pairs = torch.randint(0, n_kmers * N, (n_pairs,), generator=gen,
+                          device=dev)
+    pairs = torch.unique(torch.cat([pairs, torch.arange(N, device=dev)]))
+    kmer, sid = pairs // N, (pairs % N).to(torch.int32)
+    words = (kmer >> 20, (kmer >> 10) & 1023, kmer * 0x9E3779B1 % (1 << 62))
+    count = torch.randint(1, 1 << 31, (kmer.shape[0],), generator=gen,
+                          device=dev, dtype=torch.int64).to(torch.int32)
+    count[::3] = (count[::3] & 7) + 1
+    return words, sid, count
+
+
+def segment_stats_vs_plain(dev, seed: int) -> int:
+    """Phase 15a, segment_stats == its plain version bit for bit (the
+    three per-bank totals, newk, nb_distinct, nb_shared, d_max,
+    max_count) at every N of SEGMENT_NS: shared bins up to N = 1706,
+    device-memory atomics past them; N = 20000's first segment spans
+    five tiles."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 16)
+    saved = countjoin.segment_stats_launches
+    for N in SEGMENT_NS:
+        words, sid, count = segment_rows_of(N, gen, dev)
+        got = countjoin.segment_stats(words, sid, count, n_banks=N)
+        with plain_on_card():
+            want = countjoin._segment_stats_plain(words, sid, count, N)
+        same(f"segment_stats N={N}", got, want)
+    torch.cuda.synchronize()
+    if countjoin.segment_stats_launches - saved != len(SEGMENT_NS):
+        raise AssertionError("segment_stats: one launch a call expected")
+    countjoin.segment_stats_launches = saved
+    banks = _kernels.lib().simka_segment_shared_banks()
+    say(f"phase 15a: segment_stats == plain bit for bit at N in "
+        f"{SEGMENT_NS} (shared bins up to N = {banks}, device-memory "
+        "atomics past them)")
+    return 0
+
+
+def time_extract(packed, vb, k: int) -> dict:
+    """Phase 15b: the extraction kernel at a path batch (with the
+    histogram, as the in-memory path calls it) == its plain version,
+    both timed, beside the bound: the packed codes and validity read
+    once, the words, mask and counts written once."""
+    saved = kmers.launches
+    got = kmers.extract_kmers(packed, vb, k, with_hist=True)
+    with plain_on_card():
+        want = kmers._extract_kmers_plain(kmers.unpack_codes(packed, vb), k,
+                                          3, 0.0, True)
+        plain_ms = time_ms(lambda: kmers._extract_kmers_plain(
+            kmers.unpack_codes(packed, vb), k, 3, 0.0, True), reps=3)
+    same(f"extract_kmers at the path batch, k={k}", got, want)
+    E = got.keep.shape[0]
+    del got, want
+    ms = time_ms(lambda: kmers.extract_kmers(packed, vb, k, with_hist=True))
+    kmers.launches = saved
+    nbytes = (packed.numel() + vb.numel()
+              + E * (8 * kmers.n_words(k) + 1) + 8 * 17)
+    b_ms, b_by = bound(nbytes)
+    say(f"phase 15b: extract_kmers at phase 7's batch ({packed.shape[0]} "
+        f"reads x {4 * packed.shape[1]}, k={k}, {E} windows): kernel "
+        f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}%)"
+        f", plain {plain_ms:.4f} ms; == plain; no torch call makes "
+        "canonical k-mers")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "windows": E}
+
+
+def time_run_counts(cols, amin: int, amax: int, dev) -> dict:
+    """Phase 15b: run_counts on phase 7's sorted packed key == plain,
+    timed beside the bound (the key read once, count and keep written
+    once) and torch.unique_consecutive(return_counts=True)."""
+    cols = tuple(c.to(dev) for c in cols)
+    saved = countjoin.run_counts_launches
+    got = countjoin.run_counts(cols, amin, amax)
+    with plain_on_card():
+        want = countjoin._run_counts_plain(cols, amin, amax)
+        plain_ms = time_ms(lambda: countjoin._run_counts_plain(
+            cols, amin, amax), reps=3)
+    same("run_counts at phase 7's key", got, want)
+    del got, want
+    ms = time_ms(lambda: countjoin.run_counts(cols, amin, amax))
+    countjoin.run_counts_launches = saved
+    lib_ms = (time_ms(lambda: torch.unique_consecutive(
+        cols[0], return_counts=True), reps=3) if len(cols) == 1 else None)
+    E = cols[0].shape[0]
+    nbytes = sum(c.element_size() for c in cols) * E + 5 * E + 8
+    b_ms, b_by = bound(nbytes)
+    say(f"phase 15b: run_counts at phase 7's sorted key ({E} rows, "
+        f"{len(cols)} column(s), bounds [{amin}, {amax}]): kernel {ms:.4f} "
+        f"ms (bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}%), plain "
+        f"{plain_ms:.4f} ms, torch.unique_consecutive(return_counts=True) "
+        f"{fmt(lib_ms)}; == plain")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "rows": E}
+
+
+def time_segment_stats(held, dev) -> dict:
+    """Phase 15b: segment_stats on phase 14's solid rows == plain, timed
+    beside the bound (words, sample id and count read once, newk and
+    the totals written once), the plain version and its three
+    index_add_ totals alone (the part of the plain version they are)."""
+    words, sid, count, N = held
+    sid, count = sid.to(dev), count.to(dev)
+    words = tuple(w.to(dev) for w in words)
+    saved = countjoin.segment_stats_launches
+    got = countjoin.segment_stats(words, sid, count, n_banks=N)
+    with plain_on_card():
+        want = countjoin._segment_stats_plain(words, sid, count, N)
+        plain_ms = time_ms(lambda: countjoin._segment_stats_plain(
+            words, sid, count, N), reps=3)
+    same(f"segment_stats at phase 14's rows (N={N})", got, want)
+    del got, want
+    ms = time_ms(lambda: countjoin.segment_stats(words, sid, count,
+                                                 n_banks=N))
+    countjoin.segment_stats_launches = saved
+    s64, c64 = sid.to(torch.int64), count.to(torch.int64)
+
+    def totals():
+        bins = torch.zeros((3, N), dtype=torch.int64, device=dev)
+        for row, v in zip(bins, (torch.ones_like(c64), c64, c64 * c64)):
+            row.index_add_(0, s64, v)
+
+    add_ms = time_ms(totals, reps=3)
+    n = sid.shape[0]
+    nbytes = (n * (8 * len(words) + sid.element_size() + count.element_size()
+                   + 1) + 3 * 8 * N + 32)
+    b_ms, b_by = bound(nbytes)
+    say(f"phase 15b: segment_stats at phase 14's solid rows ({n} rows, "
+        f"N={N}, {len(words)} word(s)): kernel {ms:.4f} ms (bound "
+        f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}%), plain "
+        f"{plain_ms:.4f} ms of which the three index_add_ totals "
+        f"{add_ms:.4f} ms ({100 * add_ms / plain_ms:.1f}%); == plain; no "
+        "torch call computes the per-bank totals and the segments")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "index_add_ms": add_ms,
+            "rows": n}
+
+
+def kernels_phase(dev, seed: int, inputs: KernelInputs,
+                  segment_rows) -> dict:
+    """Phase 15; returns the three kernels' numbers for their records."""
+    t0 = time.perf_counter()
+    err = (extract_vs_plain(dev, seed) + run_counts_vs_plain(dev, seed)
+           + segment_stats_vs_plain(dev, seed))
+    torch.cuda.empty_cache()
+    packed, vb, _ = inputs.extract
+    res = {"max_abs_err": err,
+           "extract": time_extract(packed, vb, 21),
+           "extract_63": time_extract(packed, vb, 63)}
+    cols, amin, amax = inputs.runs
+    res["run_counts"] = time_run_counts(cols, amin, amax, dev)
+    torch.cuda.empty_cache()
+    res["segment_stats"] = time_segment_stats(segment_rows, dev)
+    torch.cuda.empty_cache()
+    say(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return res
 
 
 def main() -> int:
@@ -3081,6 +3540,9 @@ def main() -> int:
             coord_shards = coordinator_shards(tmp, inp8, yardsticks, rec,
                                               dev)
             wide_n = wide_n_phase(tmp, args.seed, rec, dev)
+            hand = kernels_phase(dev, args.seed,
+                                 paths["default k=21"].pop("inputs"),
+                                 wide_n.pop("segment_rows"))
             m_err = murmur_vs_plain(dev, args.seed)
             small_sketch_gpu_vs_cpu(tmp, args.seed)
             rec.check_totals()
@@ -3190,6 +3652,37 @@ def main() -> int:
             "all_wall_plain_ms", "rows", "segments", "d_max", "pairs",
             "sample_counts")},
     })
+    times = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    later_runs = {
+        "launches_wide_n": "run", "launches_out_tmp": out_tmp_run,
+        "launches_sweep": sweep_run,
+        **{f"launches_shards_{n}": r for n, r in shard_recs.items()},
+        "launches_coordinator_shards_2": coord_shards}
+    for name, src, replaces, key, at in (
+            ("extract_kmers", "kmers.cu", EXTRACT_REPLACES,
+             "extract_launches", "extract"),
+            ("run_counts", "runs.cu", RUN_COUNTS_REPLACES,
+             "run_counts_launches", "run_counts"),
+            ("segment_stats", "runs.cu", SEGMENT_REPLACES,
+             "segment_launches", "segment_stats")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"simka_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            # phase 7's default run; then phase 14b's default run and the
+            # runs of the compaction's launches_* keys
+            "launches": main_run[key],
+            **{lk: (wide_n["run"] if r == "run" else r)[key]
+               for lk, r in later_runs.items()},
+            "max_abs_err": hand["max_abs_err"],
+            # at phase 7's batch (extraction, k=21) and sorted key (run
+            # counts), at phase 14's solid rows (the segment pass)
+            **{k: hand[at][k] for k in times},
+            **{k: v for k, v in hand[at].items() if k not in times},
+            **({f"k63_{k}": hand["extract_63"][k] for k in times}
+               if at == "extract" else {}),
+        })
     gram = probe["gram"]
     kernels.append({
         "name": "probe_gram_bf16",

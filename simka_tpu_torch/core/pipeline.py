@@ -2,9 +2,9 @@
 over hash-space shards.
 
 In memory (the default): host parse + 2-bit pack -> H2D -> per batch:
-unpack, canonical k-mers, compaction of the valid windows, repartition
-histogram -> one join over the concatenated instance stream -> host
-statistics, distances and csv.gz.
+one extraction launch (canonical k-mers, keep mask, repartition
+histogram), compaction of the kept windows -> one join over the
+concatenated instance stream -> host statistics, distances and csv.gz.
 
 Out-of-core (``compute_statistics_out_of_core``), for runs past the
 device plan: taken up front when the estimated instances (the input
@@ -59,8 +59,7 @@ from simka_tpu_torch.core.distances import compute_all_matrices
 from simka_tpu_torch.core.output import write_all_matrices
 from simka_tpu_torch.core.stats import SimkaStatistics
 from simka_tpu_torch.io.dsl import check_input_validity, parse_input_file
-
-N_HIST_BUCKETS = 16
+from simka_tpu_torch.ops.kmers import N_HIST_BUCKETS
 # a sample's kept windows are counted into a partial spectrum each time
 # this many reads' worth (x 32 windows) are gathered
 STREAM_BATCH_READS = 1 << 20
@@ -150,36 +149,38 @@ def _pipelined_ingest(stream, ship, consume):
             consume(*shipped.popleft().result())
 
 
+def _extract_kept(packed, validbits, k: int, n_valid, min_shannon: float,
+                  with_hist: bool):
+    """One ingest batch through the extraction kernel
+    (``ops.kmers.extract_kmers``) and the compaction of its kept
+    windows: (words, the histogram or None)."""
+    from simka_tpu_torch.ops.compact import compact_rows
+    from simka_tpu_torch.ops.kmers import extract_kmers
+
+    ex = extract_kmers(packed, validbits, k, min_shannon=min_shannon,
+                       with_hist=with_hist)
+    # the parser's count spares the read of the kernel's own unless the
+    # Shannon filter drops windows the parser counted
+    n = int(ex.n_kept) if n_valid is None or min_shannon > 0.0 else int(
+        n_valid)
+    words = compact_rows(ex.words, ex.keep, fills=(-1,) * len(ex.words), n=n)
+    return words, ex.hist
+
+
 def kept_windows(
     packed, validbits, k: int, n_valid=None, min_shannon: float = 0.0,
 ):
-    """One ingest batch on the device: unpack, canonical k-mers, the
-    optional k-mer Shannon filter and the compaction of the kept
-    windows.
+    """One ingest batch on the device: canonical k-mers, the optional
+    k-mer Shannon filter (one extraction launch) and the compaction of
+    the kept windows.
 
     Returns the ``n_words(k)`` [n] int64 k-mer words (ops/kmers.py), n
     the batch's exact kept-window count. ``n_valid``, the native
     parser's count of valid windows, spares a device sync when no
     Shannon filter drops windows the parser counted.
     """
-    from simka_tpu_torch.ops.compact import compact_rows
-    from simka_tpu_torch.ops.kmers import (
-        canonical_kmers,
-        kmer_shannon_index_words,
-        unpack_codes,
-    )
-
-    words, valid = canonical_kmers(unpack_codes(packed, validbits), k)
-    words = tuple(w.reshape(-1) for w in words)
-    valid = valid.reshape(-1)
-    if min_shannon > 0.0:
-        # compared in f32, as the reference compares its f32 index
-        # with the threshold
-        thr = torch.tensor(min_shannon, dtype=torch.float32)
-        valid &= kmer_shannon_index_words(words, k) >= thr.to(valid.device)
-        n_valid = None
-    n = int(valid.sum()) if n_valid is None else int(n_valid)
-    return compact_rows(words, valid, fills=(-1,) * len(words), n=n)
+    return _extract_kept(packed, validbits, k, n_valid, min_shannon,
+                         False)[0]
 
 
 def extract_windows(
@@ -188,16 +189,15 @@ def extract_windows(
 ):
     """``kept_windows`` with the batch's sample ids and its repartition
     histogram: instances per ``mix_hash`` bucket over the reference's
-    uint32 words (its repartition diagnostic).
+    uint32 words (its repartition diagnostic), made by the same
+    extraction launch.
 
     Returns (words, sid [n] int32, hist [16] int64).
     """
-    from simka_tpu_torch.ops.kmers import mix_hash_words, uint32_words
-
-    words = kept_windows(packed, validbits, k, n_valid, min_shannon)
-    h = mix_hash_words(uint32_words(words, k))
-    hist = torch.bincount(h & (N_HIST_BUCKETS - 1), minlength=N_HIST_BUCKETS)
-    sid = torch.full(h.shape, sample, dtype=torch.int32, device=h.device)
+    words, hist = _extract_kept(packed, validbits, k, n_valid, min_shannon,
+                                True)
+    sid = torch.full(words[0].shape, sample, dtype=torch.int32,
+                     device=words[0].device)
     return words, sid, hist
 
 

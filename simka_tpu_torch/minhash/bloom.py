@@ -152,15 +152,14 @@ def _hashed_read_chunks(seqs, kmer_size: int, seed: int, batch_reads: int,
     from simka_tpu_torch.core.pipeline import _iter_read_chunks
     from simka_tpu_torch.io.bank import encode_batch_gatb
     from simka_tpu_torch.minhash.device import hash_valid_words
-    from simka_tpu_torch.ops.kmers import canonical_kmers
+    from simka_tpu_torch.ops.kmers import extract_kmers_codes
 
     for chunk in _iter_read_chunks(seqs, batch_reads):
         width = max(max((len(r) for r in chunk), default=0), kmer_size)
         codes, _ = encode_batch_gatb(chunk, max_len=width)
-        words, valid = canonical_kmers(torch.from_numpy(codes).to(device),
-                                       kmer_size, comp_xor=2)
-        yield hash_valid_words(words[0].reshape(-1), valid.reshape(-1),
-                               seed)
+        ex = extract_kmers_codes(torch.from_numpy(codes).to(device),
+                                 kmer_size, comp_xor=2)
+        yield hash_valid_words(ex.words[0], ex.keep, seed)
 
 
 def compute_sketch_bloom(

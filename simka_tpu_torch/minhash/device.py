@@ -35,8 +35,8 @@ import torch
 
 from simka_tpu_torch import resolve_device
 from simka_tpu_torch.ops import compact as _compact
-from simka_tpu_torch.ops.countjoin import _first_of_run, _run_counts
-from simka_tpu_torch.ops.kmers import canonical_kmers, unpack_codes
+from simka_tpu_torch.ops.countjoin import _first_of_run, run_counts
+from simka_tpu_torch.ops.kmers import extract_kmers
 
 FULL64 = -1  # 2^64 - 1 as int64 bits
 SIGN = -(1 << 63)  # x ^ SIGN: signed order == x's unsigned order
@@ -246,9 +246,8 @@ def gatb_words(packed, validbits, k: int):
     canonical words (complement ``code ^ 2``) and their validity."""
     if not 1 <= k <= 31:
         raise ValueError(f"k={k}: SimkaMin sketches take 1 <= k <= 31")
-    words, valid = canonical_kmers(unpack_codes(packed, validbits), k,
-                                   comp_xor=2)
-    return words[0].reshape(-1), valid.reshape(-1)
+    ex = extract_kmers(packed, validbits, k, comp_xor=2)
+    return ex.words[0], ex.keep
 
 
 def hash_valid_words(words, valid, seed: int):
@@ -329,8 +328,7 @@ def sketch_prefix_device(h, *, sketch_size: int, use_filter: bool):
     if h.shape[0] == 0:
         return h, h, h, 0
     hs, pos = _sort_hashes(h)
-    boundary = _first_of_run(hs)
-    count = _run_counts(boundary)
+    count, boundary, _ = run_counts((hs,))
     keep, entry = _members(boundary, count, pos, use_filter)
     n_distinct = int(keep.sum())
     m = min(sketch_size, n_distinct)
@@ -368,9 +366,8 @@ def sketch_stream_step(h, st_h, st_c, corr_h, corr_n, *, sketch_size: int):
     dev = h.device
     # the batch's bottom-s distinct prefix with counts and first positions
     hs, pos = _sort_hashes(h)
-    boundary = _first_of_run(hs)
-    count = _run_counts(boundary)
-    nb = min(s, int(boundary.sum()))
+    count, boundary, n_runs = run_counts((hs,))
+    nb = min(s, int(n_runs))
     bh, bc, bf = _compact.compact_rows(
         (hs, count, pos), _first(boundary, nb), fills=(FULL64, 0, 0), n=nb)
     # merge carried + batch; the stable sort keeps the carried row first
@@ -432,8 +429,7 @@ def sketch_multi_prefix(h, sid, *, n_samples: int, sketch_size: int,
     order = order[torch.sort(sid[order], stable=True).indices]
     hs, ss, pos = h[order], sid[order].to(torch.int64), order
     del order
-    boundary = _first_of_run(hs, ss)
-    count = _run_counts(boundary)
+    count, boundary, _ = run_counts((hs, ss))
     keep, entry = _members(boundary, count, pos, use_filter)
     keep_i = keep.to(torch.int64)
     n_kept = torch.zeros(N, dtype=torch.int64, device=dev).scatter_add_(
@@ -493,9 +489,8 @@ def device_sketch_update(words, valid, *, seed: int, sketch_size: int):
     int32), FULL64 / 0 in the slots past the distinct hashes."""
     h, _ = hash_valid_words(words, valid, seed)
     hs = _sort_hashes(h)[0]
-    boundary = _first_of_run(hs)
-    count = _run_counts(boundary)
-    m = min(sketch_size, int(boundary.sum()))
+    count, boundary, n_runs = run_counts((hs,))
+    m = min(sketch_size, int(n_runs))
     out_h, out_c = _compact.compact_rows((hs, count), _first(boundary, m),
                                          fills=(FULL64, 0), n=m)
     pad = sketch_size - m

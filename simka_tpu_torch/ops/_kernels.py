@@ -115,6 +115,8 @@ def lib():
                 ("simka_min_pair_segment", i32, []),
                 ("simka_min_pair_scratch_words", i64, [i64, i64]),
                 ("simka_pair_sums_budget", i64, [i64, i32]),
+                ("simka_runs_tile_rows", i64, []),
+                ("simka_segment_shared_banks", i64, []),
             ):
                 fn = getattr(handle, name)
                 fn.restype = res
@@ -122,6 +124,15 @@ def lib():
             for name, args in (
                 ("simka_compact_rows", [vp, i64, i32, vp, vp, vp, vp, i64,
                                         i32, vp, vp]),
+                # csrc/kmers.cu
+                ("simka_extract_kmers", [vp, vp, vp, i64, i64, i32, i32, i32,
+                                         ctypes.c_float, vp, i32, i32, vp,
+                                         vp, vp, vp]),
+                # csrc/runs.cu
+                ("simka_run_counts", [vp, vp, i32, i64, i64, i64, vp, vp, vp,
+                                      vp, vp]),
+                ("simka_segment_stats", [vp, i32, i64, vp, i32, vp, i32, i64,
+                                         vp, vp, vp, vp, vp]),
                 # csrc/minhash.cu
                 ("simka_murmur_kmers", [vp, vp, i64, u64, u64, vp, vp, vp,
                                         vp]),

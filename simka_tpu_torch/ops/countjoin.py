@@ -7,8 +7,9 @@ The torch counterpart of ``simka_tpu.ops.countjoin.count_join_stats``:
   2. the per-sample abundance filter (amin <= count <= amax) keeps one
      row per solid (k-mer, sample), made contiguous by the stable
      compaction (``ops.compact``) -- order stays (k-mer, sample)
-     ascending;
-  3. per-bank totals, then segments of equal k-mers;
+     ascending (the run lengths and the filter: ``run_counts``);
+  3. per-bank totals, then segments of equal k-mers (one pass,
+     ``segment_stats``; the segment starts by the compaction);
   4. pair sums in direct form: every two rows of one segment are a
      co-present pair (a, b) with a < b, added into flat [N * N] int64
      sums, with Whittaker's all-rows sums in the same pass
@@ -16,6 +17,10 @@ The torch counterpart of ``simka_tpu.ops.countjoin.count_join_stats``:
      ``csrc/pair_sums.cu``, on a CPU tensor its plain torch version,
      ``_pair_sums_plain``, one offset d at a time with ``index_add_``,
      and ``_whittaker_all``).
+
+``run_counts`` and ``segment_stats`` launch the hand-written kernels of
+``csrc/runs.cu`` on CUDA tensors and take their plain torch versions
+(``_run_counts_plain``, ``_segment_stats_plain``) on CPU tensors.
 
 Every integer channel is an exact sum, so it equals the reference bit
 for bit on any device. The two float channels are made
@@ -77,8 +82,12 @@ _TWO32 = 2.0**32
 PAIR_CHANNELS = ("ab", "ba", "distinct", "bray", "hellinger", "chord",
                  "whittaker", "s12")
 
-# pair-kernel launches on the CUDA path (the CPU path does not count)
+# kernel launches on the CUDA path (the CPU path does not count): the
+# pair kernel's, run_counts' and segment_stats'
 launches = 0
+run_counts_launches = 0
+segment_stats_launches = 0
+INT32_MAX = (1 << 31) - 1
 
 
 class JoinStats(NamedTuple):
@@ -138,6 +147,157 @@ def _first_of_run(*cols: torch.Tensor) -> torch.Tensor:
     return diff
 
 
+def _run_counts_plain(cols, abundance_min: int, abundance_max: int):
+    """The plain torch version of the run-count kernel."""
+    boundary = _first_of_run(*cols)
+    count = _run_counts(boundary)
+    keep = boundary & (count >= abundance_min) & (count <= abundance_max)
+    return count, keep, keep.sum()
+
+
+def _key_columns(what: str, cols, max_cols: int):
+    """``cols`` as a tuple, once they are 1 to ``max_cols`` [E] int32 or
+    int64 columns on one device (contiguous on CUDA); ValueError
+    otherwise. Returns (cols, E, device)."""
+    cols = tuple(cols)
+    if not 1 <= len(cols) <= max_cols:
+        raise ValueError(f"{what}: 1 to {max_cols} key columns")
+    E, dev = cols[0].shape[0], cols[0].device
+    for c in cols:
+        if (c.dim() != 1 or c.shape[0] != E or c.device != dev
+                or c.dtype not in (torch.int32, torch.int64)):
+            raise ValueError(f"{what}: key columns must be [E] int32/int64 "
+                             "on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if dev.type == "cuda" and not all(c.is_contiguous() for c in cols):
+        raise ValueError(f"{what} needs contiguous tensors on CUDA")
+    return cols, E, dev
+
+
+def _tile_scratch(lib, E: int, dev) -> torch.Tensor:
+    """int64 [one a tile] scratch of csrc/runs.cu's first pass."""
+    return torch.empty(-(-E // lib.simka_runs_tile_rows()),
+                       dtype=torch.int64, device=dev)
+
+
+def run_counts(cols: Sequence[torch.Tensor], abundance_min: int = 1,
+               abundance_max: int = INT32_MAX):
+    """Run lengths of rows sorted on the key columns ``cols`` (1 to 8
+    [E] int32/int64 columns; a run: equal rows in every column).
+
+    Returns (count [E] int32: the run length at each run's first row, 0
+    elsewhere; keep [E] bool: first rows with abundance_min <= count <=
+    abundance_max; the kept total, a 0-dim int64 tensor on the rows'
+    device). With the default bounds keep is the first-of-run mask.
+
+    On CUDA tensors this launches the kernel of ``csrc/runs.cu`` once
+    (its two passes) or raises; on CPU tensors it is the plain version
+    (``_first_of_run`` + ``_run_counts``), bit for bit the same.
+    """
+    global run_counts_launches
+    cols, E, dev = _key_columns("run_counts", cols, 8)
+    if dev.type == "cpu":
+        return _run_counts_plain(cols, abundance_min, abundance_max)
+    if E == 0:
+        return (torch.empty(0, dtype=torch.int32, device=dev),
+                torch.empty(0, dtype=torch.bool, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+    from simka_tpu_torch.ops import _kernels
+
+    lib = _kernels.lib()
+    count = torch.empty(E, dtype=torch.int32, device=dev)
+    keep = torch.empty(E, dtype=torch.bool, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    tiles = _tile_scratch(lib, E, dev)
+    n = len(cols)
+    ptrs = (ctypes.c_void_p * n)(*[c.data_ptr() for c in cols])
+    sizes = (ctypes.c_int * n)(*[c.element_size() for c in cols])
+    with torch.cuda.device(dev):
+        code = lib.simka_run_counts(
+            ctypes.addressof(ptrs), ctypes.addressof(sizes), n, E,
+            int(abundance_min), int(abundance_max), count.data_ptr(),
+            keep.data_ptr(), total.data_ptr(), tiles.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(code, "run_counts")
+    run_counts_launches += 1
+    return count, keep, total[0]
+
+
+def _segment_stats_plain(words, sid, count, n_banks: int):
+    """The plain torch version of the segment kernel."""
+    N = n_banks
+    dev = sid.device
+    i64 = torch.int64
+    sid = sid.to(i64)
+    c64 = count.to(i64)
+    n = sid.shape[0]
+    bins = torch.zeros((3, N), dtype=i64, device=dev)
+    for row, values in zip(bins, (torch.ones_like(c64), c64, c64 * c64)):
+        row.index_add_(0, sid, values)
+    newk = _first_of_run(*words)
+    starts = newk.nonzero().squeeze(1)
+    seg_len = torch.cat([starts[1:], starts.new_tensor([n])]) - starts
+    zero = torch.zeros((), dtype=i64, device=dev)
+    scalars = torch.stack([
+        torch.tensor(starts.shape[0], dtype=i64, device=dev),
+        (seg_len >= 2).sum().to(i64),
+        seg_len.max() if n else zero,
+        c64.max() if n else zero,
+    ])
+    return bins, newk, scalars
+
+
+def segment_stats(words: Sequence[torch.Tensor], sid: torch.Tensor,
+                  count: torch.Tensor, *, n_banks: int):
+    """Per-bank totals and the segments of equal k-mers over solid rows
+    in (k-mer, sample)-ascending order (``simka_tpu``'s per-bank
+    ``binned_sum`` x 3 and ``_segment_rows``), in one pass.
+
+    Args:
+      words: 1 to 5 [n] int64 word columns; sid, count: [n] int32 or
+        int64, sid in [0, n_banks).
+
+    Returns (bins [3, N] int64: distinct_per_bank, solid_per_bank and
+    chord_n2_per_bank; newk [n] bool: the first row of each k-mer;
+    scalars [4] int64: nb_distinct, nb_shared (k-mers of >= 2 rows),
+    d_max (the longest segment) and max_count), on the rows' device.
+
+    On CUDA tensors this launches the kernel of ``csrc/runs.cu`` once
+    (its two passes) or raises; on CPU tensors it is the plain version,
+    bit for bit the same.
+    """
+    global segment_stats_launches
+    words, n, dev = _key_columns("segment_stats", words, 5)
+    _key_columns("segment_stats", (sid, count), 2)
+    if any(w.dtype != torch.int64 for w in words) or sid.shape[0] != n \
+            or sid.device != dev:
+        raise ValueError("segment_stats: int64 words, and sid and count "
+                         "of their length on their device")
+    if dev.type == "cpu":
+        return _segment_stats_plain(words, sid, count, n_banks)
+    N = n_banks
+    bins = torch.zeros((3, N), dtype=torch.int64, device=dev)
+    newk = torch.empty(n, dtype=torch.bool, device=dev)
+    scalars = torch.zeros(4, dtype=torch.int64, device=dev)
+    if n == 0:
+        return bins, newk, scalars
+    from simka_tpu_torch.ops import _kernels
+
+    lib = _kernels.lib()
+    tiles = _tile_scratch(lib, n, dev)
+    ptrs = (ctypes.c_void_p * len(words))(*[w.data_ptr() for w in words])
+    with torch.cuda.device(dev):
+        code = lib.simka_segment_stats(
+            ctypes.addressof(ptrs), len(words), n, sid.data_ptr(),
+            sid.element_size(), count.data_ptr(), count.element_size(), N,
+            newk.data_ptr(), bins.data_ptr(), scalars.data_ptr(),
+            tiles.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(code, "segment_stats")
+    segment_stats_launches += 1
+    return bins, newk, scalars
+
+
 def _lex_order(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     """Permutation sorting rows by ``keys`` lexicographically (first
     key most significant): stable sorts from the last key up."""
@@ -171,11 +331,9 @@ def solid_rows(
     if nw == 1 and kmer_bits + sbits <= 63:
         # packed path: one int64 key carries (kmer, sid)
         key = torch.sort((words[0] << sbits) | sid.to(torch.int64)).values
-        boundary = _first_of_run(key)
-        count = _run_counts(boundary)
-        kept = boundary & (count >= abundance_min) & (count <= abundance_max)
-        n = int(kept.sum())
-        key_c, cnt_c = compact_rows((key, count), kept, fills=(-1, 0), n=n)
+        count, kept, n = run_counts((key,), abundance_min, abundance_max)
+        key_c, cnt_c = compact_rows((key, count), kept, fills=(-1, 0),
+                                    n=int(n))
         return (key_c >> sbits,), key_c & ((1 << sbits) - 1), cnt_c
 
     # multi-key path (one bank: the sample id is no key)
@@ -183,12 +341,9 @@ def solid_rows(
     words = tuple(w[perm] for w in words)
     sid = sid[perm]
     del perm
-    boundary = _first_of_run(*words, sid)
-    count = _run_counts(boundary)
-    kept = boundary & (count >= abundance_min) & (count <= abundance_max)
-    n = int(kept.sum())
+    count, kept, n = run_counts((*words, sid), abundance_min, abundance_max)
     cols = compact_rows(
-        (*words, sid, count), kept, fills=(-1,) * nw + (0, 0), n=n
+        (*words, sid, count), kept, fills=(-1,) * nw + (0, 0), n=int(n)
     )
     return cols[:nw], cols[nw], cols[nw + 1]
 
@@ -510,7 +665,7 @@ def pair_sums(sid, count, starts, seg_len, K, flat, kl, *,
 
 def _raw_stats_from_rows(
     words, sid, count, *, n_banks: int, simple: bool = False,
-    complex_: bool = False, solid_override=None,
+    complex_: bool = False, solid_override=None, segments=None,
 ) -> JoinStats:
     """Per-bank totals, segments and pair sums over solid rows in
     (k-mer, sample)-ascending order (``_stats_from_rows`` with
@@ -524,28 +679,24 @@ def _raw_stats_from_rows(
     ``solid_override``: [N] int64 per-bank solid totals to use as K in
     the Whittaker and KL terms instead of these rows' own (the sweep's
     whole-sample totals, ``simka_tpu``'s ``solid_override``); the
-    returned ``solid_per_bank`` stays these rows' own."""
+    returned ``solid_per_bank`` stays these rows' own. ``segments``:
+    these rows' ``segment_stats``, when the caller already has them."""
+    from simka_tpu_torch.ops.compact import compact_rows
+
     N = n_banks
     dev = sid.device
     i64, f64 = torch.int64, torch.float64
+    n = sid.shape[0]
+    bins, newk, scalars = segments if segments is not None else (
+        segment_stats(words, sid, count, n_banks=N))
+    distinct_per_bank, solid_per_bank, chord_n2_per_bank = bins
+    K = solid_per_bank if solid_override is None else solid_override.to(dev)
+    n_segs, d_max = scalars[[0, 2]].tolist()  # the one host read
+    (starts,) = compact_rows((torch.arange(n, dtype=i64, device=dev),),
+                             newk, fills=(-1,), n=n_segs)
+    seg_len = torch.cat([starts[1:], starts.new_tensor([n])]) - starts
     sid = sid.to(i64)
     c64 = count.to(i64)
-    n = sid.shape[0]
-
-    def per_bank(values):
-        return torch.zeros(N, dtype=i64, device=dev).index_add_(0, sid, values)
-
-    distinct_per_bank = per_bank(torch.ones_like(c64))
-    solid_per_bank = per_bank(c64)
-    chord_n2_per_bank = per_bank(c64 * c64)
-    K = solid_per_bank if solid_override is None else solid_override.to(dev)
-
-    newk = _first_of_run(*words)
-    starts = newk.nonzero().squeeze(1)
-    seg_len = torch.cat([starts[1:], starts.new_tensor([n])]) - starts
-    nb_distinct = torch.tensor(starts.shape[0], dtype=i64, device=dev)
-    nb_shared = (seg_len >= 2).sum().to(i64)
-    d_max = int(seg_len.max()) if n else 0
 
     names = ["ab", "ba", "distinct", "bray"]
     if simple:
@@ -565,8 +716,8 @@ def _raw_stats_from_rows(
         return torch.zeros((N, N), dtype=i64, device=dev)
 
     return JoinStats(
-        nb_distinct=nb_distinct,
-        nb_shared=nb_shared,
+        nb_distinct=scalars[0],
+        nb_shared=scalars[1],
         distinct_per_bank=distinct_per_bank,
         solid_per_bank=solid_per_bank,
         chord_n2_per_bank=chord_n2_per_bank,
@@ -581,7 +732,7 @@ def _raw_stats_from_rows(
             "whittaker_all"),
         whittaker_s12=pairs("s12"),
         kullback_leibler=kl,
-        max_count=(c64.max() if n else torch.zeros((), dtype=i64, device=dev)),
+        max_count=scalars[3],
     )
 
 

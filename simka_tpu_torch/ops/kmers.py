@@ -25,12 +25,19 @@ T=2, G=3), whose complement is ``code ^ 2``: the extraction takes the
 mask as ``comp_xor``. The canonical k-mer is min(forward, reverse
 complement); when the two are equal the forward word is kept (the same
 k-mer either way).
+
+The paths call ``extract_kmers`` (a packed batch) or
+``extract_kmers_codes`` (an unpacked one): words, keep mask (with the
+Shannon filter), repartition histogram and kept count in one call. On
+CUDA tensors that is one launch of the hand-written kernel of
+``csrc/kmers.cu``; on CPU tensors its plain version,
+``_extract_kmers_plain``, built from the torch functions below.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -217,6 +224,140 @@ def extract_packed(
         return extract_canonical_kmers_multi(codes, k)[0]
     hi, lo, _ = extract_canonical_kmers(codes, k, comp_xor)
     return hi, lo
+
+
+# extraction-kernel launches on the CUDA path (the CPU path does not count)
+launches = 0
+N_HIST_BUCKETS = 16
+
+
+class Extracted(NamedTuple):
+    """``extract_kmers``' outputs, on the batch's device."""
+
+    words: Words  # n_words(k) [E] int64 canonical words, E = B * (L - k + 1)
+    keep: torch.Tensor  # [E] bool: valid (and Shannon index >= threshold)
+    hist: Optional[torch.Tensor]  # [16] int64 kept windows a bucket, or None
+    n_kept: torch.Tensor  # 0-dim int64: kept windows
+
+
+def _extract_kmers_plain(codes: torch.Tensor, k: int, comp_xor: int,
+                         min_shannon: float, with_hist: bool) -> Extracted:
+    """The plain torch version of the extraction kernel, from a [B, L]
+    code batch (255 = invalid): ``canonical_kmers``, the Shannon mask,
+    the histogram over ``uint32_words`` + ``mix_hash_words``."""
+    words, valid = canonical_kmers(codes, k, comp_xor)
+    words = tuple(w.reshape(-1) for w in words)
+    keep = valid.reshape(-1)
+    if min_shannon > 0.0:
+        # compared in f32, as the reference compares its f32 index with
+        # the threshold
+        thr = torch.tensor(min_shannon, dtype=torch.float32)
+        keep = keep & (kmer_shannon_index_words(words, k)
+                       >= thr.to(keep.device))
+    hist = None
+    if with_hist:
+        h = mix_hash_words(uint32_words(words, k))
+        hist = torch.bincount((h & (N_HIST_BUCKETS - 1))[keep],
+                              minlength=N_HIST_BUCKETS)
+    return Extracted(words, keep, hist, keep.sum())
+
+
+def _extract_kmers_cuda(packed, validbits, codes, k: int, comp_xor: int,
+                        min_shannon: float, with_hist: bool) -> Extracted:
+    global launches
+    from simka_tpu_torch.ops import _kernels
+
+    lib = _kernels.lib()
+    src = codes if packed is None else packed
+    dev = src.device
+    B = src.shape[0]
+    L = codes.shape[1] if packed is None else 4 * packed.shape[1]
+    E = B * (L - k + 1)
+    words = torch.empty((n_words(k), E), dtype=torch.int64, device=dev)
+    keep = torch.empty(E, dtype=torch.bool, device=dev)
+    counts = torch.empty(N_HIST_BUCKETS + 1, dtype=torch.int64, device=dev)
+    use_thr = min_shannon > 0.0
+    terms = shannon_terms(k).to(dev) if use_thr else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        code = lib.simka_extract_kmers(
+            ptr(packed), ptr(validbits), ptr(codes), B, L, k, comp_xor,
+            int(use_thr), min_shannon, ptr(terms), int(with_hist),
+            n_uint32_words(k), words.data_ptr(), keep.data_ptr(),
+            counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(code, "extract_kmers")
+    launches += 1
+    return Extracted(tuple(words), keep,
+                     counts[:N_HIST_BUCKETS] if with_hist else None,
+                     counts[N_HIST_BUCKETS])
+
+
+def _extract(packed, validbits, codes, k: int, comp_xor: int,
+             min_shannon: float, with_hist: bool) -> Extracted:
+    if not 1 <= k <= MAX_K:
+        raise NotImplementedError(
+            f"k={k}: the port handles 1 <= k <= {MAX_K}, as the reference"
+        )
+    src = codes if packed is None else packed
+    L = codes.shape[1] if packed is None else 4 * packed.shape[1]
+    if L < k:
+        raise ValueError(f"read window {L} shorter than k={k}")
+    if src.device.type == "cpu":
+        if codes is None:
+            codes = unpack_codes(packed, validbits)
+        return _extract_kmers_plain(codes, k, comp_xor, min_shannon,
+                                    with_hist)
+    if src.device.type != "cuda":
+        raise ValueError(f"extract_kmers: unsupported device {src.device}")
+    if not all(t.is_contiguous() for t in (packed, validbits, codes)
+               if t is not None):
+        raise ValueError("extract_kmers needs contiguous tensors on CUDA")
+    return _extract_kmers_cuda(packed, validbits, codes, k, comp_xor,
+                               min_shannon, with_hist)
+
+
+def extract_kmers(packed: torch.Tensor, validbits: torch.Tensor, k: int, *,
+                  comp_xor: int = 3, min_shannon: float = 0.0,
+                  with_hist: bool = False) -> Extracted:
+    """Canonical k-mers of every window of one packed batch, in one pass
+    (``simka_tpu``'s ``_extract_windows_program`` before its compaction).
+
+    Args:
+      packed, validbits: [B, L/4] 2-bit codes and [B, L/8] validity bits,
+        uint8 (``io.packed.pack_codes_host`` layout).
+      k: 1..127, at most L.
+      comp_xor: the complement of code c is ``c ^ comp_xor`` (3 for
+        simka's codes, 2 for gatb-core's).
+      min_shannon: keep only windows whose k-mer Shannon index (f32) is
+        at least this; 0 keeps every valid window.
+      with_hist: also count the kept windows a repartition bucket
+        (``mix_hash_words`` of the reference's uint32 words, & 15).
+
+    Returns ``Extracted``: the words of window b * (L - k + 1) + p (the
+    words of a dropped window are those of its bases, an invalid base
+    read as code 3), the keep mask, the histogram and the kept count,
+    on the batch's device. On CUDA tensors this launches the kernel of
+    ``csrc/kmers.cu`` once or raises; on CPU tensors it is the plain
+    version, bit for bit the same.
+    """
+    if packed.dtype != torch.uint8 or validbits.dtype != torch.uint8 or (
+            packed.dim() != 2 or validbits.shape != (
+                packed.shape[0], packed.shape[1] // 2)
+            or packed.shape[1] % 2 or validbits.device != packed.device):
+        raise ValueError("extract_kmers: packed [B, L/4] and validbits "
+                         "[B, L/8] uint8 on one device")
+    return _extract(packed, validbits, None, k, comp_xor, min_shannon,
+                    with_hist)
+
+
+def extract_kmers_codes(codes: torch.Tensor, k: int, *, comp_xor: int = 3,
+                        min_shannon: float = 0.0,
+                        with_hist: bool = False) -> Extracted:
+    """``extract_kmers`` of an unpacked [B, L] uint8 code batch (255, or
+    any code >= 4, invalid)."""
+    if codes.dtype != torch.uint8 or codes.dim() != 2:
+        raise ValueError("extract_kmers_codes: codes [B, L] uint8")
+    return _extract(None, None, codes, k, comp_xor, min_shannon, with_hist)
 
 
 def shannon_terms(k: int) -> torch.Tensor:

@@ -22,10 +22,14 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from simka_tpu_torch.ops.countjoin import _first_of_run, _lex_order, solid_rows
+from simka_tpu_torch.ops.countjoin import (
+    INT32_MAX,
+    _first_of_run,
+    _lex_order,
+    solid_rows,
+)
 from simka_tpu_torch.ops.kmers import from_uint32_words, uint32_words
 
-INT32_MAX = (1 << 31) - 1
 
 Spectrum = Tuple[Tuple[torch.Tensor, ...], torch.Tensor]
 

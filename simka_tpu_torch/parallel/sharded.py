@@ -205,21 +205,26 @@ def sharded_raw_stats(rows: Iterable[Rows], *, n_banks: int,
     """Raw statistics (``ops.countjoin._raw_stats_from_rows``' form) of
     every shard's solid rows, folded on the first shard's device.
 
-    The per-bank solid totals are summed over the shards (and, with
+    Each shard's segment pass (``segment_stats``) runs first: its
+    per-bank solid totals are summed over the shards (and, with
     ``all_reduce``, an in-place sum over processes) BEFORE any pair
     term reads them; ``solid_override`` (the sweep's whole-sample
     totals) replaces them. The entries of a list are dropped (set to
     None) as each shard's pair terms are taken, which frees its rows."""
-    from simka_tpu_torch.ops.countjoin import _add_raw, _raw_stats_from_rows
+    from simka_tpu_torch.ops.countjoin import (
+        _add_raw,
+        _raw_stats_from_rows,
+        segment_stats,
+    )
 
     rows = rows if isinstance(rows, list) else list(rows)
     home = rows[0][1].device
     i64 = torch.int64
+    segs = [segment_stats(*r, n_banks=n_banks) for r in rows]
     if solid_override is None:
         K = torch.zeros(n_banks, dtype=i64, device=home)
-        for _, sid, count in rows:
-            K += torch.zeros(n_banks, dtype=i64, device=sid.device).index_add_(
-                0, sid.to(i64), count.to(i64)).to(home)
+        for bins, _, _ in segs:
+            K += bins[1].to(home)
         if all_reduce is not None:
             all_reduce(K)
     else:
@@ -230,7 +235,8 @@ def sharded_raw_stats(rows: Iterable[Rows], *, n_banks: int,
         rows[i] = None
         raw = _raw_stats_from_rows(words, sid, count, n_banks=n_banks,
                                    simple=simple, complex_=complex_,
-                                   solid_override=K)
+                                   solid_override=K, segments=segs[i])
+        segs[i] = None
         del words, sid, count
         raw = JoinStats(*(t.to(home) for t in raw))
         total = raw if total is None else _add_raw(total, raw)

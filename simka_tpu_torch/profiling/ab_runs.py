@@ -61,7 +61,8 @@ def main(argv=None) -> int:
     ap.add_argument("--a", required=True)
     ap.add_argument("--b", required=True)
     args = ap.parse_args(argv)
-    from simka_tpu_torch.utils.community import write_community
+    from simka_tpu_torch.utils.community import (FULL_COMMUNITY,
+                                                 write_community)
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -70,11 +71,8 @@ def main(argv=None) -> int:
     runs = {"A": [], "B": []}
     firsts = {"A": [], "B": []}  # each process's first run (cold)
     with tempfile.TemporaryDirectory(prefix="ab_runs_") as tmp:
-        inp = write_community(
-            os.path.join(tmp, "full"), seed=0, n_samples=8, n_genomes=20,
-            genome_len=2_000_000, reads_per_sample=500_000, read_len=100,
-            n_frac=0.001,
-        )
+        inp = write_community(os.path.join(tmp, "full"), seed=0,
+                              **FULL_COMMUNITY)
         small = write_community(
             os.path.join(tmp, "small"), seed=0, n_samples=4, n_genomes=5,
             genome_len=20_000, reads_per_sample=3_000, n_frac=0.01,

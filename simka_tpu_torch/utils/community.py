@@ -28,6 +28,12 @@ import numpy as np
 WIDE_COMMUNITY = dict(n_samples=100, n_genomes=20, genome_len=200_000,
                       reads_per_sample=50_000, read_len=100, n_frac=0.001)
 
+# 8 samples x 500,000 reads x 100 bp of 20 genomes x 2 Mbp (the
+# full-size community of chip_smoke.py phase 7 and of the profiling
+# scripts that run it)
+FULL_COMMUNITY = dict(n_samples=8, n_genomes=20, genome_len=2_000_000,
+                      reads_per_sample=500_000, read_len=100, n_frac=0.001)
+
 _BASES = np.frombuffer(b"ACGT", np.uint8)
 _N = ord("N")
 

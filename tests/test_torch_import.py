@@ -19,6 +19,7 @@ def test_port_imports_no_jax():
         "simka_tpu_torch.io.packed, simka_tpu_torch.io.native, "
         "simka_tpu_torch.profiling.probes, simka_tpu_torch.profiling.trace, "
         "simka_tpu_torch.profiling.probe_ab, "
+        "simka_tpu_torch.profiling.busy_ab, "
         "simka_tpu_torch.minhash.cli, simka_tpu_torch.minhash.pipeline, "
         "simka_tpu_torch.minhash.sketch, simka_tpu_torch.minhash.device, "
         "simka_tpu_torch.minhash.bloom, simka_tpu_torch.minhash.murmur, "
@@ -54,5 +55,5 @@ def test_port_builds_only_its_own_sources():
         assert os.path.abspath(path).startswith(port), path
     assert os.path.exists(native.SRC)
     names = [os.path.basename(s) for s in _kernels.sources()]
-    assert {"compact.cu", "minhash.cu", "min_distance.cu",
-            "pair_sums.cu", "probes.cu"} <= set(names)
+    assert {"compact.cu", "kmers.cu", "minhash.cu", "min_distance.cu",
+            "pair_sums.cu", "probes.cu", "runs.cu"} <= set(names)

@@ -1,0 +1,368 @@
+"""The run-count and segment kernels' wrappers (``ops.countjoin``'s
+``run_counts`` and ``segment_stats``, plain torch versions on CPU
+tensors) against ``simka_tpu``'s ``_rows_from_instances``,
+``_stats_from_rows`` and ``_segment_rows`` on the same numpy inputs; a
+numpy model of the kernels' work split (csrc/runs.cu: tiles, the
+in-tile suffix min, the look-ahead over later tiles, shared or
+device-memory bins) against the plain versions at edge sizes; the
+kernels against their plain versions on the card (``cuda``-marked).
+Exact equality throughout."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from simka_tpu.ops import countjoin as jc
+from simka_tpu_torch.ops import countjoin as tc
+from simka_tpu_torch.ops import kmers as tk
+
+INT32_MAX = (1 << 31) - 1
+# csrc/runs.cu's geometry: 4096-row tiles, 256 threads of 16 rows,
+# per-bank bins in shared memory up to 40 KiB (3 int64 bins a bank)
+TILE, THREADS = 4096, 256
+SHARED_BANKS = 40 * 1024 // 24
+
+
+def _runs(lengths, rng, n_cols: int = 1, dtype=np.int64):
+    """Sorted key columns whose runs have ``lengths``: distinct ascending
+    rows, each repeated; the last column int32 when ``dtype`` says."""
+    R = len(lengths)
+    keys = np.sort(rng.choice(1 << 40, size=R, replace=False))
+    # spread the run keys over n_cols columns, most significant first
+    cols = [(keys >> (8 * (n_cols - 1 - c))) & 0xFF if c < n_cols - 1 else
+            keys for c in range(n_cols)]
+    rep = [np.repeat(c, lengths) for c in cols]
+    rep[-1] = rep[-1].astype(dtype)
+    return rep
+
+
+def _plain_counts(cols, amin, amax):
+    return tc.run_counts(tuple(torch.from_numpy(c) for c in cols), amin,
+                         amax)
+
+
+# ---- (a) against simka_tpu ----------------------------------------------
+
+
+@pytest.mark.parametrize("n_banks", [2, 8])
+@pytest.mark.parametrize("amin,amax", [(1, INT32_MAX), (2, 999_999_999),
+                                       (3, 5)])
+def test_solid_rows_match_rows_from_instances_packed(n_banks, amin, amax):
+    """The packed key (k = 21): ``solid_rows`` through ``run_counts``
+    against the reference's compacted rows."""
+    rng = np.random.default_rng(n_banks * 10 + amin)
+    E = 5000
+    kmer = rng.integers(0, 300, E).astype(np.int64) * 0x9E3779B1 % (1 << 42)
+    sid = rng.integers(0, n_banks, E).astype(np.int32)
+    hi, lo = (kmer >> 32).astype(np.uint32), (kmer & 0xFFFFFFFF).astype(
+        np.uint32)
+    (rh, rl), rsid, rcnt, rkept, compacted = jc._rows_from_instances(
+        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(sid), amin, amax,
+        n_banks=n_banks, hi_bits=10, vary_axes=())
+    assert compacted
+    rkept = np.asarray(rkept)
+    n = int(rkept.sum())
+    words, gsid, gcnt = tc.solid_rows(
+        (torch.from_numpy(kmer),), torch.from_numpy(sid), amin, amax,
+        n_banks=n_banks, kmer_bits=42)
+    assert words[0].shape[0] == n > 0
+    want = (np.asarray(rh, np.int64)[:n] << 32) | np.asarray(rl, np.int64)[:n]
+    np.testing.assert_array_equal(words[0].numpy(), want)
+    np.testing.assert_array_equal(gsid.numpy(), np.asarray(rsid)[:n])
+    np.testing.assert_array_equal(gcnt.numpy(), np.asarray(rcnt)[:n])
+
+
+@pytest.mark.parametrize("n_words", [1, 2, 5])
+@pytest.mark.parametrize("amin,amax", [(1, INT32_MAX), (3, 5)])
+def test_run_counts_match_rows_from_instances_multi_key(n_words, amin, amax):
+    """The reference's multi-key pass (uncompacted rows, count at each
+    run's first row, kept): ``run_counts`` on the same sorted rows, key
+    columns the uint32 words and the sample id (2 to 6 columns)."""
+    rng = np.random.default_rng(n_words + 7 * amin)
+    E, N = 4000, 40
+    # about 4 rows a (words, sample) key, so runs of 1 to ~12
+    r = max(2, round((E / 4 / N) ** (1 / n_words)))
+    words = [rng.integers(0, r, E).astype(np.uint32) for _ in range(n_words)]
+    sid = rng.integers(0, N, E).astype(np.int32)
+    hi = tuple(jnp.asarray(w) for w in words[:-1]) if n_words > 1 else (
+        jnp.zeros(E, jnp.uint32),)
+    rw, rsid, rcnt, rkept, compacted = jc._rows_from_instances(
+        hi, jnp.asarray(words[-1]), jnp.asarray(sid), amin, amax,
+        n_banks=N, hi_bits=32, vary_axes=())
+    assert not compacted
+    cols = [np.array(w, np.int64) for w in rw] + [np.array(rsid)]
+    count, keep, total = _plain_counts(cols, amin, amax)
+    rkept = np.asarray(rkept)
+    np.testing.assert_array_equal(keep.numpy(), rkept)
+    first = count.numpy() > 0
+    np.testing.assert_array_equal(count.numpy()[first],
+                                  np.asarray(rcnt)[first])
+    assert int(total) == rkept.sum() > 0
+    assert count.dtype == torch.int32
+
+
+def _solid_rows(rng, N: int, n_kmers: int, k: int, cmax: int = 1000,
+                d: int = 64):
+    """Solid rows in (k-mer, sample) order: distinct k-mers (port
+    words), the first in every sample, each other in a random nonempty
+    set of at most ``d`` samples, counts 1..cmax."""
+    nw = tk.n_words(k)
+    top = 2 * k - 62 * (nw - 1)
+    raw = [rng.integers(0, 1 << (top if w == 0 else 62), n_kmers,
+                        dtype=np.int64) for w in range(nw)]
+    order = np.lexsort(raw[::-1])
+    raw = [r[order] for r in raw]
+    diff = np.zeros(n_kmers, bool)
+    diff[0] = True
+    for r in raw:
+        diff[1:] |= r[1:] != r[:-1]
+    raw = [r[diff] for r in raw]
+    per = rng.integers(1, min(N, d) + 1, raw[0].shape[0])
+    per[rng.random(per.shape[0]) < 0.5] = 1  # singletons too
+    per[0] = N
+    sids = [np.sort(rng.choice(N, p, replace=False)) for p in per]
+    words = [np.repeat(r, per) for r in raw]
+    sid = np.concatenate(sids).astype(np.int32)
+    count = rng.integers(1, cmax + 1, sid.shape[0]).astype(np.int32)
+    return words, sid, count
+
+
+@pytest.mark.parametrize("N,k", [(1, 21), (2, 21), (8, 21), (40, 33),
+                                 (100, 63)])
+def test_segment_stats_match_stats_from_rows(N, k):
+    rng = np.random.default_rng(N + k)
+    words, sid, count = _solid_rows(rng, N, 400, k, d=8)
+    n = sid.shape[0]
+    tw = tuple(torch.from_numpy(w) for w in words)
+    w32 = [w.numpy().astype(np.uint32) for w in tk.uint32_words(tw, k)]
+    kept = np.ones(n, bool)
+    js = jc._stats_from_rows(
+        tuple(jnp.asarray(w) for w in w32), jnp.asarray(sid),
+        jnp.asarray(count), jnp.asarray(kept), n_banks=N, simple=False,
+        complex_=False, count_bits=32, vary_axes=(), psum_axis="",
+        rows_compacted=True)
+    _, newk, _, d_max, n_distinct, n_shared = jc._segment_rows(
+        tuple(jnp.asarray(w) for w in w32), jnp.asarray(kept))
+    bins, got_newk, scalars = tc.segment_stats(
+        tw, torch.from_numpy(sid), torch.from_numpy(count), n_banks=N)
+    np.testing.assert_array_equal(bins[0].numpy(), js.distinct_per_bank)
+    np.testing.assert_array_equal(bins[1].numpy(), js.solid_per_bank)
+    np.testing.assert_array_equal(bins[2].numpy(), js.chord_n2_per_bank)
+    np.testing.assert_array_equal(got_newk.numpy(), np.asarray(newk))
+    assert scalars.tolist() == [int(n_distinct), int(n_shared), int(d_max),
+                                int(js.max_count)]
+    assert int(js.nb_distinct) == int(n_distinct)
+    assert int(js.nb_shared) == int(n_shared) > 0 or N == 1
+
+
+def test_raw_stats_take_the_segment_pass():
+    """``_raw_stats_from_rows`` fed its own ``segment_stats`` gives the
+    same stats as without them, and the totals come from the pass."""
+    rng = np.random.default_rng(5)
+    words, sid, count = _solid_rows(rng, 12, 300, 21)
+    args = (tuple(torch.from_numpy(w) for w in words), torch.from_numpy(sid),
+            torch.from_numpy(count))
+    seg = tc.segment_stats(*args, n_banks=12)
+    a = tc._raw_stats_from_rows(*args, n_banks=12, simple=True,
+                                complex_=True)
+    b = tc._raw_stats_from_rows(*args, n_banks=12, simple=True,
+                                complex_=True, segments=seg)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert torch.equal(a.solid_per_bank, seg[0][1])
+    assert int(a.nb_distinct) == int(seg[2][0])
+
+
+# ---- (b) a numpy model of csrc/runs.cu's work split ---------------------
+
+
+def _model_lengths(flags: np.ndarray, tile: int, threads: int):
+    """Run lengths at each first row as the two passes compute them:
+    pass 1 each tile's first boundary (None where the tile holds none);
+    pass 2, per tile, each thread's first boundary over its contiguous
+    rows, an exclusive suffix min over the later threads, past the
+    tile's last boundary the first boundary of a later tile (read 32
+    tiles at a time), and the backward walk."""
+    E = flags.shape[0]
+    rows = tile // threads
+    n_tiles = -(-E // tile)
+    tile_first = []
+    for t in range(n_tiles):
+        hit = np.flatnonzero(flags[t * tile:(t + 1) * tile])
+        tile_first.append(t * tile + int(hit[0]) if hit.size else None)
+    lengths = np.zeros(E, np.int64)
+    for t in range(n_tiles):
+        t0 = t * tile
+        f = np.ones(tile, bool)  # rows past E read as boundaries
+        f[:min(tile, E - t0)] = flags[t0:t0 + tile]
+        after = E
+        for base in range(t + 1, n_tiles, 32):
+            found = [v for v in tile_first[base:base + 32] if v is not None]
+            if found:
+                after = found[0]
+                break
+        mine = [next((th * rows + r for r in range(rows)
+                      if f[th * rows + r]), tile) for th in range(threads)]
+        for th in range(threads):
+            nxt = min(mine[th + 1:], default=tile)
+            nxt = t0 + nxt if nxt < tile else after
+            for r in range(rows - 1, -1, -1):
+                i = t0 + th * rows + r
+                if f[th * rows + r]:
+                    if i < E:
+                        lengths[i] = nxt - i
+                    nxt = i
+    return lengths
+
+
+def _edge_flags(E: int, tile: int, kind: str, rng):
+    f = np.zeros(E, bool)
+    if kind == "own":  # every row its own run
+        f[:] = True
+    elif kind == "one":  # one run over every tile
+        f[0] = True
+    elif kind == "edges":  # a run ends at, before and after every edge
+        f[0] = True
+        for e in range(tile, E, tile):
+            f[max(0, e - 1):e + 2] = True
+    elif kind == "long":  # runs past a tile, and short ones between
+        f[::3 * tile + 5] = True
+        f[rng.random(E) < 0.001] = True
+    else:  # random
+        f[0] = True
+        f[rng.random(E) < 0.05] = True
+    return f
+
+
+@pytest.mark.parametrize("kind", ["own", "one", "edges", "long", "random"])
+@pytest.mark.parametrize("tile,threads", [(TILE, THREADS), (64, 16)])
+def test_tile_model_matches_plain_run_counts(kind, tile, threads):
+    rng = np.random.default_rng(len(kind) + tile)
+    E = 5 * tile + 17
+    flags = _edge_flags(E, tile, kind, rng)
+    key = np.cumsum(flags).astype(np.int64)  # runs where flags say
+    count, keep, _ = _plain_counts([key], 1, INT32_MAX)
+    np.testing.assert_array_equal(keep.numpy(), flags)
+    np.testing.assert_array_equal(_model_lengths(flags, tile, threads),
+                                  count.numpy())
+
+
+@pytest.mark.parametrize("E", [1, 2, 4095, 4096, 4097])
+def test_tile_model_at_small_sizes(E):
+    rng = np.random.default_rng(E)
+    flags = _edge_flags(E, TILE, "random", rng)
+    key = np.cumsum(flags).astype(np.int64)
+    count, _, total = _plain_counts([key], 1, INT32_MAX)
+    np.testing.assert_array_equal(_model_lengths(flags, TILE, THREADS),
+                                  count.numpy())
+    assert int(total) == flags.sum()
+
+
+def _model_bins(sid, count, N: int, n_tiles_rows: int, blocks: int):
+    """Per-bank bins as segment_stats adds them: a persistent grid of
+    ``blocks`` CTAs over tiles, each CTA's sums in shared bins flushed
+    once when 3 x 8 x N bytes fit, else every add straight into the
+    outputs."""
+    out = np.zeros((3, N), np.int64)
+    E = sid.shape[0]
+    n_tiles = -(-E // n_tiles_rows)
+    shared = N <= SHARED_BANKS
+    for b in range(min(blocks, n_tiles)):
+        acc = np.zeros((3, N), np.int64) if shared else out
+        for t in range(b, n_tiles, blocks):
+            s = sid[t * n_tiles_rows:(t + 1) * n_tiles_rows].astype(np.int64)
+            c = count[t * n_tiles_rows:(t + 1) * n_tiles_rows].astype(
+                np.int64)
+            np.add.at(acc[0], s, 1)
+            np.add.at(acc[1], s, c)
+            np.add.at(acc[2], s, c * c)
+        if shared:
+            out += acc
+    return out
+
+
+@pytest.mark.parametrize("N", [1, 8, SHARED_BANKS, SHARED_BANKS + 1, 20000])
+def test_bin_model_matches_plain_segment_stats(N):
+    rng = np.random.default_rng(N)
+    words, sid, count = _solid_rows(rng, N, 3000, 21, cmax=INT32_MAX)
+    bins, newk, scalars = tc.segment_stats(
+        (torch.from_numpy(words[0]),), torch.from_numpy(sid),
+        torch.from_numpy(count), n_banks=N)
+    # tiles of 256 rows over 3 CTAs: every CTA takes several tiles
+    np.testing.assert_array_equal(_model_bins(sid, count, N, 256, 3),
+                                  bins.numpy())
+    lengths = _model_lengths(newk.numpy(), 256, 16)
+    assert scalars.tolist()[:3] == [int((lengths > 0).sum()),
+                                    int((lengths >= 2).sum()),
+                                    int(lengths.max())]
+
+
+def test_wrappers_refuse_bad_columns():
+    a = torch.zeros(8, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        tc.run_counts(())
+    with pytest.raises(ValueError):
+        tc.run_counts((a, torch.zeros(7, dtype=torch.int64)))
+    with pytest.raises(ValueError):
+        tc.run_counts((a.to(torch.int16),))
+    with pytest.raises(ValueError):
+        tc.run_counts((a,) * 9)
+    with pytest.raises(ValueError):
+        tc.segment_stats((a.to(torch.int32),), a, a, n_banks=2)
+    count, keep, total = tc.run_counts((a[:0],))
+    assert count.shape == keep.shape == (0,) and int(total) == 0
+
+
+# ---- (c) on the card ----------------------------------------------------
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["own", "one", "edges", "long", "random"])
+@pytest.mark.parametrize("n_cols", [1, 6])
+def test_run_counts_kernel_matches_plain_on_cuda(kind, n_cols):
+    dev = _cuda()
+    from simka_tpu_torch.ops import _kernels
+
+    assert _kernels.lib().simka_runs_tile_rows() == TILE
+    rng = np.random.default_rng(n_cols)
+    E = (1 << 24) if kind == "one" else 9 * TILE + 123
+    flags = _edge_flags(E, TILE, kind, rng)
+    lengths = np.diff(np.flatnonzero(np.append(flags, True)))
+    cols = _runs(lengths, rng, n_cols, np.int32 if n_cols > 1 else np.int64)
+    for amin, amax in ((1, INT32_MAX), (3, 5), (2, 2)):
+        want = _plain_counts(cols, amin, amax)
+        before = tc.run_counts_launches
+        got = tc.run_counts(tuple(torch.from_numpy(c).to(dev) for c in cols),
+                            amin, amax)
+        torch.cuda.synchronize()
+        assert tc.run_counts_launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 2, 8, 100, 1000, 20000])
+def test_segment_stats_kernel_matches_plain_on_cuda(N):
+    dev = _cuda()
+    from simka_tpu_torch.ops import _kernels
+
+    assert _kernels.lib().simka_segment_shared_banks() == SHARED_BANKS
+    rng = np.random.default_rng(N)
+    words, sid, count = _solid_rows(rng, N, 20000, 63, cmax=INT32_MAX)
+    args = [tuple(torch.from_numpy(w) for w in words), torch.from_numpy(sid),
+            torch.from_numpy(count)]
+    want = tc.segment_stats(*args, n_banks=N)
+    before = tc.segment_stats_launches
+    got = tc.segment_stats(tuple(w.to(dev) for w in args[0]),
+                           args[1].to(dev), args[2].to(dev), n_banks=N)
+    torch.cuda.synchronize()
+    assert tc.segment_stats_launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
