@@ -316,7 +316,7 @@ MURMUR_REPLACES = "simka_tpu/minhash/device.py:50"
 # device time counts only the trace's events of these
 HAND_KERNELS = ("compact_onepass", "extract_kmers", "murmur_kmers",
                 "min_pair_tallies", "pair_sums", "probe_", "run_bounds",
-                "run_lengths", "segment_stats")
+                "run_counts", "segment_stats")
 SKETCH_SIZES = (100_000, 1_000_000)  # `min sketch` and `min pipeline`
 PAIR_REPLACES = "simka_tpu/minhash/device_distance.py:85"
 WIDE_N, WIDE_S = 100, 1_000_000  # phase 12a's in-memory sketches
@@ -3113,6 +3113,7 @@ EXTRACT_REPLACES = "simka_tpu/core/pipeline.py:794"
 RUN_COUNTS_REPLACES = "simka_tpu/ops/countjoin.py:376"
 SEGMENT_REPLACES = "simka_tpu/ops/countjoin.py:1080"
 EXTRACT_KS = (1, 15, 16, 21, 31, 32, 33, 48, 62, 63, 64, 127)
+EXTRACT_WIDTHS = (32, 104, 160)
 SEGMENT_NS = (1, 2, 8, 100, 1000, 20000)
 RUN_TILE = 4096  # csrc/runs.cu's rows a tile
 # low-complexity repeats of phase 15a's batch: Shannon indices 0, 0.81,
@@ -3259,6 +3260,39 @@ def extract_vs_plain(dev, seed: int) -> int:
                 want = kmers._extract_kmers_plain(codes_d, k, cx, 0.0, False)
             same(f"extract_kmers_codes k={k} comp_xor={cx}", got, want)
             cases += 1
+    # row strides of 8, 26 and 40 packed bytes, 1021 reads (the stream
+    # ends mid-tile), and views one row in (pointers off 16-byte
+    # alignment: the staging's byte loads)
+    strides = 0
+    for width in EXTRACT_WIDTHS:
+        codes = extract_batch(seed + width, n=1022, width=width)
+        packed, vb = (torch.from_numpy(a).to(dev)
+                      for a in pack_codes_host(codes))
+        codes_d = torch.from_numpy(codes).to(dev)
+        for k in (k for k in EXTRACT_KS if k <= width):
+            for cx in (3, 2):
+                for thr in (0.0, 1.5):
+                    for view in (slice(0, 1021), slice(1, 1022)):
+                        p, v = packed[view], vb[view]
+                        got = kmers.extract_kmers(p, v, k, comp_xor=cx,
+                                                  min_shannon=thr,
+                                                  with_hist=True)
+                        with plain_on_card():
+                            want = kmers._extract_kmers_plain(
+                                kmers.unpack_codes(p, v), k, cx, thr, True)
+                        same(f"extract_kmers L={width} k={k} comp_xor={cx} "
+                             f"shannon={thr} rows {view}", got, want)
+                        cases += 1
+                        strides += 1
+                got = kmers.extract_kmers_codes(codes_d[1:], k, comp_xor=cx,
+                                                with_hist=True)
+                with plain_on_card():
+                    want = kmers._extract_kmers_plain(codes_d[1:], k, cx,
+                                                      0.0, True)
+                same(f"extract_kmers_codes L={width} k={k} comp_xor={cx} "
+                     "rows 1..", got, want)
+                cases += 1
+                strides += 1
     torch.cuda.synchronize()
     if kmers.launches - saved != cases:
         raise AssertionError(f"extract_kmers: {kmers.launches - saved} "
@@ -3266,9 +3300,10 @@ def extract_vs_plain(dev, seed: int) -> int:
     kmers.launches = saved
     say(f"phase 15a: extract_kmers == plain bit for bit in {cases} cases "
         f"(k {EXTRACT_KS}, comp_xor 3 and 2, Shannon off / 1.0 / 1.5, "
-        f"histogram on / off, the codes entry point; {codes.shape[0]} reads "
-        f"x {codes.shape[1]}: ragged, all-N, shorter than k, empty, "
-        "low-complexity)")
+        f"histogram on / off, the codes entry point; 1024 reads x 160: "
+        "ragged, all-N, shorter than k, empty, low-complexity; of them "
+        f"{strides} at L {EXTRACT_WIDTHS} (rows of 8, 26 and 40 packed "
+        "bytes), 1021 reads, aligned and one row in)")
     return 0
 
 
@@ -3284,10 +3319,12 @@ def run_keys(flags: torch.Tensor, n_cols: int):
 
 def run_counts_vs_plain(dev, seed: int) -> int:
     """Phase 15a, run_counts == its plain version bit for bit (count,
-    keep, total): every row its own run; one run of 2^24 rows; runs
-    ending at, one before and one after every tile edge; random runs
-    of 1-8 rows with the bounds (3, 6), so counts at amin - 1, amin,
-    amax and amax + 1; E = 1; keys of 1 and 6 columns."""
+    keep, total): every row its own run; one run of 2^24 rows, from row
+    0 and from mid-tile; runs ending at, one before and one after every
+    tile edge; random runs of 1-8 rows with the bounds (3, 6), so counts
+    at amin - 1, amin, amax and amax + 1; runs ending at each distance
+    run_end searches past a tile; E = 1; keys of 1 and 6 columns; and
+    SimkaMin's unsigned-order hashes with 1 and 2 columns."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 15)
     E = 64 * RUN_TILE + 123
@@ -3299,12 +3336,19 @@ def run_counts_vs_plain(dev, seed: int) -> int:
     starts = torch.cumsum(short, 0)
     randoms = torch.zeros(E, dtype=torch.bool, device=dev)
     randoms[starts[starts < E]] = True
+    mid = torch.zeros((1 << 24) + 3 * RUN_TILE, dtype=torch.bool,
+                      device=dev)
+    mid[:RUN_TILE + 1000] = True
+    mid[RUN_TILE + 1000 + (1 << 24)] = True
     kinds = {
         "every row its own run": torch.ones(E, dtype=torch.bool, device=dev),
         "one run of 2^24 rows": torch.zeros(1 << 24, dtype=torch.bool,
                                             device=dev),
+        "a run of 2^24 rows from mid-tile": mid,
         "runs at every tile edge": edges,
         "runs of 1-8 rows": randoms,
+        "runs ending at each search distance past a tile":
+            search_distance_flags(dev),
         "E = 1": torch.ones(1, dtype=torch.bool, device=dev),
     }
     saved, cases = countjoin.run_counts_launches, 0
@@ -3320,14 +3364,64 @@ def run_counts_vs_plain(dev, seed: int) -> int:
                 same(f"run_counts, {kind}, {n_cols} columns, [{amin}, "
                      f"{amax}]", got, want)
                 cases += 1
+    for n_cols, cols in unsigned_order_keys(gen, dev):
+        for amin, amax in ((1, countjoin.INT32_MAX), (2, 1000)):
+            got = countjoin.run_counts(cols, amin, amax)
+            with plain_on_card():
+                want = countjoin._run_counts_plain(cols, amin, amax)
+            same(f"run_counts, unsigned-order keys, {n_cols} columns, "
+                 f"[{amin}, {amax}]", got, want)
+            cases += 1
     torch.cuda.synchronize()
     if countjoin.run_counts_launches - saved != cases:
         raise AssertionError("run_counts: one launch a call expected")
     countjoin.run_counts_launches = saved
     say(f"phase 15a: run_counts == plain bit for bit in {cases} cases "
         f"({', '.join(kinds)}; 1 and 6 key columns; bounds [1, INT32_MAX], "
-        "[3, 6], [2^24, 2^24])")
+        "[3, 6], [2^24, 2^24]; and hashes grouped in unsigned order, "
+        "positive before negative, alone and with a sample id)")
     return 0
+
+
+def search_distance_flags(dev) -> torch.Tensor:
+    """Runs that start mid-tile and end d rows past the tile's end, for
+    every d of 2^j - 1, 2^j, 2^j + 1 (j = 0..20) and of run_end's probe
+    rows 31 + (32 << l) +- 1 (l = 0..15), each in its own tiles: every
+    row its own run before the long one, runs of 3 rows after it."""
+    ends = sorted({d for j in range(21) for d in ((1 << j) - 1, 1 << j,
+                                                 (1 << j) + 1)}
+                  | {31 + (32 << l) + o for l in range(16)
+                     for o in (-1, 0, 1)})
+    flags = []
+    for d in ends:
+        start = RUN_TILE // 2 + d % 1000
+        n = -(-(2 * RUN_TILE + d) // RUN_TILE) * RUN_TILE  # whole tiles
+        region = torch.zeros(n, dtype=torch.bool)
+        region[:start] = True
+        region[RUN_TILE + d::3] = True
+        flags.append(region)
+    return torch.cat(flags).to(dev)
+
+
+def unsigned_order_keys(gen, dev):
+    """SimkaMin's key orders (minhash/device.py): int64 hashes with runs
+    of 1 to 3000, sorted unsigned (``h ^ SIGN``: positive before
+    negative, grouped but not ascending as signed numbers), alone and
+    then by a sample id as the second column."""
+    from simka_tpu_torch.minhash.device import SIGN
+
+    distinct = torch.randint(-(1 << 62), 1 << 62, (200_000,), generator=gen,
+                             device=dev) * 2
+    reps = torch.randint(1, 40, (distinct.shape[0],), generator=gen,
+                         device=dev)
+    reps[:50] = 3000
+    h = torch.repeat_interleave(distinct, reps)
+    h = h[torch.randperm(h.shape[0], generator=gen, device=dev)]
+    sid = torch.randint(0, 4, h.shape, generator=gen, device=dev)
+    order = torch.sort(h ^ SIGN, stable=True).indices
+    yield 1, (h[order],)
+    order = order[torch.sort(sid[order], stable=True).indices]
+    yield 2, (h[order], sid[order])
 
 
 def segment_rows_of(N: int, gen, dev, n_pairs: int = 1 << 20):

@@ -29,27 +29,52 @@
 // table (ops/kmers.py::shannon_terms), then fabsf: adds only, so no
 // contraction to FMA can change it, and the build has no fast-math.
 //
-// Its bound: device-memory bandwidth. A window reads a quarter
-// byte of codes and an eighth of validity and writes 8 B a word and
-// 1 B of mask: at phase 7's batch (2^17 reads x 104 slots, k = 21,
-// 11,010,048 windows) 5.1 MB in and 99.1 MB out, 0.031 ms at 3.35
-// TB/s. This form takes 0.73 ms there on an H100 (chip_smoke.py phase
-// 15b): its instructions hold it, about 2k base reads a window (shared
-// by L1) and a few integer instructions a base.
+// Its bound: device-memory bandwidth. A window reads a quarter byte of
+// codes and an eighth of validity and writes 8 B a word and 1 B of
+// mask: at phase 7's batch (2^17 reads x 104 slots, k = 21, 11,010,048
+// windows) 5.1 MB in and 99.1 MB out, 0.031 ms at 3.35 TB/s. This form
+// takes 0.075 ms there on the device (0.082 ms at k = 63, 1.38x the
+// bytes in half the windows: its work a window, not its bytes, holds
+// it; profiling/kernel_ab.py, NVIDIA H100 80GB HBM3, 700.00 W).
 //
-// This first form is a thread a window with no carry between windows:
-// a per-window Horner over the window's bases, read from the packed
-// bytes through L1 (neighbouring windows share every byte), once in
-// forward order and once in reverse for the complement. A base never
-// straddles two 62-bit words, so each word is its own Horner over its
-// own offsets. The word count is a template parameter, so the words of
-// both strands stay in registers. Grid-stride; the histogram and the
-// kept total gather in shared memory a block and go out with one
-// integer atomic a bucket: exact, the same on every run.
+// This form does O(words) work a window:
+//   - The batch is one flat stream of B * L bases (row-major rows are
+//     contiguous). A CTA of a persistent grid takes tiles of kTileBases
+//     bases: the windows that start in the tile, a contiguous range of
+//     e, and their bases, the tile plus a halo of k - 1. It stages the
+//     tile's 2-bit stream and validity bits in shared memory, 64 bases a
+//     thread with 16-byte loads (the packed entry point), or 64 codes
+//     packed into the same two streams as they are staged (the codes
+//     entry point). An invalid base gets code 3 there: the packed bytes
+//     OR its validity bits spread to 2-bit groups. The next tile's loads
+//     are issued into registers before the current tile's windows are
+//     computed (register double buffering).
+//   - Thread t takes windows t, t + 256, ... of the tile (consecutive
+//     threads, consecutive windows: coalesced stores), walking (offset in
+//     the read, offset in the tile's stream) by a step computed once on
+//     the host: no division a window.
+//   - The stream is little-endian 2-bit, so the 2n bits at a span's
+//     offset are its n bases read backwards: the reverse complement word
+//     is that value XOR the replicated complement. The tile is staged a
+//     second time with its 2-bit groups reversed (__brev and a swap
+//     within each pair, once a staged word), where the bits at the
+//     mirrored offset are the span's bases forwards: the forward word.
+//     Each 31-base word is so two extractions (three 32-bit shared loads
+//     and two funnel shifts each) at their own offsets; validity is k
+//     bits of the validity stream, all set; the Shannon counts are
+//     popcounts of the per-code match masks.
+//   - A thread counts its kept windows in a register and each kept
+//     window's bucket in its own column of a shared [16][256] table
+//     (bucket-major, so every lane adds in its own bank: no conflict and
+//     no atomic); at the end a warp sum a bucket and one integer atomic
+//     a bucket a CTA, and one a warp for the kept total: exact, the
+//     same on every run. No warp collective in the window loop. Thread
+//     0 works out the next tile's geometry while the current tile's
+//     windows run, by steps the host computes: no division a tile.
 //
 // Plain C interface for ctypes. Nothing here allocates or synchronises:
 // the caller passes the outputs and the stream; the entry point returns
-// the first cudaError_t of its memset and launch.
+// the first cudaError_t of its memset, its queries and its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,36 +82,189 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 4096;
 constexpr int kWordBases = 31;
 constexpr int kMaxK = 127;
 constexpr int kBuckets = 16;
+constexpr int kVecBases = 64;      // bases a thread stages
+constexpr int kTileBases = 4096;   // window starts a tile
+// staged vectors a tile: the tile and its k - 1 halo bases
+constexpr int kMaxVecs = (kTileBases + kMaxK - 1 + kVecBases - 1) / kVecBases;
+static_assert(kMaxVecs <= kThreads, "a thread stages one vector");
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Batch {
   const uint8_t* packed;     // [B, L/4] 2-bit codes, or null
   const uint8_t* validbits;  // [B, L/8] validity bits (with packed)
-  const uint8_t* codes;      // [B, L] codes, 255 invalid (without packed)
-  int64_t L;
+  const uint8_t* codes;      // [B, L] codes, >= 4 invalid (without packed)
+  int aligned;               // the stream pointers allow vector loads
 };
 
-// base `pos` of row `row`: its code, 3 where invalid (and `bad` set)
+struct Geometry {
+  int64_t N;       // bases of the flat stream, B * L
+  int64_t L, Wk;   // row length, windows a row
+  int64_t E;       // windows, B * Wk
+  int64_t tiles;   // ceil(N / kTileBases)
+  int k;
+  int step_rows;   // kThreads / Wk: rows a window step passes
+  int step_rem;    // kThreads % Wk
+  // a tile's start (kTileBases on) and a CTA's next tile's (the grid's
+  // kTileBases on), as rows and a remainder of bases: no division in
+  // the kernel
+  int64_t tile_rows, tile_rem, grid_rows, grid_rem;
+};
+
+// one thread's staged vector, as loaded (combined when stored)
 template <bool kPacked>
-__device__ __forceinline__ uint32_t base_at(const Batch& in, int64_t row,
-                                            int64_t pos, bool& bad) {
-  if (kPacked) {
-    const uint32_t byte = __ldg(in.packed + row * (in.L >> 2) + (pos >> 2));
-    const uint32_t vbit =
-        (__ldg(in.validbits + row * (in.L >> 3) + (pos >> 3)) >> (pos & 7)) &
-        1u;
-    if (!vbit) {
-      bad = true;
-      return 3u;
-    }
-    return (byte >> (2 * (pos & 3))) & 3u;
+struct Raw;
+template <>
+struct Raw<true> {
+  uint4 pk;  // 64 bases, 2 bits each
+  uint2 vb;  // their 64 validity bits
+};
+template <>
+struct Raw<false> {
+  uint4 c[4];  // 64 codes
+};
+
+// vector v (bases [64 v, 64 v + 64)) of the stream; past N zero bits
+// (packed) or code 255 (codes): invalid, and read by no window
+__device__ __forceinline__ void load_raw(const Batch& in, int64_t v,
+                                         int64_t N, Raw<true>& r) {
+  if (in.aligned && (v + 1) * kVecBases <= N) {
+    r.pk = __ldg(reinterpret_cast<const uint4*>(in.packed) + v);
+    r.vb = __ldg(reinterpret_cast<const uint2*>(in.validbits) + v);
+    return;
   }
-  const uint32_t c = __ldg(in.codes + row * in.L + pos);
-  if (c >= 4u) bad = true;
-  return c & 3u;
+  uint32_t p[4] = {0, 0, 0, 0}, q[2] = {0, 0};
+  for (int j = 0; j < 16; ++j) {
+    const int64_t byte = 16 * v + j;  // bases 4 byte .. 4 byte + 3
+    if (4 * byte < N) p[j / 4] |= (uint32_t)__ldg(in.packed + byte)
+                                  << (8 * (j % 4));
+  }
+  for (int j = 0; j < 8; ++j) {
+    const int64_t byte = 8 * v + j;
+    if (8 * byte < N) q[j / 4] |= (uint32_t)__ldg(in.validbits + byte)
+                                  << (8 * (j % 4));
+  }
+  r.pk = make_uint4(p[0], p[1], p[2], p[3]);
+  r.vb = make_uint2(q[0], q[1]);
+}
+
+__device__ __forceinline__ void load_raw(const Batch& in, int64_t v,
+                                         int64_t N, Raw<false>& r) {
+  if (in.aligned && (v + 1) * kVecBases <= N) {
+    const uint4* src = reinterpret_cast<const uint4*>(in.codes) + 4 * v;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r.c[j] = __ldg(src + j);
+    return;
+  }
+  uint32_t w[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) w[j] = 0xffffffffu;
+  for (int j = 0; j < kVecBases; ++j) {
+    const int64_t pos = kVecBases * v + j;
+    if (pos < N)
+      w[j / 4] = (w[j / 4] & ~(0xffu << (8 * (j % 4)))) |
+                 ((uint32_t)__ldg(in.codes + pos) << (8 * (j % 4)));
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    r.c[j] = make_uint4(w[4 * j], w[4 * j + 1], w[4 * j + 2], w[4 * j + 3]);
+}
+
+// 16 bits -> 32: bit i to bit 2i
+__device__ __forceinline__ uint32_t spread16(uint32_t x) {
+  x = (x | (x << 8)) & 0x00ff00ffu;
+  x = (x | (x << 4)) & 0x0f0f0f0fu;
+  x = (x | (x << 2)) & 0x33333333u;
+  return (x | (x << 1)) & 0x55555555u;
+}
+
+// four codes (a byte each) -> their 2-bit codes (c & 3, 8 bits) and
+// validity (c < 4, 4 bits)
+__device__ __forceinline__ void pack4(uint32_t x, uint32_t& code8,
+                                      uint32_t& valid4) {
+  uint32_t c = x & 0x03030303u;
+  c = (c | (c >> 6)) & 0x000f000fu;
+  code8 = (c | (c >> 12)) & 0xffu;
+  // bit 6 of a byte of t + 0x3f set iff that byte of x is >= 4
+  const uint32_t high = (((x >> 2) & 0x3f3f3f3fu) + 0x3f3f3f3fu) & 0x40404040u;
+  uint32_t v = (~high >> 6) & 0x01010101u;
+  v = (v | (v >> 7)) & 0x00030003u;
+  valid4 = (v | (v >> 14)) & 0xfu;
+}
+
+// the 16 2-bit groups of x in reverse order
+__device__ __forceinline__ uint32_t reverse_groups(uint32_t x) {
+  x = __brev(x);
+  return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
+}
+
+// A tile's staged streams in shared memory, 32-bit words (+ 2 words of
+// padding: a funnel's top words):
+//   pk: the 2-bit stream, tile base i at bits 2i, 2i + 1;
+//   rv: the same stream reversed, base i at group kMaxVecs * 64 - 1 - i,
+//       so that the bits at a span's offset there are its bases in
+//       forward (most significant first) order;
+//   vb: the validity bits, base i at bit i.
+struct Staged {
+  uint32_t pk[4 * kMaxVecs + 2];
+  uint32_t rv[4 * kMaxVecs + 2];
+  uint32_t vb[2 * kMaxVecs + 2];
+};
+
+// vector j's 64 bases into the staged streams
+__device__ __forceinline__ void put_staged(const uint32_t (&p)[4],
+                                           const uint32_t (&v)[2], int j,
+                                           Staged& st) {
+  const int jr = kMaxVecs - 1 - j;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    st.pk[4 * j + q] = p[q];
+    st.rv[4 * jr + 3 - q] = reverse_groups(p[q]);
+  }
+  st.vb[2 * j] = v[0];
+  st.vb[2 * j + 1] = v[1];
+}
+
+// the packed route: an invalid base's two bits ORed to code 3
+__device__ __forceinline__ void store_staged(const Raw<true>& r, int j,
+                                             Staged& st) {
+  uint32_t p[4] = {r.pk.x, r.pk.y, r.pk.z, r.pk.w};
+  const uint32_t v[2] = {r.vb.x, r.vb.y};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    p[q] |= 3u * spread16(~(v[q / 2] >> (16 * (q % 2))) & 0xffffu);
+  put_staged(p, v, j, st);
+}
+
+// the codes route: code c & 3, valid where c < 4
+__device__ __forceinline__ void store_staged(const Raw<false>& r, int j,
+                                             Staged& st) {
+  uint32_t p[4] = {0, 0, 0, 0}, v[2] = {0, 0};
+#pragma unroll
+  for (int u = 0; u < 16; ++u) {  // codes 4u .. 4u + 3
+    const uint4& c = r.c[u / 4];
+    const uint32_t x = u % 4 == 0 ? c.x : u % 4 == 1 ? c.y : u % 4 == 2 ? c.z
+                                                                        : c.w;
+    uint32_t code8, valid4;
+    pack4(x, code8, valid4);
+    p[u / 4] |= code8 << (8 * (u % 4));
+    v[u / 8] |= valid4 << (4 * (u % 8));
+  }
+  put_staged(p, v, j, st);
+}
+
+// 64 bits of a staged stream from bit `bit`: two funnel shifts
+__device__ __forceinline__ uint64_t bits64(const uint32_t* s, int bit) {
+  const int w = bit >> 5, sh = bit & 31;
+  const uint32_t a = s[w], b = s[w + 1], c = s[w + 2];
+  return (uint64_t)__funnelshift_r(a, b, sh) |
+         ((uint64_t)__funnelshift_r(b, c, sh) << 32);
+}
+
+__device__ __forceinline__ uint64_t low_mask(int nbits) {  // nbits <= 64
+  return nbits >= 64 ? ~0ull : (1ull << nbits) - 1;
 }
 
 __device__ __forceinline__ uint32_t mix_hash(uint32_t hi, uint32_t lo) {
@@ -122,120 +300,237 @@ __device__ __forceinline__ uint32_t repartition_hash(const uint64_t (&o)[NW],
   return h;
 }
 
-template <int NW, bool kPacked>
-__global__ void __launch_bounds__(kThreads)
-extract_kmers(Batch in, int64_t E, int64_t Wk, int k, uint32_t comp_xor,
-              int use_thr, float thr, const float* __restrict__ terms,
-              int with_hist, int n32, uint64_t* __restrict__ words,
-              uint8_t* __restrict__ keep,
-              unsigned long long* __restrict__ counts) {
-  __shared__ float s_terms[kMaxK + 1];
-  __shared__ unsigned long long s_hist[kBuckets];
-  __shared__ unsigned long long s_kept[kThreads / 32];
-  if (use_thr)
-    for (int i = threadIdx.x; i <= k; i += kThreads) s_terms[i] = terms[i];
-  if (threadIdx.x < kBuckets) s_hist[threadIdx.x] = 0;
-  __syncthreads();
-
-  const int top = k - kWordBases * (NW - 1);  // bases of the top word
-  unsigned long long kept = 0;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < E;
-       e += stride) {
-    const int64_t row = e / Wk;
-    const int64_t p = e - row * Wk;
-    bool bad = false;
-    uint32_t fcnt = 0;  // forward base counts, 8 bits a code (k <= 127)
-    uint64_t f[NW], r[NW];
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      // word w spans window offsets [lo, hi), most significant first
-      const int hi = top + kWordBases * w;
-      const int lo = w == 0 ? 0 : hi - kWordBases;
-      uint64_t v = 0;
-      for (int i = lo; i < hi; ++i) {
-        const uint32_t c = base_at<kPacked>(in, row, p + i, bad);
-        v = (v << 2) | c;
-        fcnt += 1u << (8 * c);
-      }
-      f[w] = v;
-    }
-    // the reverse complement reads comp(base[k - 1 - j]) at offset j
-    bool unused = false;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const int hi = top + kWordBases * w;
-      const int lo = w == 0 ? 0 : hi - kWordBases;
-      uint64_t v = 0;
-      for (int j = lo; j < hi; ++j)
-        v = (v << 2) |
-            (base_at<kPacked>(in, row, p + k - 1 - j, unused) ^ comp_xor);
-      r[w] = v;
-    }
-    // lexicographic min, ties to forward
-    bool take_fwd = true, decided = false;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      if (!decided && f[w] != r[w]) {
-        take_fwd = f[w] < r[w];
-        decided = true;
-      }
-    }
-    uint64_t o[NW];
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      o[w] = take_fwd ? f[w] : r[w];
-      words[(int64_t)w * E + e] = o[w];
-    }
-    bool ok = !bad;
-    if (use_thr) {
-      // the canonical k-mer's base counts: the complement strand holds
-      // code c as many times as the forward one holds c ^ comp_xor
-      const uint32_t x = take_fwd ? 0u : comp_xor;
-      float s = s_terms[(fcnt >> (8 * (0u ^ x))) & 0xffu];
-      s = s + s_terms[(fcnt >> (8 * (1u ^ x))) & 0xffu];
-      s = s + s_terms[(fcnt >> (8 * (2u ^ x))) & 0xffu];
-      s = s + s_terms[(fcnt >> (8 * (3u ^ x))) & 0xffu];
-      ok = ok && fabsf(s) >= thr;
-    }
-    keep[e] = ok ? 1 : 0;
-    if (ok) {
-      ++kept;
-      if (with_hist)
-        atomicAdd(&s_hist[repartition_hash<NW>(o, n32) & (kBuckets - 1)],
-                  1ULL);
+// a base of the stream as (row, offset in the row)
+struct Pos {
+  int64_t row, off;
+  __device__ __forceinline__ void advance(int64_t rows, int64_t rem,
+                                          int64_t L) {
+    row += rows;
+    off += rem;
+    if (off >= L) {
+      off -= L;
+      ++row;
     }
   }
-  for (int o = 16; o > 0; o >>= 1)
-    kept += __shfl_down_sync(0xffffffffu, kept, o);
-  if (threadIdx.x % 32 == 0) s_kept[threadIdx.x / 32] = kept;
+};
+
+// a tile's windows [e_lo, e_lo + n); the first one's offset in its row
+// (p0) and its base in the tile (b0)
+struct TileInfo {
+  int64_t e_lo;
+  int n, p0, b0;
+};
+
+// the tile starting at base s0 = `at`
+__device__ __forceinline__ TileInfo tile_info(const Geometry& g, int64_t s0,
+                                              Pos at) {
+  auto before = [&](const Pos& q) {  // windows that start before q
+    return q.row * g.Wk + (q.off < g.Wk ? q.off : g.Wk);
+  };
+  TileInfo ti;
+  ti.e_lo = before(at);
+  Pos end = at;
+  end.advance(g.tile_rows, g.tile_rem, g.L);
+  ti.n = (int)((s0 + kTileBases < g.N ? before(end) : g.E) - ti.e_lo);
+  ti.p0 = at.off < g.Wk ? (int)at.off : 0;
+  ti.b0 = at.off < g.Wk ? 0 : (int)(g.L - at.off);
+  return ti;
+}
+
+template <int NW, bool kPacked>
+__global__ void __launch_bounds__(kThreads)
+extract_kmers(Batch in, Geometry g, uint32_t comp_xor, int use_thr, float thr,
+              const float* __restrict__ terms, int with_hist, int n32,
+              uint64_t* __restrict__ words, uint8_t* __restrict__ keep,
+              unsigned long long* __restrict__ counts) {
+  __shared__ Staged st;
+  __shared__ float s_terms[kMaxK + 1];
+  // kept windows a bucket, a column a thread (bucket-major: each lane
+  // adds in its own bank)
+  __shared__ uint32_t s_cnt[kBuckets][kThreads];
+  __shared__ TileInfo s_tile[2];  // this tile's and the next one's
+  const int t = threadIdx.x, lane = t % 32;
+  const int k = g.k;
+  if (use_thr)
+    for (int i = t; i <= k; i += kThreads) s_terms[i] = terms[i];
+  if (with_hist)
+    for (int b = 0; b < kBuckets; ++b) s_cnt[b][t] = 0;
+
+  const int top = k - kWordBases * (NW - 1);  // bases of the top word
+  const uint64_t comp = 0x5555555555555555ull * comp_xor;
+  const int wrap = k - 1;  // stream bases skipped from a row to the next
+  constexpr int kRv = 64 * kMaxVecs;  // bases of the reversed stream
+  uint32_t kept = 0;
+
+  auto vecs_of = [&](int64_t tile) -> int {
+    const int64_t s0 = tile * kTileBases;
+    int64_t n = g.N - s0;
+    if (n > kTileBases + k - 1) n = kTileBases + k - 1;
+    return (int)((n + kVecBases - 1) / kVecBases);
+  };
+
+  Raw<kPacked> raw;
+  int64_t tile = blockIdx.x;
+  Pos at;  // thread 0: the start of this CTA's next tile to describe
+  if (tile < g.tiles) {
+    if (t < vecs_of(tile))
+      load_raw(in, tile * (kTileBases / kVecBases) + t, g.N, raw);
+    if (t == 0) {
+      at.row = tile * kTileBases / g.L;  // one division a CTA
+      at.off = tile * kTileBases - at.row * g.L;
+      s_tile[0] = tile_info(g, tile * kTileBases, at);
+    }
+  }
+  for (int buf = 0; tile < g.tiles; tile += gridDim.x, buf ^= 1) {
+    __syncthreads();  // the last tile's windows are read
+    if (t < vecs_of(tile)) store_staged(raw, t, st);
+    __syncthreads();
+    const int64_t next = tile + gridDim.x;
+    if (next < g.tiles) {
+      if (t < vecs_of(next))
+        load_raw(in, next * (kTileBases / kVecBases) + t, g.N, raw);
+      // the next tile's geometry, while this one's windows run
+      if (t == 0) {
+        at.advance(g.grid_rows, g.grid_rem, g.L);
+        s_tile[buf ^ 1] = tile_info(g, next * kTileBases, at);
+      }
+    }
+
+    const int64_t e_lo = s_tile[buf].e_lo;
+    const int n_tile = s_tile[buf].n, p0 = s_tile[buf].p0;
+    const int b0 = s_tile[buf].b0;
+    // this thread's first window, t windows on
+    const int rows = (p0 + t) / (int)g.Wk;
+    int p = p0 + t - rows * (int)g.Wk;
+    int base = b0 + t + rows * wrap;
+#pragma unroll 2
+    for (int j = t; j < n_tile; j += kThreads) {
+      uint64_t f[NW], r[NW];
+      uint32_t n1 = 0, n2 = 0, n3 = 0;  // bases of code 1, 2, 3
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        // word w spans window offsets [lo, hi), most significant first;
+        // the reverse complement's word w reads offsets [k - hi, k - lo)
+        const int hi = top + kWordBases * w;
+        const int lo = w == 0 ? 0 : hi - kWordBases;
+        const uint64_t m = low_mask(2 * (hi - lo));
+        f[w] = bits64(st.rv, 2 * (kRv - base - hi)) & m;
+        r[w] = (bits64(st.pk, 2 * (base + k - hi)) ^ comp) & m;
+        if (use_thr) {
+          const uint64_t a = f[w] & 0x5555555555555555ull;
+          const uint64_t b = (f[w] >> 1) & 0x5555555555555555ull;
+          n1 += __popcll(a & ~b);
+          n2 += __popcll(b & ~a);
+          n3 += __popcll(a & b);
+        }
+      }
+      bool ok = true;
+      for (int c = 0; c < k; c += 64) {
+        const uint64_t m = low_mask(k - c);
+        ok = ok && (bits64(st.vb, base + c) & m) == m;
+      }
+      // lexicographic min, ties to forward
+      bool take_fwd = true, decided = false;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        if (!decided && f[w] != r[w]) {
+          take_fwd = f[w] < r[w];
+          decided = true;
+        }
+      }
+      uint64_t o[NW];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) o[w] = take_fwd ? f[w] : r[w];
+      if (use_thr) {
+        // the canonical k-mer's base counts: the complement strand holds
+        // code c as many times as the forward one holds c ^ comp_xor
+        const uint32_t x = take_fwd ? 0u : comp_xor;
+        const uint32_t n0 = (uint32_t)k - n1 - n2 - n3;
+        auto cnt = [&](uint32_t c) {
+          return c == 0 ? n0 : c == 1 ? n1 : c == 2 ? n2 : n3;
+        };
+        float s = s_terms[cnt(0u ^ x)];
+        s = s + s_terms[cnt(1u ^ x)];
+        s = s + s_terms[cnt(2u ^ x)];
+        s = s + s_terms[cnt(3u ^ x)];
+        ok = ok && fabsf(s) >= thr;
+      }
+      const int64_t e = e_lo + j;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) words[(int64_t)w * g.E + e] = o[w];
+      keep[e] = ok ? 1 : 0;
+      kept += ok;
+      if (with_hist && ok)
+        ++s_cnt[repartition_hash<NW>(o, NW == 1 ? 2 : n32) &
+                (kBuckets - 1)][t];
+      // kThreads windows on: step_rows rows and step_rem windows
+      p += g.step_rem;
+      base += kThreads + g.step_rows * wrap;
+      if (p >= g.Wk) {
+        p -= (int)g.Wk;
+        base += wrap;
+      }
+    }
+  }
+  // the CTA's totals: warp w sums buckets w and w + 8 over the threads;
+  // the kept total by a warp sum, one atomic a warp
+  for (int o = 16; o > 0; o >>= 1) kept += __shfl_down_sync(kFull, kept, o);
+  if (lane == 0 && kept) atomicAdd(&counts[kBuckets], kept);
+  if (!with_hist) return;
   __syncthreads();
-  if (threadIdx.x < kBuckets && s_hist[threadIdx.x])
-    atomicAdd(&counts[threadIdx.x], s_hist[threadIdx.x]);
-  if (threadIdx.x == 0) {
-    unsigned long long b = 0;
-    for (int j = 0; j < kThreads / 32; ++j) b += s_kept[j];
-    if (b) atomicAdd(&counts[kBuckets], b);
+  for (int b = t / 32; b < kBuckets; b += kThreads / 32) {
+    unsigned long long n = 0;
+    for (int i = lane; i < kThreads; i += 32) n += s_cnt[b][i];
+    for (int o = 16; o > 0; o >>= 1) n += __shfl_down_sync(kFull, n, o);
+    if (lane == 0 && n) atomicAdd(&counts[b], n);
   }
 }
 
-template <int NW>
-cudaError_t launch(bool packed, const Batch& in, int64_t E, int64_t Wk,
-                   int k, int comp_xor, int use_thr, float thr,
-                   const float* terms, int with_hist, int n32,
-                   uint64_t* words, uint8_t* keep, unsigned long long* counts,
-                   cudaStream_t stream) {
-  int64_t blocks = (E + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (packed)
-    extract_kmers<NW, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        in, E, Wk, k, (uint32_t)comp_xor, use_thr, thr, terms, with_hist,
-        n32, words, keep, counts);
-  else
-    extract_kmers<NW, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        in, E, Wk, k, (uint32_t)comp_xor, use_thr, thr, terms, with_hist,
-        n32, words, keep, counts);
+template <int NW, bool kPacked>
+cudaError_t launch(const Batch& in, const Geometry& g, int comp_xor,
+                   int use_thr, float thr, const float* terms, int with_hist,
+                   int n32, uint64_t* words, uint8_t* keep,
+                   unsigned long long* counts, cudaStream_t stream) {
+  auto kernel = extract_kmers<NW, kPacked>;
+  // the persistent grid, one full wave: asked once a device
+  static int grid_dev = -1, grid_size = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != grid_dev) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, 0);
+    if (err != cudaSuccess) return err;
+    grid_dev = dev;
+    grid_size = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int64_t blocks = grid_size < g.tiles ? grid_size : g.tiles;
+  Geometry gg = g;
+  gg.grid_rows = blocks * kTileBases / g.L;
+  gg.grid_rem = blocks * kTileBases % g.L;
+  kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      in, gg, (uint32_t)comp_xor, use_thr, thr, terms, with_hist, n32, words,
+      keep, counts);
   return cudaGetLastError();
+}
+
+template <int NW>
+cudaError_t launch(bool packed, const Batch& in, const Geometry& g,
+                   int comp_xor, int use_thr, float thr, const float* terms,
+                   int with_hist, int n32, uint64_t* words, uint8_t* keep,
+                   unsigned long long* counts, cudaStream_t stream) {
+  return packed ? launch<NW, true>(in, g, comp_xor, use_thr, thr, terms,
+                                   with_hist, n32, words, keep, counts, stream)
+                : launch<NW, false>(in, g, comp_xor, use_thr, thr, terms,
+                                    with_hist, n32, words, keep, counts,
+                                    stream);
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace
@@ -263,27 +558,38 @@ int simka_extract_kmers(const uint8_t* packed, const uint8_t* validbits,
   cudaError_t err = cudaMemsetAsync(
       counts, 0, (kBuckets + 1) * sizeof(uint64_t), stream);
   if (err != cudaSuccess) return (int)err;
-  const int64_t Wk = L - k + 1;
-  const int64_t E = B * Wk;
-  if (E == 0) return (int)cudaSuccess;
-  const Batch in{packed, validbits, codes, L};
-  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  Geometry g;
+  g.N = B * L;
+  g.L = L;
+  g.Wk = L - k + 1;
+  g.E = B * g.Wk;
+  g.tiles = (g.N + kTileBases - 1) / kTileBases;
+  g.k = k;
+  g.step_rows = (int)(kThreads / g.Wk);
+  g.step_rem = (int)(kThreads % g.Wk);
+  g.tile_rows = kTileBases / L;
+  g.tile_rem = kTileBases % L;
+  if (g.E == 0) return (int)cudaSuccess;
   const bool pk = packed != nullptr;
+  const Batch in{packed, validbits, codes,
+                 pk ? aligned(packed, 16) && aligned(validbits, 8)
+                    : aligned(codes, 16)};
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
   switch ((k + kWordBases - 1) / kWordBases) {
     case 1:
-      return (int)launch<1>(pk, in, E, Wk, k, comp_xor, use_thr, thr, terms,
+      return (int)launch<1>(pk, in, g, comp_xor, use_thr, thr, terms,
                             with_hist, n32, words, keep, c, stream);
     case 2:
-      return (int)launch<2>(pk, in, E, Wk, k, comp_xor, use_thr, thr, terms,
+      return (int)launch<2>(pk, in, g, comp_xor, use_thr, thr, terms,
                             with_hist, n32, words, keep, c, stream);
     case 3:
-      return (int)launch<3>(pk, in, E, Wk, k, comp_xor, use_thr, thr, terms,
+      return (int)launch<3>(pk, in, g, comp_xor, use_thr, thr, terms,
                             with_hist, n32, words, keep, c, stream);
     case 4:
-      return (int)launch<4>(pk, in, E, Wk, k, comp_xor, use_thr, thr, terms,
+      return (int)launch<4>(pk, in, g, comp_xor, use_thr, thr, terms,
                             with_hist, n32, words, keep, c, stream);
     default:
-      return (int)launch<5>(pk, in, E, Wk, k, comp_xor, use_thr, thr, terms,
+      return (int)launch<5>(pk, in, g, comp_xor, use_thr, thr, terms,
                             with_hist, n32, words, keep, c, stream);
   }
 }

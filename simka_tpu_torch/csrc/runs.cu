@@ -24,43 +24,60 @@
 //                 nb_shared: segments of >= 2 rows, d_max: the longest
 //                 segment, max_count).
 //
-// Both are two launches over tiles of 4096 rows:
+// Both work on tiles of 4096 rows, and a run's length is the next
+// boundary after its first row, minus that row.
+//
+// run_counts is one launch, a persistent grid over the tiles. Warp w
+// takes the tile's rows [512 w, 512 w + 512) in 16 steps of 32: lane l
+// loads row 32 j + l of every key column (each step one coalesced 256-B
+// row of the warp), compares it with row 32 j + l - 1 (the previous
+// lane's by a shuffle; lane 31's of the step before; the previous
+// warp's last row read once), and keeps its 16 boundary bits in a
+// register. A ballot a step gives the warp every boundary of its 512
+// rows: a row's next boundary is the first set bit after its lane in
+// its step's ballot, else the warp's first at a later step, else the
+// later warps' first (one shared entry a warp), else past the tile.
+// There, the warp holding the tile's last boundary finds where that run
+// ends (run_end): the 32 rows after the tile, then probes 32 << l rows
+// on and a 32-ary search, testing only equality with the run's key (the
+// rows are grouped, not necessarily ascending). A tile inside one long
+// run has no boundary and searches nothing, so a run of any length
+// costs O(log run) reads, made once. count (int32) and keep go out a
+// step at a time, coalesced, straight from registers; the kept total
+// is one atomic a CTA. No flags array, no scratch.
+//
+// segment_stats is two launches; its thread t takes rows [16 t, 16 t +
+// 16) of a tile:
 //   1. run_bounds: first[i] from the key columns (each row and its
 //      predecessor, coalesced), written as a byte a row, and each
 //      tile's first boundary (a block min) into tile_first[t], or
 //      kNone when the tile holds none (inside one long run).
-//   2. The tile's flags go to shared memory. Thread t takes rows
-//      [16 t, 16 t + 16) of the tile; the next boundary after its rows
-//      is a block-wide exclusive suffix min of each thread's first
-//      boundary (warp shuffles, then one entry a warp), and past the
-//      tile's last boundary the first boundary of a later tile: warp 0
-//      reads tile_first 32 tiles at a time with a ballot. So a run that
-//      crosses tiles, or one longer than a tile (a k-mer seen millions
-//      of times), costs a look-ahead of one 8-byte read a tile it spans,
-//      made by the one tile that holds its first row. Each thread then
-//      walks its rows backwards: run length = next boundary - row.
-//      run_counts writes count and keep (over the flags), coalesced.
-//      segment_stats, a persistent grid over the tiles, takes d_max,
-//      nb_shared and nb_distinct from the lengths, and adds each row's
-//      (1, count, count^2) into per-bank bins: in shared memory, one
-//      flush of integer atomics a CTA, when 3 x 8 x N bytes fit in
-//      kBinBytes, else straight into the outputs with device-memory
-//      atomics. Every sum is an integer sum: exact, the same on every
-//      run.
+//   2. A persistent grid over the tiles: the tile's flags go to shared
+//      memory (tile_lengths); a row's next boundary is in the thread's
+//      own rows, else a block-wide exclusive suffix min of each
+//      thread's first boundary, and past the tile's last boundary the
+//      first boundary of a later tile: warp 0 reads tile_first 32 tiles
+//      at a time with a ballot. It takes d_max, nb_shared and
+//      nb_distinct from the lengths, and adds each row's (1, count,
+//      count^2) into per-bank bins: in shared memory, one flush of
+//      integer atomics a CTA, when 3 x 8 x N bytes fit in kBinBytes,
+//      else straight into the outputs with device-memory atomics. Every
+//      sum is an integer sum: exact, the same on every run.
 //
 // What bounds them: device-memory bandwidth. run_counts reads the key
 // columns once and writes 4 + 1 B a row: at phase 7's sorted packed key
-// (313,342,848 int64 rows) 2.51 GB in, 1.57 GB out, 1.21 ms at 3.35
-// TB/s. The flags take one more byte written and read a row, and the
-// key's row i - 1 is read again from L1/L2. segment_stats reads the
-// word columns, the sample id and the count once and writes a byte a
-// row (21 B a row at k = 21 with the packed key's int64 sample id:
-// 2.08 GB at phase 14's 99,009,246 solid rows, 0.62 ms). On an H100
-// they take 2.7 ms and 1.6 ms there (chip_smoke.py phase 15b).
+// (313,342,848 int64 rows) 2.51 GB in, 1.57 GB out, 1.22 ms at 3.35
+// TB/s; it takes 1.46 ms there on the device (profiling/kernel_ab.py,
+// NVIDIA H100 80GB HBM3, 700.00 W). segment_stats reads the word
+// columns, the sample id and the count once and writes a byte a row
+// (21 B a row at k = 21 with the packed key's int64 sample id: 2.08 GB
+// at phase 14's 99,009,246 solid rows, 0.62 ms); it takes 1.6 ms there
+// (chip_smoke.py phase 15b).
 //
 // Plain C interface for ctypes. Nothing here allocates or synchronises:
-// the caller passes the outputs, the scratch and the stream; each entry
-// point returns the first cudaError_t of its memsets and launches.
+// the caller passes the outputs, segment_stats' scratch and the stream;
+// each entry point returns the first cudaError_t of its memsets, queries
+// and launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,7 +112,7 @@ __device__ __forceinline__ bool first_of_run(const Cols& c, int64_t i) {
   return d;
 }
 
-// pass 1: the flags, and each tile's first boundary
+// segment_stats' pass 1: the flags, and each tile's first boundary
 __global__ void __launch_bounds__(kThreads)
 run_bounds(Cols cols, int64_t E, uint8_t* __restrict__ flags,
            int64_t* __restrict__ tile_first) {
@@ -186,38 +203,160 @@ __device__ __forceinline__ void tile_lengths(
   __syncthreads();
 }
 
-// pass 2 of run_counts: count and keep of one tile
-__global__ void __launch_bounds__(kThreads)
-run_lengths(const int64_t* __restrict__ tile_first, int64_t n_tiles,
-            int64_t E, int64_t amin, int64_t amax, uint8_t* flags_keep,
-            int32_t* __restrict__ count,
-            unsigned long long* __restrict__ total) {
-  __shared__ __align__(16) uint8_t s_flag[kTile];
-  __shared__ int32_t s_cnt[kTile];
-  __shared__ int s_warp[kWarps];
-  __shared__ long long s_after;
-  __shared__ unsigned long long s_kept[kWarps];
-  const int64_t tile = blockIdx.x, tile0 = tile * kTile;
-  int64_t len[kRowsPerThread];
-  tile_lengths(flags_keep, tile_first, tile, n_tiles, E, s_flag, s_warp,
-               &s_after, len);
+// ---- run_counts: one pass -------------------------------------------
+
+// rows i, i + 32, ..., i + 32 (kRowsPerThread - 1) of a column; 0 past E
+template <typename T>
+__device__ __forceinline__ void load_steps(const void* c, int64_t i,
+                                           int64_t E,
+                                           int64_t (&v)[kRowsPerThread]) {
+  const T* p = static_cast<const T*>(c);
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r)
-    s_cnt[kRowsPerThread * threadIdx.x + r] = (int32_t)len[r];
-  __syncthreads();
+  for (int j = 0; j < kRowsPerThread; ++j)
+    v[j] = i + 32 * j < E ? (int64_t)__ldg(p + i + 32 * j) : 0;
+}
+
+// whether row x's key differs from row `ref`'s (x >= E: a boundary)
+__device__ __forceinline__ bool differs(const Cols& c, int64_t x,
+                                        int64_t ref, int64_t E) {
+  if (x >= E) return true;
+  bool d = false;
+  for (int j = 0; j < c.n; ++j)
+    d |= load(c.p[j], c.size[j], x) != load(c.p[j], c.size[j], ref);
+  return d;
+}
+
+// A whole warp: the end of the run holding row from - 1, the first row
+// x >= from whose key differs from row from - 1's, else E. Equality
+// only: the rows are grouped (equal rows contiguous), not necessarily
+// ascending (SimkaMin sorts its int64 hashes in unsigned order), so
+// inside the run every key equals from - 1's and past it none does.
+// The 32 rows from `from`, then probes 32 << l rows on, l = 0..31, then
+// a 32-ary search between the last equal and the first differing probe:
+// O(log run) reads, mostly from L2, and one round for a run that ends
+// within 32 rows of the tile.
+__device__ int64_t run_end(const Cols& c, int64_t from, int64_t E) {
+  const int lane = threadIdx.x % 32;
+  const int64_t ref = from - 1;
+  unsigned m = __ballot_sync(0xffffffffu, differs(c, from + lane, ref, E));
+  if (m) return from + __ffs(m) - 1;
+  int64_t lo = from + 31, hi;  // lo: a row of the run; hi: past it
+  for (;;) {
+    m = __ballot_sync(0xffffffffu,
+                      differs(c, lo + ((int64_t)32 << lane), ref, E));
+    if (m) {
+      const int l = __ffs(m) - 1;
+      hi = lo + ((int64_t)32 << l);
+      if (l) lo += (int64_t)32 << (l - 1);
+      break;
+    }
+    lo += (int64_t)32 << 31;
+  }
+  while (hi - lo > 1) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t x = lo + (int64_t)(lane + 1) * step;
+    m = __ballot_sync(0xffffffffu, x >= hi || differs(c, x, ref, E));
+    const int l = __ffs(m) - 1;  // lane 31's probe is at or past hi
+    const int64_t x_l = lo + (int64_t)(l + 1) * step;
+    hi = x_l < hi ? x_l : hi;
+    lo += (int64_t)l * step;
+  }
+  return hi;
+}
+
+// run_counts over tiles blockIdx.x, + gridDim.x, ...: warp w takes the
+// tile's rows [512 w, 512 w + 512), lane l the rows 32 j + l of them at
+// step j = 0..15, so every load and store of a step is one coalesced
+// row of the warp. Three CTAs an SM, so that ptxas keeps a thread's 16
+// rows and 16 ballots in registers (under the default bound it capped
+// them at 64 and spilled)
+__global__ void __launch_bounds__(kThreads, 3)
+run_counts(Cols cols, int64_t E, int64_t n_tiles, int64_t amin, int64_t amax,
+           int32_t* __restrict__ count, uint8_t* __restrict__ keep,
+           unsigned long long* __restrict__ total) {
+  constexpr int kSteps = kRowsPerThread;
+  constexpr int kWarpRows = 32 * kSteps;
+  constexpr int kNone = kTile;  // no boundary (tile-local rows)
+  __shared__ int s_warp[kWarps];
+  __shared__ unsigned long long s_kept[kWarps];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const unsigned above = ~((2u << lane) - 1);  // the lanes after this one
   unsigned long long kept = 0;
-  for (int j = threadIdx.x; j < kTile; j += kThreads) {
-    const int64_t i = tile0 + j;
-    if (i >= E) break;
-    const int32_t c = s_cnt[j];
-    const bool k = s_flag[j] && (int64_t)c >= amin && (int64_t)c <= amax;
-    count[i] = c;
-    flags_keep[i] = k ? 1 : 0;
-    kept += k;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t tile0 = tile * kTile;
+    const int64_t w0 = tile0 + kWarpRows * warp;  // the warp's first row
+    // f bit j: row w0 + 32 j + lane is a run's first row, or past E
+    uint32_t f = 0;
+    for (int c = 0; c < cols.n; ++c) {
+      const void* p = cols.p[c];
+      const int size = cols.size[c];
+      int64_t v[kSteps];
+      if (size == 8)
+        load_steps<long long>(p, w0 + lane, E, v);
+      else
+        load_steps<int>(p, w0 + lane, E, v);
+      // row i - 1: the previous lane's at this step, lane 31's at the
+      // step before, the previous warp's last row at step 0
+      int64_t last = lane == 0 && w0 > 0 && w0 <= E ? load(p, size, w0 - 1)
+                                                     : 0;
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        int64_t prev = __shfl_up_sync(0xffffffffu, v[j], 1);
+        if (lane == 0) prev = last;
+        last = __shfl_sync(0xffffffffu, v[j], 31);
+        f |= (uint32_t)(v[j] != prev) << j;
+      }
+    }
+    unsigned ballot[kSteps];
+    int first = kNone;  // the warp's first boundary (tile-local)
+#pragma unroll
+    for (int j = kSteps - 1; j >= 0; --j) {
+      const int64_t i = w0 + 32 * j + lane;
+      if (i >= E || i == 0) f |= 1u << j;
+      ballot[j] = __ballot_sync(0xffffffffu, (f >> j) & 1);
+      if (ballot[j])
+        first = kWarpRows * warp + 32 * j + __ffs(ballot[j]) - 1;
+    }
+    __syncthreads();  // the last tile's s_warp is read
+    if (lane == 0) s_warp[warp] = first;
+    __syncthreads();
+    int later = kNone;  // the later warps' first boundary
+    for (int w = warp + 1; w < kWarps; ++w)
+      later = s_warp[w] < later ? s_warp[w] : later;
+    // The warp holding the tile's last boundary finds where that run
+    // ends, past the tile; a tile inside one long run has no boundary
+    // and no search.
+    int64_t after = tile0 + later;
+    if (later == kNone && first != kNone)
+      after = run_end(cols, tile0 + kTile, E);
+    // each step's next boundary: in the step's ballot after this lane,
+    // else the warp's first at a later step, else `after`
+    int next = kNone;
+    unsigned kb = 0;
+#pragma unroll
+    for (int j = kSteps - 1; j >= 0; --j) {
+      const int64_t i = w0 + 32 * j + lane;
+      const unsigned m = ballot[j] & above;
+      const int64_t nxt =
+          m ? w0 + 32 * j + __ffs(m) - 1
+            : next != kNone ? tile0 + next : after;
+      const bool is_first = (f >> j) & 1 && i < E;
+      const int32_t cnt = is_first ? (int32_t)(nxt - i) : 0;
+      const bool k = is_first && (int64_t)cnt >= amin &&
+                     (int64_t)cnt <= amax;
+      kb |= (unsigned)k << j;
+      if (i < E) {
+        count[i] = cnt;
+        keep[i] = k;
+      }
+      if (ballot[j])
+        next = kWarpRows * warp + 32 * j + __ffs(ballot[j]) - 1;
+    }
+    kept += __popc(kb);
   }
   for (int o = 16; o > 0; o >>= 1)
     kept += __shfl_down_sync(0xffffffffu, kept, o);
-  if (threadIdx.x % 32 == 0) s_kept[threadIdx.x / 32] = kept;
+  if (lane == 0) s_kept[warp] = kept;
   __syncthreads();
   if (threadIdx.x == 0) {
     unsigned long long b = 0;
@@ -326,25 +465,37 @@ int64_t simka_segment_shared_banks() { return kBinBytes / (3 * 8); }
 
 // cols: n_cols (1..8) pointers to [E] sorted key columns of int32 or
 // int64 (sizes 4 or 8 bytes); count: [E] int32; keep: [E] bool; total:
-// uint64 [1], zeroed here; tile_first: int64 [ceil(E / 4096)] scratch.
-// E >= 1. Returns a cudaError_t code (0 on success).
+// uint64 [1], zeroed here. E >= 1. Returns a cudaError_t code (0 on
+// success).
 int simka_run_counts(const void* const* cols, const int* sizes, int n_cols,
                      int64_t E, int64_t amin, int64_t amax, int32_t* count,
-                     uint8_t* keep, uint64_t* total, int64_t* tile_first,
-                     void* stream_ptr) {
+                     uint8_t* keep, uint64_t* total, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Cols c;
   if (E < 1 || !make_cols(cols, sizes, n_cols, c))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(total, 0, sizeof(uint64_t), stream);
+  // the persistent grid, one full wave: asked once a device
+  static int grid_dev = -1, grid_size = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev != grid_dev) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, run_counts,
+                                                          kThreads, 0);
+    if (err == cudaSuccess) {
+      grid_dev = dev;
+      grid_size = sms * (per_sm > 0 ? per_sm : 1);
+    }
+  }
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(total, 0, sizeof(uint64_t), stream);
   if (err != cudaSuccess) return (int)err;
   const int64_t tiles = n_tiles_of(E);
-  run_bounds<<<(unsigned)tiles, kThreads, 0, stream>>>(c, E, keep,
-                                                       tile_first);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  run_lengths<<<(unsigned)tiles, kThreads, 0, stream>>>(
-      tile_first, tiles, E, amin, amax, keep, count,
+  const int64_t blocks = grid_size < tiles ? grid_size : tiles;
+  run_counts<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      c, E, tiles, amin, amax, count, keep,
       reinterpret_cast<unsigned long long*>(total));
   return (int)cudaGetLastError();
 }

@@ -130,7 +130,7 @@ def lib():
                                          vp, vp, vp]),
                 # csrc/runs.cu
                 ("simka_run_counts", [vp, vp, i32, i64, i64, i64, vp, vp, vp,
-                                      vp, vp]),
+                                      vp]),
                 ("simka_segment_stats", [vp, i32, i64, vp, i32, vp, i32, i64,
                                          vp, vp, vp, vp, vp]),
                 # csrc/minhash.cu

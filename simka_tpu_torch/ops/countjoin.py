@@ -176,7 +176,8 @@ def _key_columns(what: str, cols, max_cols: int):
 
 
 def _tile_scratch(lib, E: int, dev) -> torch.Tensor:
-    """int64 [one a tile] scratch of csrc/runs.cu's first pass."""
+    """int64 [one a tile] scratch of segment_stats' first pass
+    (csrc/runs.cu)."""
     return torch.empty(-(-E // lib.simka_runs_tile_rows()),
                        dtype=torch.int64, device=dev)
 
@@ -192,8 +193,8 @@ def run_counts(cols: Sequence[torch.Tensor], abundance_min: int = 1,
     device). With the default bounds keep is the first-of-run mask.
 
     On CUDA tensors this launches the kernel of ``csrc/runs.cu`` once
-    (its two passes) or raises; on CPU tensors it is the plain version
-    (``_first_of_run`` + ``_run_counts``), bit for bit the same.
+    (one pass, no scratch) or raises; on CPU tensors it is the plain
+    version (``_first_of_run`` + ``_run_counts``), bit for bit the same.
     """
     global run_counts_launches
     cols, E, dev = _key_columns("run_counts", cols, 8)
@@ -209,7 +210,6 @@ def run_counts(cols: Sequence[torch.Tensor], abundance_min: int = 1,
     count = torch.empty(E, dtype=torch.int32, device=dev)
     keep = torch.empty(E, dtype=torch.bool, device=dev)
     total = torch.empty(1, dtype=torch.int64, device=dev)
-    tiles = _tile_scratch(lib, E, dev)
     n = len(cols)
     ptrs = (ctypes.c_void_p * n)(*[c.data_ptr() for c in cols])
     sizes = (ctypes.c_int * n)(*[c.element_size() for c in cols])
@@ -217,7 +217,7 @@ def run_counts(cols: Sequence[torch.Tensor], abundance_min: int = 1,
         code = lib.simka_run_counts(
             ctypes.addressof(ptrs), ctypes.addressof(sizes), n, E,
             int(abundance_min), int(abundance_max), count.data_ptr(),
-            keep.data_ptr(), total.data_ptr(), tiles.data_ptr(),
+            keep.data_ptr(), total.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(code, "run_counts")
     run_counts_launches += 1

@@ -1,8 +1,10 @@
 """The extraction kernel's wrapper (``ops.kmers.extract_kmers``, plain
 torch version on CPU tensors) against ``simka_tpu``'s fused extraction
-program on the same numpy inputs; a numpy model of the kernel's
-per-window work (csrc/kmers.cu) against the plain version; the kernel
-against its plain version on the card (``cuda``-marked). Exact
+program on the same numpy inputs; a model of the kernel's work
+(csrc/kmers.cu: the staged 2-bit, reversed and validity streams, each
+word two extractions from them, the walk over tiles)
+against the plain version; the kernel against its plain version on the
+card (``cuda``-marked). Exact
 equality throughout, but for the Shannon filter, held as
 tests/test_torch_kmers.py holds the index: XLA's f32 log is off by an
 ulp at some frequencies, so a window whose reference index lies within
@@ -181,52 +183,96 @@ def test_pipeline_batch_takes_one_extraction(k, shannon):
     assert all(torch.equal(a, b) for a, b in zip(again, words))
 
 
-# ---- (b) a numpy model of the kernel's per-window work ----------------
+# ---- (b) a model of the kernel's work (csrc/kmers.cu) -------------------
+
+M55 = 0x5555555555555555
+M64 = (1 << 64) - 1
+# csrc/kmers.cu's geometry: tiles of 4096 window starts, 256 threads
+TILE_BASES, THREADS = 4096, 256
 
 
-def _model_window(codes_row, p: int, k: int, comp_xor: int, terms):
-    """csrc/kmers.cu's work for one window, in Python integers: a Horner
-    a 62-bit word over its own offsets (no carry between words), once
-    forward and once over the complement read backwards; the
-    lexicographic min; the canonical base counts as the forward counts
-    permuted by comp_xor; the f32 Shannon sum; the reference's uint32
-    words by the kernel's one formula and the mix_hash fold."""
+def _streams_from_packed(packed, vb):
+    """The kernel's staged streams of a packed batch as Python integers:
+    the flat 2-bit stream (base i at bits 2i, 2i + 1; an invalid base
+    code 3: the packed bits OR its validity bit spread to two) and the
+    validity bits (base i at bit i)."""
+    p = int.from_bytes(packed.tobytes(), "little")
+    v = int.from_bytes(vb.tobytes(), "little")
+    n = 8 * vb.size
+    inv = ~v & ((1 << n) - 1)
+    spread = int("".join(b + b for b in format(inv, f"0{n}b")), 2) if n else 0
+    return p | spread, v
+
+
+def _streams_from_codes(codes):
+    """The same streams packed from a code batch as the codes entry
+    point stages it: code c & 3, valid where c < 4."""
+    flat = codes.ravel()
+    p = sum(int(c & 3) << (2 * i) for i, c in enumerate(flat))
+    v = sum(1 << i for i, c in enumerate(flat) if c < 4)
+    return p, v
+
+
+def _reverse_groups32(x: int) -> int:
+    """__brev of a 32-bit word, then a swap within each pair of bits:
+    its 16 2-bit groups in reverse order."""
+    x = int(format(x, "032b")[::-1], 2)
+    return ((x >> 1) & 0x55555555) | ((x & 0x55555555) << 1)
+
+
+def _stage(pk: int, vb: int, s0: int, n: int, vecs: int):
+    """csrc/kmers.cu's staged streams of bases [s0, s0 + n) of a flat
+    stream, in `vecs` vectors of 64 bases: the 2-bit stream and the
+    validity bits from s0, and the reversed stream of M = 64 vecs bases:
+    each 32-bit word of the 2-bit stream with its groups reversed, the
+    words in reverse order (base i at group M - 1 - i)."""
+    p = (pk >> (2 * s0)) & ((1 << (2 * n)) - 1)
+    v = (vb >> s0) & ((1 << n) - 1)
+    rv = 0
+    for wi in range(4 * vecs):
+        rv |= _reverse_groups32((p >> (32 * wi)) & 0xFFFFFFFF) << (
+            32 * (4 * vecs - 1 - wi))
+    return p, rv, v, 64 * vecs
+
+
+def _bits64(s: int, bit: int) -> int:
+    return (s >> bit) & M64
+
+
+def _model_window(staged, at: int, k: int, comp_xor: int, terms):
+    """csrc/kmers.cu's work for the window whose first base is base `at`
+    of the staged streams: each word two extractions of 2n bits, the
+    forward word from the reversed stream at the mirrored offset, the
+    reverse complement's from the 2-bit stream XOR the replicated
+    complement; validity k bits all set, 64 at a time; the base counts
+    by popcounts; the lexicographic min; the f32 Shannon sum; the
+    reference's uint32 words by the kernel's one formula and the
+    mix_hash fold."""
+    pk, rv, vb, M = staged
     nw = tk.n_words(k)
     top = k - tk.WORD_BASES * (nw - 1)
-    bad = False
-    fcnt = [0] * 4
-
-    def base(pos):
-        nonlocal bad
-        c = int(codes_row[p + pos])
-        if c >= 4:
-            bad = True
-        return c & 3
-
-    f, r = [], []
+    comp = M55 * comp_xor
+    f, r, n123 = [], [], [0, 0, 0]
     for w in range(nw):
         hi = top + tk.WORD_BASES * w
         lo = 0 if w == 0 else hi - tk.WORD_BASES
-        v = 0
-        for i in range(lo, hi):
-            c = base(i)
-            v = (v << 2) | c
-            fcnt[c] += 1
-        f.append(v)
-    was_bad = bad
-    for w in range(nw):
-        hi = top + tk.WORD_BASES * w
-        lo = 0 if w == 0 else hi - tk.WORD_BASES
-        v = 0
-        for j in range(lo, hi):
-            v = (v << 2) | (base(k - 1 - j) ^ comp_xor)
-        r.append(v)
+        m = (1 << (2 * (hi - lo))) - 1
+        f.append(_bits64(rv, 2 * (M - at - hi)) & m)
+        r.append((_bits64(pk, 2 * (at + k - hi)) ^ comp) & m)
+        a, b = f[-1] & M55, (f[-1] >> 1) & M55
+        for i, x in enumerate((a & ~b, b & ~a, a & b)):
+            n123[i] += bin(x).count("1")
+    ok = True
+    for c in range(0, k, 64):
+        m = (1 << min(64, k - c)) - 1
+        ok = ok and (_bits64(vb, at + c) & m) == m
     take_fwd = next((a < b for a, b in zip(f, r) if a != b), True)
     o = f if take_fwd else r
     x = 0 if take_fwd else comp_xor
-    s = np.float32(terms[fcnt[0 ^ x]])
+    cnt = [k - sum(n123), *n123]
+    s = np.float32(terms[cnt[0 ^ x]])
     for c in (1, 2, 3):
-        s = np.float32(s + np.float32(terms[fcnt[c ^ x]]))
+        s = np.float32(s + np.float32(terms[cnt[c ^ x]]))
     n32 = tk.n_uint32_words(k)
     u = []
     for i in range(n32):
@@ -241,13 +287,95 @@ def _model_window(codes_row, p: int, k: int, comp_xor: int, terms):
         h ^= h >> 13
         h = (h ^ v) * 0xC2B2AE35 & 0xFFFFFFFF
         h ^= h >> 16
-    return o, not was_bad, abs(s), h & 15
+    return o, ok, abs(s), h & 15
+
+
+def _model_walk(B: int, L: int, k: int, tile: int, threads: int,
+                grid: int = 3):
+    """The windows each thread of csrc/kmers.cu visits: tiles of `tile`
+    window starts over the flat stream of B * L bases, CTA c of `grid`
+    taking tiles c, c + grid, ...; a tile's windows [e_lo, e_lo + n)
+    and the first window's row offset and base, from the tile's start
+    as (row, offset) advanced by host-made steps (no division but one a
+    CTA); thread t's first window t on, by one division; then steps of
+    `threads` windows: step_rows rows and step_rem windows, with k - 1
+    stream bases skipped at each row's end. Yields (tile, thread, step,
+    e, base in the tile, bases staged)."""
+    N, Wk = B * L, L - k + 1
+    E = B * Wk
+    step_rows, step_rem = divmod(threads, Wk)
+    tile_rows, tile_rem = divmod(tile, L)
+    grid_rows, grid_rem = divmod(grid * tile, L)
+
+    def advance(pos, rows, rem):
+        row, off = pos[0] + rows, pos[1] + rem
+        return (row + 1, off - L) if off >= L else (row, off)
+
+    def before(pos):
+        return pos[0] * Wk + min(pos[1], Wk)
+
+    n_tiles = -(-N // tile)
+    for c in range(min(grid, n_tiles)):
+        at = divmod(c * tile, L)
+        for ti in range(c, n_tiles, grid):
+            s0 = ti * tile
+            if ti > c:
+                at = advance(at, grid_rows, grid_rem)
+            assert at == divmod(s0, L)
+            e_lo = before(at)
+            end = advance(at, tile_rows, tile_rem)
+            n = (before(end) if s0 + tile < N else E) - e_lo
+            staged = min(tile + k - 1, N - s0)
+            p0, b0 = (at[1], 0) if at[1] < Wk else (0, L - at[1])
+            for t in range(threads):
+                rows = (p0 + t) // Wk
+                p, base = p0 + t - rows * Wk, b0 + t + rows * (k - 1)
+                for step, j in enumerate(range(0, n, threads)):
+                    if j + t < n:
+                        yield ti, t, step, e_lo + j + t, base, staged
+                    p += step_rem
+                    base += threads + step_rows * (k - 1)
+                    if p >= Wk:
+                        p -= Wk
+                        base += k - 1
+
+
+def _model_kernel(pk, vb, B, L, k, comp_xor, min_shannon, tile, threads):
+    """csrc/kmers.cu's outputs from the batch's streams: each tile staged
+    (its bases and the k - 1 after it), every window at the base the
+    walk gives it, a thread taking at most ceil(tile / threads) windows
+    a tile; kept windows and buckets counted a thread."""
+    terms = tk.shannon_terms(k).numpy()
+    N, E = B * L, B * (L - k + 1)
+    words = np.zeros((tk.n_words(k), E), np.int64)
+    keep = np.zeros(E, bool)
+    hist = np.zeros(16, np.int64)
+    staged, taken = {}, {}
+    for ti, t, _, e, base, n in _model_walk(B, L, k, tile, threads):
+        if ti not in staged:
+            staged[ti] = _stage(pk, vb, ti * tile, n, -(-(tile + k - 1) //
+                                                       64))
+        o, ok, s, bucket = _model_window(staged[ti], base, k, comp_xor,
+                                         terms)
+        ok = ok and (min_shannon == 0.0 or s >= np.float32(min_shannon))
+        words[:, e] = o
+        keep[e] = ok
+        hist[bucket] += ok
+        taken[ti, t] = taken.get((ti, t), 0) + 1
+    assert max(taken.values()) <= -(-tile // threads)
+    return words, keep, hist, int(keep.sum())
 
 
 @pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("comp_xor", [3, 2])
 def test_kernel_model_matches_plain(k, comp_xor):
+    """The model of one window against the plain version at every
+    window of a batch, kept or not (N bases read as code 3)."""
     codes = _batch(500 + k, n=6, low=True)
+    packed, vb = pack_codes_host(codes)
+    pk, v = _streams_from_packed(packed, vb)
+    N = codes.size
+    staged = _stage(pk, v, 0, N, -(-N // 64))
     terms = tk.shannon_terms(k).numpy()
     ex = tk.extract_kmers_codes(torch.from_numpy(codes), k,
                                 comp_xor=comp_xor, with_hist=True)
@@ -258,13 +386,67 @@ def test_kernel_model_matches_plain(k, comp_xor):
     for b in range(codes.shape[0]):
         for p in range(L - k + 1):
             e = b * (L - k + 1) + p
-            o, valid, s, bucket = _model_window(codes[b], p, k, comp_xor,
-                                                terms)
+            o, valid, s, bucket = _model_window(staged, b * L + p, k,
+                                                comp_xor, terms)
             assert list(words[:, e]) == o
             assert bool(ex.keep[e]) == valid
             assert s == index[e]
             hist[bucket] += valid
     np.testing.assert_array_equal(ex.hist.numpy(), hist)
+
+
+def test_staged_streams_of_both_entry_points_agree():
+    """The packed entry point's staged streams (validity spread into the
+    2-bit stream) are the codes entry point's (c & 3 of 255 is 3)."""
+    codes = _batch(7, n=5, width=40)
+    packed, vb = pack_codes_host(codes)
+    assert _streams_from_packed(packed, vb) == _streams_from_codes(codes)
+
+
+# row strides of 8, 26 and 40 packed bytes; k up to the row
+WALK_CASES = [(L, k) for L in (32, 104, 160) for k in KS if k <= L]
+
+
+@pytest.mark.parametrize("L,k", WALK_CASES)
+def test_tile_walk_visits_every_window_once(L, k):
+    """The kernel's walk at its own geometry and at a small one (tiles
+    of 64 starts, 8 threads): every window once, at base b * L + p of
+    the stream, inside its tile's staged bases; batches whose stream
+    ends mid-tile."""
+    for B, tile, threads in ((97, TILE_BASES, THREADS), (13, 64, 8)):
+        Wk = L - k + 1
+        seen = np.zeros(B * Wk, np.int64)
+        for ti, _, _, e, base, staged in _model_walk(B, L, k, tile,
+                                                     threads):
+            b, p = divmod(e, Wk)
+            assert ti * tile + base == b * L + p
+            assert base < tile and base + k <= staged
+            seen[e] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("L,k,comp_xor,shannon", [
+    (32, 1, 3, 0.0), (32, 21, 2, 1.0), (104, 21, 3, 0.0),
+    (104, 63, 3, 1.5), (40, 33, 2, 0.0), (160, 127, 3, 1.5),
+    (160, 64, 2, 1.0), (104, 104, 3, 0.0)])
+def test_kernel_model_matches_plain_over_tiles(L, k, comp_xor, shannon):
+    """The whole kernel's model (the walk over tiles of 64 starts and
+    8 threads a CTA, so windows and reads straddle tiles; each tile
+    staged with its halo) against the plain version, bit for bit, on a
+    batch of 13 reads, whose stream ends mid-tile."""
+    codes = _batch(L + k, n=13, width=L, low=True)
+    packed, vb = pack_codes_host(codes)
+    pk, v = _streams_from_packed(packed, vb)
+    words, keep, hist, n = _model_kernel(pk, v, 13, L, k, comp_xor, shannon,
+                                         64, 8)
+    ex = tk.extract_kmers(torch.from_numpy(packed), torch.from_numpy(vb), k,
+                          comp_xor=comp_xor, min_shannon=shannon,
+                          with_hist=True)
+    np.testing.assert_array_equal(np.stack([w.numpy() for w in ex.words]),
+                                  words)
+    np.testing.assert_array_equal(ex.keep.numpy(), keep)
+    np.testing.assert_array_equal(ex.hist.numpy(), hist)
+    assert int(ex.n_kept) == n
 
 
 # ---- (c) on the card --------------------------------------------------

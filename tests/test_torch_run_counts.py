@@ -2,10 +2,12 @@
 ``run_counts`` and ``segment_stats``, plain torch versions on CPU
 tensors) against ``simka_tpu``'s ``_rows_from_instances``,
 ``_stats_from_rows`` and ``_segment_rows`` on the same numpy inputs; a
-numpy model of the kernels' work split (csrc/runs.cu: tiles, the
-in-tile suffix min, the look-ahead over later tiles, shared or
-device-memory bins) against the plain versions at edge sizes; the
-kernels against their plain versions on the card (``cuda``-marked).
+model of the kernels' work split (csrc/runs.cu: run_counts' one pass,
+its per-step ballots and the equality-only search for a run's end past
+the tile; segment_stats' tiles, look-ahead over later tiles and
+shared or device-memory bins) against the plain versions at edge sizes;
+the kernels against their plain versions on the card
+(``cuda``-marked).
 Exact equality throughout."""
 
 import jax.numpy as jnp
@@ -178,7 +180,8 @@ def test_raw_stats_take_the_segment_pass():
 
 
 def _model_lengths(flags: np.ndarray, tile: int, threads: int):
-    """Run lengths at each first row as the two passes compute them:
+    """Run lengths at each first row as segment_stats' two passes
+    compute them:
     pass 1 each tile's first boundary (None where the tile holds none);
     pass 2, per tile, each thread's first boundary over its contiguous
     rows, an exclusive suffix min over the later threads, past the
@@ -235,28 +238,228 @@ def _edge_flags(E: int, tile: int, kind: str, rng):
     return f
 
 
+def _model_run_end(keys, start: int, E: int):
+    """csrc/runs.cu's run_end, a warp of 32 lanes: the first row x >=
+    start whose key differs from row start - 1's (x >= E differs),
+    testing equality only: the 32 rows from start, then probes 32 << l
+    rows past start + 31, then a 32-ary search. Returns (x, the rows it
+    read)."""
+    reads = []
+
+    def differs(x):
+        if x >= E:
+            return True
+        reads.append(x)
+        return any(c[x] != c[start - 1] for c in keys)
+
+    m = [differs(start + ln) for ln in range(32)]
+    if any(m):
+        return start + m.index(True), reads
+    lo = start + 31
+    while True:
+        m = [differs(lo + (32 << ln)) for ln in range(32)]
+        if any(m):
+            lane = m.index(True)
+            hi = lo + (32 << lane)
+            lo = lo + (32 << (lane - 1)) if lane else lo
+            break
+        lo += 32 << 31
+    while hi - lo > 1:
+        step = -(-(hi - lo) // 32)
+        m = [lo + (ln + 1) * step >= hi or differs(lo + (ln + 1) * step)
+             for ln in range(32)]
+        lane = m.index(True)
+        hi = min(hi, lo + (lane + 1) * step)
+        lo += lane * step
+    return hi, reads
+
+
+def _model_run_counts(keys, amin: int, amax: int, tile: int = TILE,
+                      threads: int = THREADS):
+    """csrc/runs.cu's one-pass run_counts: per tile, warps of up to 32
+    lanes take `lanes x steps` rows each (steps = tile / threads), lane
+    l row `lanes j + l` at step j; each row against the row before it in
+    every key column (the row before the tile included; rows past E are
+    boundaries); a ballot a step; a row's next boundary the first set
+    bit after its lane in its step's ballot, else the warp's first at a
+    later step, else the later warps' first, else past the tile, where
+    the warp holding the tile's last boundary takes the run's end from
+    run_end. Returns (count, keep, total, the tiles whose search read
+    rows)."""
+    E = keys[0].shape[0]
+    steps, lanes = tile // threads, min(32, threads)
+    wrows = lanes * steps
+    first = np.zeros(E, bool)
+    first[0] = True
+    for c in keys:
+        first[1:] |= c[1:] != c[:-1]
+    count = np.zeros(E, np.int64)
+    searched = []
+    for t0 in range(0, E, tile):
+        f = np.ones(tile, bool)
+        f[:min(tile, E - t0)] = first[t0:t0 + tile]
+        ballots = [[sum(int(f[w * wrows + lanes * j + ln]) << ln
+                        for ln in range(lanes)) for j in range(steps)]
+                   for w in range(tile // wrows)]
+        warp_first = [next((w * wrows + lanes * j + (b & -b).bit_length() - 1
+                            for j, b in enumerate(bs) if b), tile)
+                      for w, bs in enumerate(ballots)]
+        for w, bs in enumerate(ballots):
+            later = min(warp_first[w + 1:], default=tile)
+            after = t0 + later
+            if later == tile and warp_first[w] < tile:
+                after, reads = _model_run_end(keys, t0 + tile, E)
+                if reads:
+                    searched.append(t0 // tile)
+            nxt_step = None  # the warp's first boundary at a later step
+            for j in range(steps - 1, -1, -1):
+                for ln in range(lanes):
+                    i = t0 + w * wrows + lanes * j + ln
+                    if not bs[j] >> ln & 1 or i >= E:
+                        continue
+                    m = bs[j] >> (ln + 1) << (ln + 1)
+                    if m:
+                        nxt = i - ln + (m & -m).bit_length() - 1
+                    else:
+                        nxt = after if nxt_step is None else nxt_step
+                    count[i] = nxt - i
+                if bs[j]:
+                    nxt_step = (t0 + w * wrows + lanes * j
+                                + (bs[j] & -bs[j]).bit_length() - 1)
+    count32 = count.astype(np.int32)
+    keep = first & (count32 >= amin) & (count32 <= amax)
+    return count32, keep, int(keep.sum()), searched
+
+
+def _keys_of(flags, n_cols: int = 1):
+    """Key columns whose runs start where ``flags`` is set."""
+    rid = np.cumsum(flags).astype(np.int64)
+    if n_cols == 1:
+        return [rid]
+    return [(rid >> (8 * (n_cols - 2 - j))) & 0xFF
+            for j in range(n_cols - 1)] + [rid.astype(np.int32)]
+
+
+def _same_as_plain(keys, amin=1, amax=INT32_MAX, **geometry):
+    count, keep, total = _plain_counts(keys, amin, amax)
+    got = _model_run_counts(keys, amin, amax, **geometry)
+    np.testing.assert_array_equal(got[0], count.numpy())
+    np.testing.assert_array_equal(got[1], keep.numpy())
+    assert got[2] == int(total)
+    return got[3]
+
+
 @pytest.mark.parametrize("kind", ["own", "one", "edges", "long", "random"])
 @pytest.mark.parametrize("tile,threads", [(TILE, THREADS), (64, 16)])
 def test_tile_model_matches_plain_run_counts(kind, tile, threads):
+    """The one-pass model against the plain version: every row its own
+    run, one run over every tile, runs at every tile edge, runs longer
+    than a tile, random runs; 1 and 3 key columns."""
     rng = np.random.default_rng(len(kind) + tile)
     E = 5 * tile + 17
     flags = _edge_flags(E, tile, kind, rng)
-    key = np.cumsum(flags).astype(np.int64)  # runs where flags say
-    count, keep, _ = _plain_counts([key], 1, INT32_MAX)
-    np.testing.assert_array_equal(keep.numpy(), flags)
-    np.testing.assert_array_equal(_model_lengths(flags, tile, threads),
-                                  count.numpy())
+    for n_cols in (1, 3):
+        searched = _same_as_plain(_keys_of(flags, n_cols), 2, 5, tile=tile,
+                                  threads=threads)
+        if kind == "one":
+            assert searched == [0]  # only the tile holding its first row
 
 
 @pytest.mark.parametrize("E", [1, 2, 4095, 4096, 4097])
 def test_tile_model_at_small_sizes(E):
     rng = np.random.default_rng(E)
     flags = _edge_flags(E, TILE, "random", rng)
-    key = np.cumsum(flags).astype(np.int64)
-    count, _, total = _plain_counts([key], 1, INT32_MAX)
-    np.testing.assert_array_equal(_model_lengths(flags, TILE, THREADS),
-                                  count.numpy())
-    assert int(total) == flags.sum()
+    count, _, total = _plain_counts(_keys_of(flags), 1, INT32_MAX)
+    got = _model_run_counts(_keys_of(flags), 1, INT32_MAX)
+    np.testing.assert_array_equal(got[0], count.numpy())
+    assert got[2] == int(total) == flags.sum()
+
+
+# how far past a tile's end a run may end: within the first 32 rows, at
+# each probe distance 32 << l and one row either side, and past them
+GALLOP_ENDS = sorted({d for j in range(0, 12) for d in (
+    (32 << j) - 1, 32 << j, (32 << j) + 1)} | {1, 2, 31, 33, 5000})
+
+
+@pytest.mark.parametrize("end", GALLOP_ENDS)
+def test_run_end_at_every_probe_distance(end):
+    """A run from the middle of tile 0 (tiles of 128 rows, 64 threads
+    of 2 steps) ending `end` rows past the tile's end, then short runs: the
+    model == plain, and run_end's reads grow with log(run), not with
+    the run."""
+    tile = 128
+    E = tile + end + 300
+    flags = np.zeros(E, bool)
+    flags[0] = flags[40] = True
+    flags[tile + end:] = np.random.default_rng(end).random(
+        E - tile - end) < 0.3
+    flags[tile + end] = True
+    keys = _keys_of(flags, 2)
+    _same_as_plain(keys, tile=tile, threads=64)
+    x, reads = _model_run_end(keys, tile, E)
+    assert x == tile + end
+    assert len(reads) <= 32 * (2 + max(1, end).bit_length())
+
+
+def test_run_of_many_tiles_from_mid_tile():
+    """A run of 2^16 rows starting mid-tile (tiles of 128 rows): one
+    search, by the tile holding its first row; the 510 tiles inside it
+    search nothing."""
+    tile, start, n = 128, 77, 1 << 16
+    E = start + n + 50
+    flags = np.zeros(E, bool)
+    flags[:start] = True
+    flags[start] = flags[start + n] = True
+    searched = _same_as_plain(_keys_of(flags), tile=tile, threads=64)
+    assert 0 in searched and not set(range(1, (start + n) // tile)) & set(
+        searched)
+
+
+@pytest.mark.parametrize("n_cols", [1, 2])
+def test_run_counts_on_unsigned_order_keys(n_cols):
+    """SimkaMin's order: hashes sorted unsigned (``h ^ SIGN``), so the
+    positive int64 keys come before the negative ones and the keys are
+    grouped, not ascending; with 2 columns the sample id comes second,
+    as ``sketch_multi_prefix``'s (hash, sample) order. The model with
+    its equality-only search == plain; the single-column counts ==
+    ``simka_tpu``'s ``device_sketch_update`` (JAX) of the same hashes."""
+    from simka_tpu.minhash import device as jd
+    from simka_tpu_torch.minhash import device as td
+
+    rng = np.random.default_rng(n_cols)
+    n_kmers = 700
+    kmer = rng.integers(0, 1 << 62, n_kmers, dtype=np.int64)
+    reps = rng.integers(1, 200, n_kmers)
+    reps[:3] = (1000, 3000, 4500)  # runs across 128-row tiles
+    inst = np.repeat(kmer, reps)
+    rng.shuffle(inst)
+    h, _ = td.hash_valid_words(torch.from_numpy(inst),
+                               torch.ones(inst.shape[0], dtype=torch.bool),
+                               seed=11)
+    sid = torch.from_numpy(rng.integers(0, 3, inst.shape[0]))
+    if n_cols == 1:
+        hs = td._sort_hashes(h)[0]
+        keys = [hs.numpy()]
+    else:
+        order = torch.sort(h ^ td.SIGN, stable=True).indices
+        order = order[torch.sort(sid[order], stable=True).indices]
+        keys = [h[order].numpy(), sid[order].numpy()]
+    signs = np.sign(keys[0])
+    assert (signs < 0).any() and (signs > 0).any()
+    assert (keys[0][1:] < keys[0][:-1]).any()  # grouped, not ascending
+    for geometry in ({}, {"tile": 128, "threads": 64}):
+        _same_as_plain(keys, 2, 4000, **geometry)
+    if n_cols == 1:
+        count, keep, _ = _plain_counts(keys, 1, INT32_MAX)
+        hi = (inst >> 32).astype(np.uint32)
+        lo = (inst & 0xFFFFFFFF).astype(np.uint32)
+        ref_h, ref_c = jd.device_sketch_update(
+            jnp.asarray(hi), jnp.asarray(lo), seed=11, sketch_size=n_kmers)
+        first = keep.numpy()
+        np.testing.assert_array_equal(
+            keys[0][first].view(np.uint64), np.asarray(ref_h))
+        np.testing.assert_array_equal(count.numpy()[first],
+                                      np.asarray(ref_c))
 
 
 def _model_bins(sid, count, N: int, n_tiles_rows: int, blocks: int):
