@@ -226,19 +226,27 @@ Phases (each raises on failure; nothing is caught):
      own run, one run of 2^24 rows, runs ending at and beside every
      tile edge, runs of 1-8 rows under the bounds [3, 6] (counts at
      amin - 1 .. amax + 1) and E = 1, keys of 1 and 6 columns;
-     segment_stats (per-bank totals, newk, nb_distinct, nb_shared,
-     d_max, max_count) at N in {1, 2, 8, 100, 1000, 20000} (shared bins,
-     then device-memory atomics; N = 20000's first segment spans five
-     tiles); (b) timed with CUDA events beside the bound and the plain
-     version: the extraction at phase 7's first full batch (k=21 and
-     k=63), run_counts at phase 7's sorted packed key (beside
+     segment_stats (per-bank totals, the segment starts, nb_distinct,
+     nb_shared, d_max, max_count) at N in {1, 2, 8, 100, 1000, 20000}
+     (shared bins, then device-memory atomics; N = 20000's first
+     segment spans five tiles) and at the look-back and tile edges (a
+     k-mer over five tiles, k-mers from each tile's first and last row,
+     n = 1, 4095, 4096, 4097, every row of 2^24 its own k-mer, one
+     k-mer of 2^22 rows, N = 1706 and 1707, 2 and 3 word columns whose
+     first alone tells the k-mers apart), each twice with the same
+     starts and totals; (b) timed with CUDA
+     events beside the bound and the plain version: the extraction at
+     phase 7's first full batch (k=21 and k=63), run_counts at phase
+     7's sorted packed key (beside
      torch.unique_consecutive(return_counts=True)) and segment_stats at
-     phase 14's solid rows (beside its plain version's three index_add_
-     totals), each input kept by the path's own run. Every CLI run that
-     joins launches the segment kernel; phase 7's runs launch the
-     extraction once a batch (32) and run_counts and segment_stats once,
-     phase 14b's 100 / 1 / 1; the plain extraction, run counts and
-     segment pass raise on a CUDA tensor while the path runs.
+     phase 14's and phase 7's solid rows (on the device too, the chain
+     from the rows to the starts and lengths, and its plain version's
+     three index_add_ totals), each input kept by the path's own run.
+     Every CLI run that joins launches the segment kernel; phase 7's
+     runs launch the extraction once a batch (32) and run_counts and
+     segment_stats once, phase 14b's 100 / 1 / 1; the plain extraction,
+     run counts and segment pass raise on a CUDA tensor while the path
+     runs.
 
 Prints, before the last line, the kernels' JSON record (per kernel:
 launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
@@ -264,8 +272,12 @@ launch, with launch_floor_ms and per_probe, the last with
 store_floor_ms and store_floor_device_ms; extract_kmers', run_counts'
 and segment_stats' launches in phase 7's default run, the other
 launches_* as the compaction's, their times at phase 15b's shapes
-(k63_* the extraction at k=63; index_add_ms the plain segment pass's
-three index_add_ totals); extra fields) and the card's
+(k63_* the extraction at k=63; the segment pass's at phase 14's rows,
+n8_* at phase 7's, device_ms on the device (CUDA events around
+back-to-back launches of its entry point, the stream kept busy ahead
+of them), chain_ms the rows to the
+starts and lengths, index_add_ms the plain segment pass's three
+index_add_ totals); extra fields) and the card's
 nvidia-smi
 line; the last
 line is the JSON result. Exits non-zero without a result when no CUDA
@@ -315,8 +327,8 @@ MURMUR_REPLACES = "simka_tpu/minhash/device.py:50"
 # minhash.cu, min_distance.cu, pair_sums.cu, probes.cu, runs.cu): a
 # device time counts only the trace's events of these
 HAND_KERNELS = ("compact_onepass", "extract_kmers", "murmur_kmers",
-                "min_pair_tallies", "pair_sums", "probe_", "run_bounds",
-                "run_counts", "segment_stats")
+                "min_pair_tallies", "pair_sums", "probe_", "run_counts",
+                "segment_stats")
 SKETCH_SIZES = (100_000, 1_000_000)  # `min sketch` and `min pipeline`
 PAIR_REPLACES = "simka_tpu/minhash/device_distance.py:85"
 WIDE_N, WIDE_S = 100, 1_000_000  # phase 12a's in-memory sketches
@@ -421,6 +433,27 @@ def time_ms(fn, reps: int = 10) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def stream_ms(fn, reps: int = 10, rounds: int = 3) -> float:
+    """Device time of one call of fn whose device work outlasts its host
+    work: CUDA events around reps back-to-back calls, the stream kept
+    busy by a device sleep while the host enqueues them, so that no host
+    time falls between the events; the median over rounds, a call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)  # ~2 ms of clock cycles
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
 
 
@@ -1147,10 +1180,11 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
         say(f"full {tag}: both runs identical, {len(runs[0][0])} matrices")
         paths[tag] = runs[0][1]
         yardsticks[tag] = runs[0][0]
-    # one more default run keeps its join's pair-kernel inputs (apart
-    # from the runs above, whose peak memory they would raise)
+    # one more default run keeps its join's pair-kernel and hand-kernel
+    # inputs (apart from the runs above, whose peak memory they would
+    # raise)
     out = os.path.join(tmp, "full_21_rows")
-    with PairRecorder() as pr, KernelInputs(segments=False) as inputs:
+    with PairRecorder() as pr, KernelInputs() as inputs:
         cli_run("default k=21, the join's rows kept", [
             "-in", inp, "-out", out, "-kmer-size", "21", "-abundance-min",
             "2", "-verbose", "0", "-device", "cuda"], out, recorder)
@@ -3125,7 +3159,8 @@ class KernelInputs:
     """Keeps, while installed, the inputs of the largest call on the
     card of the extraction kernel (its packed batch and k), of
     ``run_counts`` (its key columns and bounds) and of ``segment_stats``
-    (its rows and N): the main path's own shapes, for phase 15b. It
+    (its rows and N: a join's): the main path's own
+    shapes, for phase 15b. It
     holds references, no copy, so the run's stages are not slowed;
     ``to_host`` moves the columns to the host after the run."""
 
@@ -3441,29 +3476,112 @@ def segment_rows_of(N: int, gen, dev, n_pairs: int = 1 << 20):
     return words, sid, count
 
 
+def flag_segment_rows(flags, N: int, gen, n_words: int = 1,
+                      first_only: bool = False):
+    """Solid rows whose k-mers start where ``flags`` is set: int64 word
+    columns (the k-mer's rank, spread over ``n_words`` columns; with
+    ``first_only`` the rank in the first column alone and every later
+    column one constant, so a boundary shows in the first column only),
+    int32 sample ids in [0, N), int32 counts up to 2^31 - 1."""
+    rank = torch.cumsum(flags.to(torch.int64), 0)
+    if first_only:
+        words = (rank,) + tuple(torch.full_like(rank, 0x5A5A5A5A5A)
+                                for _ in range(n_words - 1))
+    else:
+        words = tuple((rank >> (20 * (n_words - 1 - j))) & ((1 << 20) - 1)
+                      if j < n_words - 1 else rank for j in range(n_words))
+    n, dev = flags.shape[0], flags.device
+    sid = torch.randint(0, N, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    count = torch.randint(1, 1 << 31, (n,), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    return words, sid, count
+
+
+def segment_edge_cases(gen, dev):
+    """(tag, N, first-row flags, word columns, rank in the first column
+    alone) of phase 15a's look-back and tile edge shapes, at
+    csrc/runs.cu's own 4096-row tiles."""
+    T = RUN_TILE
+
+    def random_flags(n: int, p: float):
+        f = torch.rand(n, generator=gen, device=dev) < p
+        f[0] = True
+        return f
+
+    span = random_flags(12 * T + 77, 0.3)  # one k-mer from row 1000 on
+    span[1000:1000 + 5 * T + 7] = False
+    span[1000] = True
+    ends = torch.zeros(9 * T + 5, dtype=torch.bool, device=dev)
+    ends[0::T] = True
+    ends[T - 1::T] = True
+    yield ("a k-mer over five tiles (tiles without a boundary)", 8, span,
+           1, False)
+    yield "k-mers from each tile's first and last row", 8, ends, 3, False
+    for n in (1, 4095, 4096, 4097):
+        yield f"n = {n}", 100, random_flags(n, 0.3), 1, False
+    yield ("every row its own k-mer (4096 tiles: look-backs past a window "
+           "of 32)", 8, torch.ones(1 << 24, dtype=torch.bool, device=dev), 1,
+           False)
+    one = torch.zeros(1 << 22, dtype=torch.bool, device=dev)
+    one[0] = True
+    yield "one k-mer of all rows (2^22)", 8, one, 1, False
+    for N in (1706, 1707):  # the last N of shared bins, the first past
+        yield f"N = {N}", N, random_flags(1 << 22, 0.05), 2, False
+    for n_words in (2, 3):
+        yield (f"{n_words} words, the k-mer's rank in the first alone", 8,
+               random_flags(1 << 22, 0.3), n_words, True)
+
+
+def same_segments(tag: str, words, sid, count, N: int) -> int:
+    """segment_stats on the card == its plain version bit for bit (the
+    totals, starts[:nb_distinct + 1] and the scalars), twice with the
+    same starts and totals. Returns the kernel's launches (2)."""
+    saved = countjoin.segment_stats_launches
+    bins, starts, scalars = countjoin.segment_stats(words, sid, count,
+                                                    n_banks=N)
+    with plain_on_card():
+        want = countjoin._segment_stats_plain(words, sid, count, N)
+    nb = int(scalars[0])
+    if starts.shape[0] != sid.shape[0] + 1:
+        raise AssertionError(f"segment_stats {tag}: starts of "
+                             f"{starts.shape[0]} entries")
+    same(f"segment_stats {tag}", (bins, starts[:nb + 1], scalars), want)
+    again = countjoin.segment_stats(words, sid, count, n_banks=N)
+    same(f"segment_stats {tag}, a repeat run",
+         (again[0], again[1][:nb + 1], again[2]), want)
+    return countjoin.segment_stats_launches - saved
+
+
 def segment_stats_vs_plain(dev, seed: int) -> int:
     """Phase 15a, segment_stats == its plain version bit for bit (the
-    three per-bank totals, newk, nb_distinct, nb_shared, d_max,
-    max_count) at every N of SEGMENT_NS: shared bins up to N = 1706,
+    three per-bank totals, the starts, nb_distinct, nb_shared, d_max,
+    max_count) at every N of SEGMENT_NS (shared bins up to N = 1706,
     device-memory atomics past them; N = 20000's first segment spans
-    five tiles."""
+    five tiles) and at the look-back and tile edge shapes of
+    ``segment_edge_cases``; a repeat run gives the same starts and
+    totals."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 16)
     saved = countjoin.segment_stats_launches
     for N in SEGMENT_NS:
         words, sid, count = segment_rows_of(N, gen, dev)
-        got = countjoin.segment_stats(words, sid, count, n_banks=N)
-        with plain_on_card():
-            want = countjoin._segment_stats_plain(words, sid, count, N)
-        same(f"segment_stats N={N}", got, want)
+        if same_segments(f"N={N}", words, sid, count, N) != 2:
+            raise AssertionError("segment_stats: one launch a call expected")
+    tags = []
+    for tag, N, flags, n_words, first in segment_edge_cases(gen, dev):
+        words, sid, count = flag_segment_rows(flags, N, gen, n_words, first)
+        if same_segments(tag, words, sid, count, N) != 2:
+            raise AssertionError("segment_stats: one launch a call expected")
+        tags.append(tag)
+        del words, sid, count, flags
     torch.cuda.synchronize()
-    if countjoin.segment_stats_launches - saved != len(SEGMENT_NS):
-        raise AssertionError("segment_stats: one launch a call expected")
     countjoin.segment_stats_launches = saved
     banks = _kernels.lib().simka_segment_shared_banks()
     say(f"phase 15a: segment_stats == plain bit for bit at N in "
         f"{SEGMENT_NS} (shared bins up to N = {banks}, device-memory "
-        "atomics past them)")
+        f"atomics past them) and at {'; '.join(tags)}; repeat runs "
+        "identical")
     return 0
 
 
@@ -3525,11 +3643,16 @@ def time_run_counts(cols, amin: int, amax: int, dev) -> dict:
             "bound_by": b_by, "library_ms": lib_ms, "rows": E}
 
 
-def time_segment_stats(held, dev) -> dict:
-    """Phase 15b: segment_stats on phase 14's solid rows == plain, timed
-    beside the bound (words, sample id and count read once, newk and
-    the totals written once), the plain version and its three
-    index_add_ totals alone (the part of the plain version they are)."""
+def time_segment_stats(held, dev, at: str) -> dict:
+    """Phase 15b: segment_stats on a path's solid rows == plain, timed
+    beside the bound (words, sample id and count read once, the starts
+    and the totals written once), on the device (``stream_ms``), the
+    whole chain from
+    the rows to (starts, seg_len) as ``_raw_stats_from_rows`` runs it
+    (``countjoin._segments``: the pass, the one host read, the starts
+    copied out, the subtraction), the plain version
+    and its three index_add_ totals alone (the part of the plain version
+    they are)."""
     words, sid, count, N = held
     sid, count = sid.to(dev), count.to(dev)
     words = tuple(w.to(dev) for w in words)
@@ -3539,10 +3662,16 @@ def time_segment_stats(held, dev) -> dict:
         want = countjoin._segment_stats_plain(words, sid, count, N)
         plain_ms = time_ms(lambda: countjoin._segment_stats_plain(
             words, sid, count, N), reps=3)
-    same(f"segment_stats at phase 14's rows (N={N})", got, want)
+    nb = int(got[2][0])
+    same(f"segment_stats at {at} (N={N})", (got[0], got[1][:nb + 1],
+                                            got[2]), want)
     del got, want
     ms = time_ms(lambda: countjoin.segment_stats(words, sid, count,
                                                  n_banks=N))
+    dev_ms = stream_ms(lambda: countjoin.segment_stats(words, sid, count,
+                                                      n_banks=N))
+
+    chain_ms = time_ms(lambda: countjoin._segments(words, sid, count, N))
     countjoin.segment_stats_launches = saved
     s64, c64 = sid.to(torch.int64), count.to(torch.int64)
 
@@ -3553,18 +3682,24 @@ def time_segment_stats(held, dev) -> dict:
 
     add_ms = time_ms(totals, reps=3)
     n = sid.shape[0]
-    nbytes = (n * (8 * len(words) + sid.element_size() + count.element_size()
-                   + 1) + 3 * 8 * N + 32)
+    nbytes = (n * (8 * len(words) + sid.element_size() + count.element_size())
+              + 8 * (nb + 1) + 3 * 8 * N + 32)
     b_ms, b_by = bound(nbytes)
-    say(f"phase 15b: segment_stats at phase 14's solid rows ({n} rows, "
-        f"N={N}, {len(words)} word(s)): kernel {ms:.4f} ms (bound "
-        f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}%), plain "
-        f"{plain_ms:.4f} ms of which the three index_add_ totals "
-        f"{add_ms:.4f} ms ({100 * add_ms / plain_ms:.1f}%); == plain; no "
-        "torch call computes the per-bank totals and the segments")
+    say(f"phase 15b: segment_stats at {at} ({n} rows, {nb} k-mers, N={N}, "
+        f"{len(words)} word(s), sample id int{8 * sid.element_size()}, "
+        f"count int{8 * count.element_size()}): kernel {ms:.4f} ms around "
+        f"the call, {dev_ms:.4f} ms on the device (events around "
+        f"back-to-back calls; bound {b_ms:.4f} ms by {b_by}, "
+        f"{100 * b_ms / ms:.1f}% around the call, "
+        f"{100 * b_ms / dev_ms:.1f}% on the device); rows to (starts, "
+        f"seg_len) {chain_ms:.4f} ms; plain {plain_ms:.4f} ms of which the "
+        f"three index_add_ totals {add_ms:.4f} ms "
+        f"({100 * add_ms / plain_ms:.1f}%); == plain; no torch call "
+        "computes the per-bank totals and the segments")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "index_add_ms": add_ms,
-            "rows": n}
+            "bound_by": b_by, "library_ms": None, "device_ms": dev_ms,
+            "chain_ms": chain_ms, "index_add_ms": add_ms, "rows": n,
+            "segments": nb}
 
 
 def kernels_phase(dev, seed: int, inputs: KernelInputs,
@@ -3581,7 +3716,13 @@ def kernels_phase(dev, seed: int, inputs: KernelInputs,
     cols, amin, amax = inputs.runs
     res["run_counts"] = time_run_counts(cols, amin, amax, dev)
     torch.cuda.empty_cache()
-    res["segment_stats"] = time_segment_stats(segment_rows, dev)
+    res["segment_stats"] = time_segment_stats(segment_rows, dev,
+                                              "phase 14's solid rows")
+    torch.cuda.empty_cache()
+    res["segment_stats"].update(
+        (f"n8_{k}", v) for k, v in time_segment_stats(
+            inputs.segments, dev, "phase 7's solid rows").items()
+        if k not in ("bound_by", "library_ms"))
     torch.cuda.empty_cache()
     say(f"phase 15: {time.perf_counter() - t0:.1f} s")
     return res

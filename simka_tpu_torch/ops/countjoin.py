@@ -8,8 +8,8 @@ The torch counterpart of ``simka_tpu.ops.countjoin.count_join_stats``:
      row per solid (k-mer, sample), made contiguous by the stable
      compaction (``ops.compact``) -- order stays (k-mer, sample)
      ascending (the run lengths and the filter: ``run_counts``);
-  3. per-bank totals, then segments of equal k-mers (one pass,
-     ``segment_stats``; the segment starts by the compaction);
+  3. per-bank totals and the segments of equal k-mers, their starts
+     in order (one pass, ``segment_stats``);
   4. pair sums in direct form: every two rows of one segment are a
      co-present pair (a, b) with a < b, added into flat [N * N] int64
      sums, with Whittaker's all-rows sums in the same pass
@@ -175,13 +175,6 @@ def _key_columns(what: str, cols, max_cols: int):
     return cols, E, dev
 
 
-def _tile_scratch(lib, E: int, dev) -> torch.Tensor:
-    """int64 [one a tile] scratch of segment_stats' first pass
-    (csrc/runs.cu)."""
-    return torch.empty(-(-E // lib.simka_runs_tile_rows()),
-                       dtype=torch.int64, device=dev)
-
-
 def run_counts(cols: Sequence[torch.Tensor], abundance_min: int = 1,
                abundance_max: int = INT32_MAX):
     """Run lengths of rows sorted on the key columns ``cols`` (1 to 8
@@ -225,7 +218,8 @@ def run_counts(cols: Sequence[torch.Tensor], abundance_min: int = 1,
 
 
 def _segment_stats_plain(words, sid, count, n_banks: int):
-    """The plain torch version of the segment kernel."""
+    """The plain torch version of the segment kernel; ``starts`` of
+    exactly nb_distinct + 1 entries."""
     N = n_banks
     dev = sid.device
     i64 = torch.int64
@@ -235,17 +229,17 @@ def _segment_stats_plain(words, sid, count, n_banks: int):
     bins = torch.zeros((3, N), dtype=i64, device=dev)
     for row, values in zip(bins, (torch.ones_like(c64), c64, c64 * c64)):
         row.index_add_(0, sid, values)
-    newk = _first_of_run(*words)
-    starts = newk.nonzero().squeeze(1)
-    seg_len = torch.cat([starts[1:], starts.new_tensor([n])]) - starts
+    first = torch.cat([_first_of_run(*words).nonzero().squeeze(1),
+                       torch.tensor([n], dtype=i64, device=dev)])
+    seg_len = first[1:] - first[:-1]
     zero = torch.zeros((), dtype=i64, device=dev)
     scalars = torch.stack([
-        torch.tensor(starts.shape[0], dtype=i64, device=dev),
+        torch.tensor(seg_len.shape[0], dtype=i64, device=dev),
         (seg_len >= 2).sum().to(i64),
         seg_len.max() if n else zero,
         c64.max() if n else zero,
     ])
-    return bins, newk, scalars
+    return bins, first, scalars
 
 
 def segment_stats(words: Sequence[torch.Tensor], sid: torch.Tensor,
@@ -259,13 +253,16 @@ def segment_stats(words: Sequence[torch.Tensor], sid: torch.Tensor,
         int64, sid in [0, n_banks).
 
     Returns (bins [3, N] int64: distinct_per_bank, solid_per_bank and
-    chord_n2_per_bank; newk [n] bool: the first row of each k-mer;
+    chord_n2_per_bank; starts int64: starts[j] the first row of the j-th
+    k-mer for j < nb_distinct and starts[nb_distinct] = n -- on CUDA of
+    capacity n + 1, the entries past nb_distinct not specified, on the
+    CPU exactly nb_distinct + 1 entries;
     scalars [4] int64: nb_distinct, nb_shared (k-mers of >= 2 rows),
     d_max (the longest segment) and max_count), on the rows' device.
 
     On CUDA tensors this launches the kernel of ``csrc/runs.cu`` once
-    (its two passes) or raises; on CPU tensors it is the plain version,
-    bit for bit the same.
+    (one pass, the starts in order by decoupled look-back) or raises; on
+    CPU tensors it is the plain version, bit for bit the same.
     """
     global segment_stats_launches
     words, n, dev = _key_columns("segment_stats", words, 5)
@@ -277,25 +274,30 @@ def segment_stats(words: Sequence[torch.Tensor], sid: torch.Tensor,
     if dev.type == "cpu":
         return _segment_stats_plain(words, sid, count, n_banks)
     N = n_banks
-    bins = torch.zeros((3, N), dtype=torch.int64, device=dev)
-    newk = torch.empty(n, dtype=torch.bool, device=dev)
-    scalars = torch.zeros(4, dtype=torch.int64, device=dev)
+    i64 = torch.int64
+    bins = torch.zeros((3, N), dtype=i64, device=dev)
+    first = torch.empty(n + 1, dtype=i64, device=dev)
+    scalars = torch.zeros(4, dtype=i64, device=dev)
     if n == 0:
-        return bins, newk, scalars
+        first.zero_()
+        return bins, first, scalars
     from simka_tpu_torch.ops import _kernels
 
     lib = _kernels.lib()
-    tiles = _tile_scratch(lib, n, dev)
+    # [ticket counter, one status word a tile]
+    scratch = torch.empty(1 + -(-n // lib.simka_runs_tile_rows()),
+                          dtype=i64, device=dev)
     ptrs = (ctypes.c_void_p * len(words))(*[w.data_ptr() for w in words])
     with torch.cuda.device(dev):
         code = lib.simka_segment_stats(
             ctypes.addressof(ptrs), len(words), n, sid.data_ptr(),
             sid.element_size(), count.data_ptr(), count.element_size(), N,
-            newk.data_ptr(), bins.data_ptr(), scalars.data_ptr(),
-            tiles.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            bins.data_ptr(), scalars.data_ptr(),
+            first.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(code, "segment_stats")
     segment_stats_launches += 1
-    return bins, newk, scalars
+    return bins, first, scalars
 
 
 def _lex_order(keys: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -663,9 +665,21 @@ def pair_sums(sid, count, starts, seg_len, K, flat, kl, *,
                            whittaker_all, d_max=d_max)
 
 
+def _segments(words, sid, count, n_banks: int):
+    """``segment_stats`` of solid rows and its one host read: (bins, scalars, d_max, starts, seg_len), the last
+    two [nb_distinct] int64. The starts are copied out of the pass's
+    buffer, one entry a row, so that the pair pass does not hold that
+    buffer beside its own scratch: held, it raised the peak of the
+    every-distance join at N = 100 (``chip_smoke.py`` phase 14b)."""
+    bins, starts, scalars = segment_stats(words, sid, count, n_banks=n_banks)
+    n_segs, d_max = scalars[[0, 2]].tolist()  # the one host read
+    starts = starts[:n_segs + 1].clone()
+    return bins, scalars, d_max, starts[:-1], starts[1:] - starts[:-1]
+
+
 def _raw_stats_from_rows(
     words, sid, count, *, n_banks: int, simple: bool = False,
-    complex_: bool = False, solid_override=None, segments=None,
+    complex_: bool = False, solid_override=None,
 ) -> JoinStats:
     """Per-bank totals, segments and pair sums over solid rows in
     (k-mer, sample)-ascending order (``_stats_from_rows`` with
@@ -679,22 +693,13 @@ def _raw_stats_from_rows(
     ``solid_override``: [N] int64 per-bank solid totals to use as K in
     the Whittaker and KL terms instead of these rows' own (the sweep's
     whole-sample totals, ``simka_tpu``'s ``solid_override``); the
-    returned ``solid_per_bank`` stays these rows' own. ``segments``:
-    these rows' ``segment_stats``, when the caller already has them."""
-    from simka_tpu_torch.ops.compact import compact_rows
-
+    returned ``solid_per_bank`` stays these rows' own."""
     N = n_banks
     dev = sid.device
     i64, f64 = torch.int64, torch.float64
-    n = sid.shape[0]
-    bins, newk, scalars = segments if segments is not None else (
-        segment_stats(words, sid, count, n_banks=N))
+    bins, scalars, d_max, starts, seg_len = _segments(words, sid, count, N)
     distinct_per_bank, solid_per_bank, chord_n2_per_bank = bins
     K = solid_per_bank if solid_override is None else solid_override.to(dev)
-    n_segs, d_max = scalars[[0, 2]].tolist()  # the one host read
-    (starts,) = compact_rows((torch.arange(n, dtype=i64, device=dev),),
-                             newk, fills=(-1,), n=n_segs)
-    seg_len = torch.cat([starts[1:], starts.new_tensor([n])]) - starts
     sid = sid.to(i64)
     c64 = count.to(i64)
 

@@ -205,12 +205,16 @@ def sharded_raw_stats(rows: Iterable[Rows], *, n_banks: int,
     """Raw statistics (``ops.countjoin._raw_stats_from_rows``' form) of
     every shard's solid rows, folded on the first shard's device.
 
-    Each shard's segment pass (``segment_stats``) runs first: its
-    per-bank solid totals are summed over the shards (and, with
-    ``all_reduce``, an in-place sum over processes) BEFORE any pair
-    term reads them; ``solid_override`` (the sweep's whole-sample
-    totals) replaces them. The entries of a list are dropped (set to
-    None) as each shard's pair terms are taken, which frees its rows."""
+    Without ``solid_override``, over several shards or with
+    ``all_reduce``, each shard's segment pass (``segment_stats``) runs
+    first and only its per-bank solid totals are kept: they are summed
+    over the shards (and, with ``all_reduce``, an in-place sum over
+    processes) BEFORE any pair term reads them; each shard's join runs
+    its own pass again, so no shard's segment starts are held beside
+    another's rows. One shard alone takes its join's own totals.
+    ``solid_override`` (the sweep's whole-sample totals) replaces them.
+    The entries of a list are dropped (set to None) as each shard's pair
+    terms are taken, which frees its rows."""
     from simka_tpu_torch.ops.countjoin import (
         _add_raw,
         _raw_stats_from_rows,
@@ -220,23 +224,23 @@ def sharded_raw_stats(rows: Iterable[Rows], *, n_banks: int,
     rows = rows if isinstance(rows, list) else list(rows)
     home = rows[0][1].device
     i64 = torch.int64
-    segs = [segment_stats(*r, n_banks=n_banks) for r in rows]
-    if solid_override is None:
+    if solid_override is not None:
+        K = torch.as_tensor(solid_override, dtype=i64).to(home)
+    elif len(rows) > 1 or all_reduce is not None:
         K = torch.zeros(n_banks, dtype=i64, device=home)
-        for bins, _, _ in segs:
-            K += bins[1].to(home)
+        for r in rows:
+            K += segment_stats(*r, n_banks=n_banks)[0][1].to(home)
         if all_reduce is not None:
             all_reduce(K)
     else:
-        K = torch.as_tensor(solid_override, dtype=i64).to(home)
+        K = None  # one shard: its join's own totals
     total = None
     for i in range(len(rows)):
         words, sid, count = rows[i]
         rows[i] = None
         raw = _raw_stats_from_rows(words, sid, count, n_banks=n_banks,
                                    simple=simple, complex_=complex_,
-                                   solid_override=K, segments=segs[i])
-        segs[i] = None
+                                   solid_override=K)
         del words, sid, count
         raw = JoinStats(*(t.to(home) for t in raw))
         total = raw if total is None else _add_raw(total, raw)

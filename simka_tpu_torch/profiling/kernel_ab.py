@@ -1,5 +1,5 @@
-"""The extraction and run-count kernels in two checkouts, in turns on one
-card.
+"""The extraction, run-count and segment kernels in two checkouts, in
+turns on one card.
 
     python -m simka_tpu_torch.profiling.kernel_ab --a DIR --b DIR
 
@@ -15,13 +15,25 @@ shapes of ``chip_smoke.py`` phase 7's main path:
   - ``ops.countjoin.run_counts`` on KEY_ROWS sorted int64 keys (phase
     7's packed key at k = 21), drawn from KEY_RANGE values so that runs
     average ~3 rows, with abundance-min 2, beside
-    ``torch.unique_consecutive(return_counts=True)`` on the same key.
+    ``torch.unique_consecutive(return_counts=True)`` on the same key;
+  - ``ops.countjoin.segment_stats`` on seed-made solid rows (as
+    ``profiling/pair_ab.py`` makes them: each of S k-mers in each of N
+    samples with probability p, an int64 word and sample id, an int32
+    count) shaped like phase 14's (N = 100, runs of ~25 rows) and phase
+    7's (N = 8, ~2.2 rows a k-mer), alone and as the chain from the
+    rows to (bins, scalars, starts[:n_segs], seg_len) that the
+    checkout's ``_raw_stats_from_rows`` runs: in the two-pass form (the
+    pass returns a first-row mask) the host read, an arange, its
+    compaction on the mask, a cat and a subtraction; in the one-pass
+    form ``countjoin._segments``: the host read, the starts copied out
+    of the pass's buffer and a subtraction.
 
 Each also takes the kernels' own device time a call under
-torch.profiler. Each process prints its times and a digest of every
-output (index-weighted sums), so that the two checkouts are seen to
-compute the same thing; then the medians of each side, after the card's
-name and power limit.
+torch.profiler (for the segment chain, every device event of the
+chain). Each process prints its times and a digest of every output
+(index-weighted sums), so that the two checkouts are seen to compute
+the same thing; then the medians of each side, after the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -39,6 +51,9 @@ REPS = 20
 BATCH_READS, READ_SLOTS, READ_BASES, N_RATE = 1 << 17, 104, 100, 0.001
 KEY_ROWS, KEY_RANGE = 313_342_848, 100_000_000
 EXTRACT_KS = (21, 63)
+# (tag, N, k-mers, presence probability) of the segment rows
+SEGMENT_SHAPES = (("n100", 100, 4_000_000, 0.2475),
+                  ("n8", 8, 39_000_000, 0.25))
 
 _RUN = r"""
 import json, sys, torch
@@ -130,6 +145,47 @@ res["run_counts_device_ms"] = device(
     fn, ("run_counts", "run_bounds", "run_lengths"))
 res["unique_consecutive_ms"] = timed(
     lambda: torch.unique_consecutive(key, return_counts=True))
+del key
+torch.cuda.empty_cache()
+
+def solid_rows(N, S, p):
+    seg, sid = (torch.rand((S, N), generator=g, device=dev) < p).nonzero(
+        as_tuple=True)
+    u = torch.rand(seg.shape[0], generator=g, device=dev)
+    count = (2 + torch.floor(torch.log(u) / torch.log(torch.tensor(
+        0.7, device=dev)))).clamp(max=1 << 20).to(torch.int32)
+    return (seg,), sid, count
+
+for tag, N, S, p in sh["segments"]:
+    rows = solid_rows(N, S, p)
+    one = lambda: countjoin.segment_stats(*rows, n_banks=N)
+
+    def chain():
+        if hasattr(countjoin, "_segments"):  # the one-pass form
+            bins, scalars, _, starts, seg_len = countjoin._segments(*rows, N)
+            return bins, scalars, starts, seg_len
+        bins, second, scalars = one()
+        n_segs, d_max = scalars[[0, 2]].tolist()
+        from simka_tpu_torch.ops.compact import compact_rows
+        n = rows[1].shape[0]
+        (starts,) = compact_rows((torch.arange(n, dtype=torch.int64,
+                                               device=dev),),
+                                 second, fills=(-1,), n=n_segs)
+        return (bins, scalars, starts,
+                torch.cat([starts[1:], starts.new_tensor([n])]) - starts)
+
+    key = f"seg_{tag}"
+    res[key + "_digest"] = digest(chain())
+    res[key + "_shape"] = [rows[1].shape[0], N]
+    n0 = countjoin.segment_stats_launches
+    res[key + "_ms"] = timed(one)
+    res[key + "_launches"] = (countjoin.segment_stats_launches - n0) / (
+        reps + 1)
+    res[key + "_device_ms"] = device(one, ("segment_stats", "run_bounds"))
+    res[key + "_chain_ms"] = timed(chain)
+    res[key + "_chain_device_ms"] = device(chain, ("",))
+    del rows
+    torch.cuda.empty_cache()
 print("TIMES " + json.dumps(res), flush=True)
 """
 
@@ -147,7 +203,7 @@ def main(argv=None) -> int:
     print(f"card: {smi}", flush=True)
     shapes = {"reads": BATCH_READS, "slots": READ_SLOTS, "bases": READ_BASES,
               "n_rate": N_RATE, "ks": list(EXTRACT_KS), "key_rows": KEY_ROWS,
-              "key_range": KEY_RANGE}
+              "key_range": KEY_RANGE, "segments": SEGMENT_SHAPES}
     runs = {"A": [], "B": []}
     for side in ORDER:
         root = os.path.abspath(getattr(args, side.lower()))
@@ -172,6 +228,11 @@ def main(argv=None) -> int:
              f"extract_{k}") for k in EXTRACT_KS]
     rows += [(f"run_counts ({KEY_ROWS} sorted int64 rows)", "run_counts"),
              ("torch.unique_consecutive, same key", "unique_consecutive")]
+    for tag, N, S, p in SEGMENT_SHAPES:
+        n = first[f"seg_{tag}_shape"][0]
+        rows += [(f"segment_stats ({n} rows, N = {N})", f"seg_{tag}"),
+                 (f"rows to (starts, seg_len) ({n} rows, N = {N})",
+                  f"seg_{tag}_chain")]
     for what, key in rows:
         for part, how in (("_ms", "around the call"),
                           ("_device_ms", "on the device")):

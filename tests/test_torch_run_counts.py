@@ -4,8 +4,10 @@ tensors) against ``simka_tpu``'s ``_rows_from_instances``,
 ``_stats_from_rows`` and ``_segment_rows`` on the same numpy inputs; a
 model of the kernels' work split (csrc/runs.cu: run_counts' one pass,
 its per-step ballots and the equality-only search for a run's end past
-the tile; segment_stats' tiles, look-ahead over later tiles and
-shared or device-memory bins) against the plain versions at edge sizes;
+the tile; segment_stats' one pass over tiles claimed in ticket order,
+each tile's boundary count, its exclusive prefix by decoupled look-back,
+the starts at their slots and shared or device-memory bins) against the
+plain versions at edge sizes;
 the kernels against their plain versions on the card
 (``cuda``-marked).
 Exact equality throughout."""
@@ -144,23 +146,34 @@ def test_segment_stats_match_stats_from_rows(N, k):
         jnp.asarray(count), jnp.asarray(kept), n_banks=N, simple=False,
         complex_=False, count_bits=32, vary_axes=(), psum_axis="",
         rows_compacted=True)
-    _, newk, _, d_max, n_distinct, n_shared = jc._segment_rows(
+    _, newk, seg_len, d_max, n_distinct, n_shared = jc._segment_rows(
         tuple(jnp.asarray(w) for w in w32), jnp.asarray(kept))
-    bins, got_newk, scalars = tc.segment_stats(
+    bins, starts, scalars = tc.segment_stats(
         tw, torch.from_numpy(sid), torch.from_numpy(count), n_banks=N)
+    newk = np.asarray(newk)
     np.testing.assert_array_equal(bins[0].numpy(), js.distinct_per_bank)
     np.testing.assert_array_equal(bins[1].numpy(), js.solid_per_bank)
     np.testing.assert_array_equal(bins[2].numpy(), js.chord_n2_per_bank)
-    np.testing.assert_array_equal(got_newk.numpy(), np.asarray(newk))
+    np.testing.assert_array_equal(starts.numpy(),
+                                  np.append(np.flatnonzero(newk), n))
+    np.testing.assert_array_equal((starts[1:] - starts[:-1]).numpy(),
+                                  np.asarray(seg_len)[newk])
     assert scalars.tolist() == [int(n_distinct), int(n_shared), int(d_max),
                                 int(js.max_count)]
     assert int(js.nb_distinct) == int(n_distinct)
     assert int(js.nb_shared) == int(n_shared) > 0 or N == 1
 
 
-def test_raw_stats_take_the_segment_pass():
-    """``_raw_stats_from_rows`` fed its own ``segment_stats`` gives the
-    same stats as without them, and the totals come from the pass."""
+def test_raw_stats_take_the_segment_pass(monkeypatch):
+    """``_raw_stats_from_rows`` takes its segment starts from the pass
+    (no compaction: ``compact_rows`` raises here), and its totals and
+    k-mer count are the pass's."""
+    from simka_tpu_torch.ops import compact
+
+    def refuse(*args, **kw):
+        raise AssertionError("the join compacted rows")
+
+    monkeypatch.setattr(compact, "compact_rows", refuse)
     rng = np.random.default_rng(5)
     words, sid, count = _solid_rows(rng, 12, 300, 21)
     args = (tuple(torch.from_numpy(w) for w in words), torch.from_numpy(sid),
@@ -168,55 +181,14 @@ def test_raw_stats_take_the_segment_pass():
     seg = tc.segment_stats(*args, n_banks=12)
     a = tc._raw_stats_from_rows(*args, n_banks=12, simple=True,
                                 complex_=True)
-    b = tc._raw_stats_from_rows(*args, n_banks=12, simple=True,
-                                complex_=True, segments=seg)
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+    assert torch.equal(a.distinct_per_bank, seg[0][0])
     assert torch.equal(a.solid_per_bank, seg[0][1])
-    assert int(a.nb_distinct) == int(seg[2][0])
+    assert torch.equal(a.chord_n2_per_bank, seg[0][2])
+    assert int(a.nb_distinct) == int(seg[2][0]) == seg[1].shape[0] - 1
+    assert int(a.nb_shared) == int(seg[2][1])
 
 
 # ---- (b) a numpy model of csrc/runs.cu's work split ---------------------
-
-
-def _model_lengths(flags: np.ndarray, tile: int, threads: int):
-    """Run lengths at each first row as segment_stats' two passes
-    compute them:
-    pass 1 each tile's first boundary (None where the tile holds none);
-    pass 2, per tile, each thread's first boundary over its contiguous
-    rows, an exclusive suffix min over the later threads, past the
-    tile's last boundary the first boundary of a later tile (read 32
-    tiles at a time), and the backward walk."""
-    E = flags.shape[0]
-    rows = tile // threads
-    n_tiles = -(-E // tile)
-    tile_first = []
-    for t in range(n_tiles):
-        hit = np.flatnonzero(flags[t * tile:(t + 1) * tile])
-        tile_first.append(t * tile + int(hit[0]) if hit.size else None)
-    lengths = np.zeros(E, np.int64)
-    for t in range(n_tiles):
-        t0 = t * tile
-        f = np.ones(tile, bool)  # rows past E read as boundaries
-        f[:min(tile, E - t0)] = flags[t0:t0 + tile]
-        after = E
-        for base in range(t + 1, n_tiles, 32):
-            found = [v for v in tile_first[base:base + 32] if v is not None]
-            if found:
-                after = found[0]
-                break
-        mine = [next((th * rows + r for r in range(rows)
-                      if f[th * rows + r]), tile) for th in range(threads)]
-        for th in range(threads):
-            nxt = min(mine[th + 1:], default=tile)
-            nxt = t0 + nxt if nxt < tile else after
-            for r in range(rows - 1, -1, -1):
-                i = t0 + th * rows + r
-                if f[th * rows + r]:
-                    if i < E:
-                        lengths[i] = nxt - i
-                    nxt = i
-    return lengths
 
 
 def _edge_flags(E: int, tile: int, kind: str, rng):
@@ -229,6 +201,9 @@ def _edge_flags(E: int, tile: int, kind: str, rng):
         f[0] = True
         for e in range(tile, E, tile):
             f[max(0, e - 1):e + 2] = True
+    elif kind == "ends":  # runs from each tile's first and last row
+        f[0::tile] = True
+        f[tile - 1::tile] = True
     elif kind == "long":  # runs past a tile, and short ones between
         f[::3 * tile + 5] = True
         f[rng.random(E) < 0.001] = True
@@ -462,21 +437,20 @@ def test_run_counts_on_unsigned_order_keys(n_cols):
                                       np.asarray(ref_c))
 
 
-def _model_bins(sid, count, N: int, n_tiles_rows: int, blocks: int):
-    """Per-bank bins as segment_stats adds them: a persistent grid of
-    ``blocks`` CTAs over tiles, each CTA's sums in shared bins flushed
-    once when 3 x 8 x N bytes fit, else every add straight into the
-    outputs."""
+def _model_bins(sid, count, N: int, tile: int, blocks: int):
+    """Per-bank bins as segment_stats adds them: ``blocks`` CTAs claim
+    the tiles from the ticket (here in turn), each CTA's sums in shared
+    bins flushed once when 3 x 8 x N bytes fit, else every add straight
+    into the outputs."""
     out = np.zeros((3, N), np.int64)
     E = sid.shape[0]
-    n_tiles = -(-E // n_tiles_rows)
+    n_tiles = -(-E // tile)
     shared = N <= SHARED_BANKS
     for b in range(min(blocks, n_tiles)):
         acc = np.zeros((3, N), np.int64) if shared else out
         for t in range(b, n_tiles, blocks):
-            s = sid[t * n_tiles_rows:(t + 1) * n_tiles_rows].astype(np.int64)
-            c = count[t * n_tiles_rows:(t + 1) * n_tiles_rows].astype(
-                np.int64)
+            s = sid[t * tile:(t + 1) * tile].astype(np.int64)
+            c = count[t * tile:(t + 1) * tile].astype(np.int64)
             np.add.at(acc[0], s, 1)
             np.add.at(acc[1], s, c)
             np.add.at(acc[2], s, c * c)
@@ -485,20 +459,151 @@ def _model_bins(sid, count, N: int, n_tiles_rows: int, blocks: int):
     return out
 
 
+def _model_look_back(counts, t: int, in_flight: int):
+    """Tile t's exclusive prefix as warp 0 of csrc/runs.cu's
+    segment_stats looks it back: the tiles t - in_flight < p < t have
+    published only their count (flag A), the earlier ones their
+    inclusive prefix (flag P); windows of 32 predecessors, lane 31 the
+    nearest, each summing its lanes from the nearest P on, until a
+    window holds a P (before tile 0: a P of 0)."""
+    prefix, end = 0, t
+    while True:
+        window = []
+        for p in range(end - 32, end):
+            if p < 0:
+                window.append((True, 0))
+            elif p <= t - in_flight:
+                window.append((True, int(sum(counts[:p + 1]))))
+            else:
+                window.append((False, int(counts[p])))
+        ps = [i for i, (is_p, _) in enumerate(window) if is_p]
+        prefix += sum(v for _, v in window[ps[-1] if ps else 0:])
+        if ps:
+            return prefix
+        end -= 32
+
+
+def _model_segments(words, sid, count, N: int, tile: int = TILE,
+                    threads: int = THREADS, blocks: int = 3,
+                    in_flight: int = 40):
+    """csrc/runs.cu's one-pass segment_stats: tiles claimed in ticket
+    order; per tile, warps of up to 32 lanes take `lanes x steps` rows
+    each, a ballot a step of the rows that start a k-mer (the word
+    columns alone); each warp counts its boundaries below E, so each
+    warp has its exclusive offset in the tile and the tile its count;
+    the tile's exclusive prefix by look-back (``_model_look_back``);
+    each boundary row goes to starts[prefix + the warp's offset + the
+    boundaries of its earlier steps + the set bits below its lane]; the
+    tile holding the last row writes starts[nb_distinct] = E. The
+    lengths are run_counts' (the same warp walk and run_end past the
+    tile) on the words; the scalars come from them, the bins from
+    ``_model_bins``. Returns (bins, starts[:nb_distinct + 1],
+    scalars)."""
+    E = sid.shape[0]
+    steps, lanes = tile // threads, min(32, threads)
+    wrows = lanes * steps
+    first = np.zeros(E, bool)
+    first[0] = True
+    for w in words:
+        first[1:] |= w[1:] != w[:-1]
+    lengths = _model_run_counts(words, 1, INT32_MAX, tile, threads)[0]
+    n_tiles = -(-E // tile)
+    counts = []  # each tile's boundaries, in ticket order
+    starts = np.full(E + 1, -1, np.int64)
+    for t in range(n_tiles):
+        t0 = t * tile
+        # a step's lanes whose row starts a k-mer and lies below E
+        ballots = [[sum(int(first[i]) << ln for ln in range(lanes)
+                        if (i := t0 + w * wrows + lanes * j + ln) < E)
+                    for j in range(steps)]
+                   for w in range(tile // wrows)]
+        warp_counts = [sum(bin(b).count("1") for b in bs) for bs in ballots]
+        counts.append(sum(warp_counts))
+        prefix = _model_look_back(counts, t, in_flight)
+        for w, bs in enumerate(ballots):
+            slot = prefix + sum(warp_counts[:w])
+            for j, b in enumerate(bs):
+                for ln in range(lanes):
+                    if b >> ln & 1:
+                        below = bin(b & ((1 << ln) - 1)).count("1")
+                        starts[slot + below] = t0 + w * wrows + lanes * j + ln
+                slot += bin(b).count("1")
+        if t == n_tiles - 1:
+            starts[prefix + counts[-1]] = E
+    nb = sum(counts)
+    lens = lengths[first].astype(np.int64)
+    scalars = [nb, int((lens >= 2).sum()), int(lens.max()),
+               int(count.astype(np.int64).max())]
+    return (_model_bins(sid, count, N, tile, blocks), starts[:nb + 1],
+            scalars)
+
+
+def _same_segments_as_plain(words, sid, count, N: int, **geometry):
+    bins, starts, scalars = tc.segment_stats(
+        tuple(torch.from_numpy(w) for w in words), torch.from_numpy(sid),
+        torch.from_numpy(count), n_banks=N)
+    got = _model_segments(words, sid, count, N, **geometry)
+    np.testing.assert_array_equal(got[0], bins.numpy())
+    np.testing.assert_array_equal(got[1], starts.numpy())
+    assert got[2] == scalars.tolist()
+
+
 @pytest.mark.parametrize("N", [1, 8, SHARED_BANKS, SHARED_BANKS + 1, 20000])
 def test_bin_model_matches_plain_segment_stats(N):
+    """The one-pass model at 256-row tiles (2 warps of 4 steps) over 3
+    CTAs, every CTA several tiles, against the plain version: shared
+    bins up to N = 1706, device-memory atomics past it."""
     rng = np.random.default_rng(N)
     words, sid, count = _solid_rows(rng, N, 3000, 21, cmax=INT32_MAX)
-    bins, newk, scalars = tc.segment_stats(
-        (torch.from_numpy(words[0]),), torch.from_numpy(sid),
-        torch.from_numpy(count), n_banks=N)
-    # tiles of 256 rows over 3 CTAs: every CTA takes several tiles
-    np.testing.assert_array_equal(_model_bins(sid, count, N, 256, 3),
-                                  bins.numpy())
-    lengths = _model_lengths(newk.numpy(), 256, 16)
-    assert scalars.tolist()[:3] == [int((lengths > 0).sum()),
-                                    int((lengths >= 2).sum()),
-                                    int(lengths.max())]
+    _same_segments_as_plain(words, sid, count, N, tile=256, threads=64)
+
+
+def _segment_rows_of(flags, N: int, rng, n_words: int = 1):
+    """Solid rows whose k-mers start where ``flags`` is set: int64 word
+    columns, int32 sample ids in [0, N), int32 counts."""
+    words = [k.astype(np.int64) for k in _keys_of(flags, n_words)]
+    sid = rng.integers(0, N, flags.shape[0]).astype(np.int32)
+    count = rng.integers(1, INT32_MAX, flags.shape[0]).astype(np.int32)
+    return words, sid, count
+
+
+@pytest.mark.parametrize("kind", ["own", "one", "edges", "ends", "long",
+                                  "random"])
+@pytest.mark.parametrize("N", [8, SHARED_BANKS + 1])
+def test_segment_model_at_tile_edges(kind, N):
+    """The one-pass model against the plain version at 256-row tiles:
+    every row its own k-mer, one k-mer of all rows, k-mers ending at and
+    beside every tile edge, k-mers from each tile's first and last row,
+    k-mers over several tiles (tiles without a boundary) and short ones
+    between, random; 1 and 3 word columns; tiles in flight past a
+    look-back window and all published."""
+    rng = np.random.default_rng(len(kind) + N)
+    tile = 256
+    E = 9 * tile + 17
+    flags = _edge_flags(E, tile, kind, rng)
+    for n_words, in_flight in ((1, 40), (3, 1)):
+        _same_segments_as_plain(*_segment_rows_of(flags, N, rng, n_words),
+                                N, tile=tile, threads=64,
+                                in_flight=in_flight)
+
+
+@pytest.mark.parametrize("E", [1, 4095, 4096, 4097])
+def test_segment_model_at_small_sizes(E):
+    """The model at csrc/runs.cu's own geometry (4096-row tiles, 8 warps
+    of 16 steps) at one row and one tile's size, one row either side."""
+    rng = np.random.default_rng(E)
+    flags = _edge_flags(E, TILE, "random", rng)
+    _same_segments_as_plain(*_segment_rows_of(flags, 100, rng), 100)
+
+
+@pytest.mark.parametrize("in_flight", [1, 2, 31, 32, 33, 100])
+def test_look_back_model_gives_the_exclusive_prefix(in_flight):
+    """Tile t's look-back == the boundaries of the tiles before it,
+    whichever of its predecessors have published their prefix: windows
+    of 32 walked back one at a time until a prefix, or past tile 0."""
+    counts = np.random.default_rng(in_flight).integers(0, 4097, 150)
+    for t in range(counts.shape[0]):
+        assert _model_look_back(counts, t, in_flight) == counts[:t].sum()
 
 
 def test_wrappers_refuse_bad_columns():
@@ -563,9 +668,13 @@ def test_segment_stats_kernel_matches_plain_on_cuda(N):
             torch.from_numpy(count)]
     want = tc.segment_stats(*args, n_banks=N)
     before = tc.segment_stats_launches
-    got = tc.segment_stats(tuple(w.to(dev) for w in args[0]),
-                           args[1].to(dev), args[2].to(dev), n_banks=N)
+    on_card = (tuple(w.to(dev) for w in args[0]), args[1].to(dev),
+               args[2].to(dev))
+    bins, starts, scalars = tc.segment_stats(*on_card, n_banks=N)
     torch.cuda.synchronize()
     assert tc.segment_stats_launches == before + 1
-    for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
+    nb = int(scalars[0])
+    assert starts.shape[0] == args[1].shape[0] + 1
+    assert torch.equal(bins.cpu(), want[0])
+    assert torch.equal(starts[:nb + 1].cpu(), want[1])
+    assert torch.equal(scalars.cpu(), want[2])
