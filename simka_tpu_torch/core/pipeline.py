@@ -60,6 +60,7 @@ from simka_tpu_torch.core.output import write_all_matrices
 from simka_tpu_torch.core.stats import SimkaStatistics
 from simka_tpu_torch.io.dsl import check_input_validity, parse_input_file
 from simka_tpu_torch.ops.kmers import N_HIST_BUCKETS
+from simka_tpu_torch.utils.metrics import Spans, clock_anchor, span
 # a sample's kept windows are counted into a partial spectrum each time
 # this many reads' worth (x 32 windows) are gathered
 STREAM_BATCH_READS = 1 << 20
@@ -92,7 +93,7 @@ def _iter_read_chunks(seqs, batch_reads: int):
 
 
 def _packed_batch_stream(
-    dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads, timers,
+    dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads,
     encoding="acgt",
 ):
     """Yield (sample_id, packed, validbits, n_valid) host batches for
@@ -100,15 +101,12 @@ def _packed_batch_stream(
     the source is a PackedReadSource (io/packed.py), the Python
     encode+pack otherwise, in the base codes of ``encoding``. ``n_valid``
     is the exact count of valid k-mer windows when the native parser
-    knows it, else None.
-
-    Stage time accumulates in ``timers['parse_pack_s']``."""
+    knows it, else None."""
     from simka_tpu_torch.io.packed import host_pack_chunk
 
     for s, src in enumerate(dataset_seqs):
         if log is not None:
             log(f"count [{s + 1}/{len(dataset_seqs)}] {dataset_ids[s]}")
-        t0 = time.perf_counter()
         if hasattr(src, "iter_packed"):
             batches = src.iter_packed(batch_reads, k=k)
         else:
@@ -118,35 +116,48 @@ def _packed_batch_stream(
             )
         for packed, vb, n, n_valid in batches:
             nb_reads[s] += n
-            timers["parse_pack_s"] += time.perf_counter() - t0
             yield s, packed, vb, n_valid
-            t0 = time.perf_counter()
 
 
-def _pipelined_ingest(stream, ship, consume):
+def _pipelined_ingest(stream, ship, consume, spans: Optional[Spans] = None):
     """Three-stage ingest pipeline: parse/pack (worker A) || H2D ship
     (worker B) || device dispatch (main thread). One batch in flight
     per stage -- parse of batch i+2, ship of batch i+1 and the
-    device's extraction of batch i overlap."""
+    device's extraction of batch i overlap.
+
+    Spans (``spans``): ``simka.ingest`` around the whole; on the main
+    thread its waits for a parsed batch (``simka.ingest.wait_parse``)
+    and for a shipped one (``simka.ingest.wait_h2d``); on worker A each
+    batch's pull of ``stream`` (``simka.ingest.parse``)."""
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(max_workers=1) as parse_ex, \
-            ThreadPoolExecutor(max_workers=1) as ship_ex:
-        pull = lambda: next(stream, None)  # noqa: E731
-        pending = parse_ex.submit(pull)
-        shipped = deque()
-        while True:
-            item = pending.result()
-            if item is not None:
-                pending = parse_ex.submit(pull)
-            if shipped:
-                consume(*shipped.popleft().result())
-            if item is None:
-                break
-            shipped.append(ship_ex.submit(ship, item))
-        while shipped:
-            consume(*shipped.popleft().result())
+    def pull():
+        with span("simka.ingest.parse", spans):
+            return next(stream, None)
+
+    def next_shipped():
+        with span("simka.ingest.wait_h2d", spans):
+            return shipped.popleft().result()
+
+    with span("simka.ingest", spans):
+        workers = {} if spans is None else spans.pool_args()
+        with ThreadPoolExecutor(max_workers=1, **workers) as parse_ex, \
+                ThreadPoolExecutor(max_workers=1, **workers) as ship_ex:
+            pending = parse_ex.submit(pull)
+            shipped = deque()
+            while True:
+                with span("simka.ingest.wait_parse", spans):
+                    item = pending.result()
+                if item is not None:
+                    pending = parse_ex.submit(pull)
+                if shipped:
+                    consume(*next_shipped())
+                if item is None:
+                    break
+                shipped.append(ship_ex.submit(ship, item))
+            while shipped:
+                consume(*next_shipped())
 
 
 def _extract_kept(packed, validbits, k: int, n_valid, min_shannon: float,
@@ -243,70 +254,71 @@ def compute_statistics(
     ``observer``, when given, receives ``stage_timers``,
     ``repartition_instances`` (instances per hash bucket in memory --
     per shard when sharded, as ``simka_tpu``'s sharded path -- and
-    distinct solid k-mers out-of-core) and ``route``; on a restart also
-    ``restart_held_bytes``, the device memory still allocated when the
-    out-of-core run begins.
+    distinct solid k-mers out-of-core), ``counters`` (in memory:
+    ``h2d_bytes``, the packed and valid-bits bytes shipped) and
+    ``route``;
+    on a restart also ``restart_held_bytes``, the device memory still
+    allocated when the out-of-core run begins. When ``observer`` holds
+    a list under ``"spans"``, the job's spans are appended to it
+    (``utils.metrics.Spans``), from the root ``simka.job`` and its
+    ``simka.clock``; the in-memory stage timers are sums of spans
+    (``utils.metrics.STAGE_SPANS``), timed with or without records.
     """
     from simka_tpu_torch.core.budget import DeviceBudgetExceeded
 
     shards = list(shards) if shards else [device]
-    try:
-        if len(shards) > 1:
-            stats = _compute_statistics_sharded(
-                dataset_seqs, dataset_ids, config, shards, batch_reads, log,
-                observer)
-        else:
-            stats = _compute_statistics_in_memory(
-                dataset_seqs, dataset_ids, config, device, batch_reads, log,
-                observer)
-    except DeviceBudgetExceeded as e:
-        # the restart runs after the handler, once the traceback's
-        # frames, and the batches they reference, are gone
-        reason = str(e)
-    else:
-        if observer is not None:
-            observer["route"] = "in-memory"
-        return stats
-    if log is not None:
-        log(f"device plan: {reason}; restarting out-of-core")
+    spans = None if observer is None else Spans(observer.get("spans"))
     if observer is not None:
-        observer["route"] = "restart"
-        observer["restart_held_bytes"] = (
-            torch.cuda.memory_allocated(device) if device.type == "cuda"
-            else 0)
-    return compute_statistics_out_of_core(
-        dataset_seqs, dataset_ids, config, device, batch_reads, log=log,
-        observer=observer, shards=shards,
-    )
+        observer["counters"] = spans.counters
+    with span("simka.job", spans):
+        clock_anchor(spans)
+        try:
+            if len(shards) > 1:
+                stats = _compute_statistics_sharded(
+                    dataset_seqs, dataset_ids, config, shards, batch_reads,
+                    log, observer, spans)
+            else:
+                stats = _compute_statistics_in_memory(
+                    dataset_seqs, dataset_ids, config, device, batch_reads,
+                    log, observer, spans)
+        except DeviceBudgetExceeded as e:
+            # the restart runs after the handler, once the traceback's
+            # frames, and the batches they reference, are gone
+            reason = str(e)
+        else:
+            if observer is not None:
+                observer["route"] = "in-memory"
+            return stats
+        if log is not None:
+            log(f"device plan: {reason}; restarting out-of-core")
+        if observer is not None:
+            observer["route"] = "restart"
+            observer["restart_held_bytes"] = (
+                torch.cuda.memory_allocated(device) if device.type == "cuda"
+                else 0)
+        return compute_statistics_out_of_core(
+            dataset_seqs, dataset_ids, config, device, batch_reads, log=log,
+            observer=observer, shards=shards,
+        )
 
 
-def _ingest_timers() -> dict:
-    """The in-memory ingest's stage timers (seconds), all at 0."""
-    return dict.fromkeys(("parse_pack_s", "h2d_s", "extract_dispatch_s",
-                          "join_s"), 0.0)
-
-
-def _shipper(device: torch.device, timers: dict):
+def _shipper(device: torch.device, spans: Optional[Spans]):
     """The ingest's H2D stage: a host batch of ``_packed_batch_stream``
-    shipped to ``device``, its time added to ``timers['h2d_s']``."""
+    shipped to ``device``, in the span ``simka.ingest.h2d``."""
 
     def ship(item):
         sample, packed, vb, n_valid = item
-        t0 = time.perf_counter()
-        out = (
-            sample,
-            torch.from_numpy(packed).to(device),
-            torch.from_numpy(vb).to(device),
-            n_valid,
-        )
-        timers["h2d_s"] += time.perf_counter() - t0
-        return out
+        with span("simka.ingest.h2d", spans):
+            packed = torch.from_numpy(packed).to(device)
+            vb = torch.from_numpy(vb).to(device)
+        return sample, packed, vb, n_valid
 
     return ship
 
 
 def _compute_statistics_in_memory(
     dataset_seqs, dataset_ids, config, device, batch_reads, log, observer,
+    spans: Optional[Spans] = None,
 ) -> SimkaStatistics:
     """``compute_statistics``'s in-memory run; raises
     DeviceBudgetExceeded, with every gathered batch dropped, once the
@@ -325,24 +337,24 @@ def _compute_statistics_in_memory(
     batches, sids = [], []  # per batch: its k-mer word columns; sids
     hist = torch.zeros(N_HIST_BUCKETS, dtype=torch.int64, device=device)
     state = {"rows": 0}
-    timers = _ingest_timers()
 
     stream = _packed_batch_stream(
-        dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads, timers
+        dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads
     )
 
-    ship = _shipper(device, timers)
+    ship = _shipper(device, spans)
 
     def consume(sample, packed, vb, n_valid):
-        t0 = time.perf_counter()
-        words, sid, h = extract_windows(
-            packed, vb, sample, k, n_valid, config.min_kmer_shannon_index
-        )
-        hist.add_(h)
-        batches.append(list(words))
-        sids.append(sid)
-        state["rows"] += sid.shape[0]
-        timers["extract_dispatch_s"] += time.perf_counter() - t0
+        with span("simka.ingest.dispatch", spans):
+            words, sid, h = extract_windows(
+                packed, vb, sample, k, n_valid, config.min_kmer_shannon_index
+            )
+            hist.add_(h)
+            batches.append(list(words))
+            sids.append(sid)
+            state["rows"] += sid.shape[0]
+        if spans is not None:
+            spans.count("h2d_bytes", packed.nbytes + vb.nbytes)
         if state["rows"] > rows_budget:
             batches.clear()
             sids.clear()
@@ -351,44 +363,49 @@ def _compute_statistics_in_memory(
                 f"plan of {rows_budget} rows"
             )
 
-    _pipelined_ingest(stream, ship, consume)
+    _pipelined_ingest(stream, ship, consume, spans)
 
-    t_join = time.perf_counter()
-    words = _concat_columns(batches, nw, device)
-    sid = torch.cat(sids) if sids else torch.empty(
-        0, dtype=torch.int32, device=device
-    )
-    sids.clear()
-    js = count_join_stats(
-        words,
-        sid,
-        config.abundance_min,
-        config.abundance_max,
-        n_banks=len(dataset_ids),
-        kmer_bits=2 * k,
-        simple=config.simple_dist,
-        complex_=config.complex_dist,
-    )
-    del words, sid
-    stats = SimkaStatistics.from_join_stats(
-        js.to_numpy(),
-        dataset_ids,
-        k,
-        np.asarray(nb_reads, np.int64),
-        config.simple_dist,
-        config.complex_dist,
-    )
-    # to_numpy waits for the device, so this spans the extraction
-    # backlog and the join
-    timers["join_s"] = time.perf_counter() - t_join
+    with span("simka.join", spans):
+        with span("simka.join.concat", spans):
+            words = _concat_columns(batches, nw, device)
+            sid = torch.cat(sids) if sids else torch.empty(
+                0, dtype=torch.int32, device=device
+            )
+            sids.clear()
+        js = count_join_stats(
+            words,
+            sid,
+            config.abundance_min,
+            config.abundance_max,
+            n_banks=len(dataset_ids),
+            kmer_bits=2 * k,
+            simple=config.simple_dist,
+            complex_=config.complex_dist,
+            spans=spans,
+        )
+        del words, sid
+        stats = _host_stats(js, dataset_ids, k, nb_reads, config, spans)
     if observer is not None:
-        observer["stage_timers"] = timers
+        observer["stage_timers"] = spans.stage_timers()
         observer["repartition_instances"] = hist.cpu().numpy()
     return stats
 
 
+def _host_stats(js, dataset_ids, k, nb_reads, config, spans):
+    """The join's statistics on the host (``simka.join.host_stats``):
+    ``to_numpy`` waits for the device (``simka.sync.to_numpy``)."""
+    with span("simka.join.host_stats", spans):
+        with span("simka.sync.to_numpy", spans):
+            js = js.to_numpy()
+        return SimkaStatistics.from_join_stats(
+            js, dataset_ids, k, np.asarray(nb_reads, np.int64),
+            config.simple_dist, config.complex_dist,
+        )
+
+
 def _compute_statistics_sharded(
     dataset_seqs, dataset_ids, config, shards, batch_reads, log, observer,
+    spans: Optional[Spans] = None,
 ) -> SimkaStatistics:
     """``compute_statistics``' in-memory run over hash shards
     (``simka_tpu``'s ``_compute_statistics_sharded_device``): each batch
@@ -418,22 +435,23 @@ def _compute_statistics_sharded(
     batches = [[] for _ in shards]  # per shard, per batch: word columns
     sids = [[] for _ in shards]
     rows = [0] * len(shards)
-    timers = _ingest_timers()
-    shippers = {d: _shipper(d, timers) for d in held}
+    shippers = {d: _shipper(d, spans) for d in held}
 
     def ship(item):  # the batch on every distinct device
         return (item[0], {d: s(item)[1:3] for d, s in shippers.items()},
                 item[3])
 
     def consume(sample, batch, n_valid):
-        t0 = time.perf_counter()
-        routed = route_packed_batch(batch, sample, k, shards, n_valid,
-                                    config.min_kmer_shannon_index)
-        for i, (words, sid) in enumerate(routed):
-            batches[i].append(list(words))
-            sids[i].append(sid)
-            rows[i] += sid.shape[0]
-        timers["extract_dispatch_s"] += time.perf_counter() - t0
+        with span("simka.ingest.dispatch", spans):
+            routed = route_packed_batch(batch, sample, k, shards, n_valid,
+                                        config.min_kmer_shannon_index)
+            for i, (words, sid) in enumerate(routed):
+                batches[i].append(list(words))
+                sids[i].append(sid)
+                rows[i] += sid.shape[0]
+        if spans is not None:
+            spans.count("h2d_bytes", sum(p.nbytes + v.nbytes
+                                         for p, v in batch.values()))
         for d, m in held.items():
             on_d = sum(r for r, s in zip(rows, shards) if s == d)
             if on_d > plan[d]:
@@ -444,9 +462,9 @@ def _compute_statistics_sharded(
                     f"its plan of {plan[d]} rows")
 
     stream = _packed_batch_stream(
-        dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads, timers
+        dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads
     )
-    _pipelined_ingest(stream, ship, consume)
+    _pipelined_ingest(stream, ship, consume, spans)
 
     def shard_streams():  # each shard's instances, built just in time
         for i, d in enumerate(shards):
@@ -457,19 +475,15 @@ def _compute_statistics_sharded(
             yield words, sid
             del words, sid
 
-    t_join = time.perf_counter()
-    js = sharded_count_join_stats(
-        shard_streams(), config.abundance_min, config.abundance_max,
-        n_banks=len(dataset_ids), kmer_bits=2 * k,
-        simple=config.simple_dist, complex_=config.complex_dist,
-    )
-    stats = SimkaStatistics.from_join_stats(
-        js.to_numpy(), dataset_ids, k, np.asarray(nb_reads, np.int64),
-        config.simple_dist, config.complex_dist,
-    )
-    timers["join_s"] = time.perf_counter() - t_join
+    with span("simka.join", spans):
+        js = sharded_count_join_stats(
+            shard_streams(), config.abundance_min, config.abundance_max,
+            n_banks=len(dataset_ids), kmer_bits=2 * k,
+            simple=config.simple_dist, complex_=config.complex_dist,
+        )
+        stats = _host_stats(js, dataset_ids, k, nb_reads, config, spans)
     if observer is not None:
-        observer["stage_timers"] = timers
+        observer["stage_timers"] = spans.stage_timers()
         observer["repartition_instances"] = np.asarray(rows, np.int64)
     return stats
 
@@ -568,8 +582,8 @@ def compute_statistics_out_of_core(
         budget_rows = max(budget_rows * 3 // 5, 1)
 
     nb_reads = [0] * n
-    timers = dict.fromkeys(("parse_pack_s", "h2d_s", "extract_dispatch_s",
-                            "spectrum_s", "spill_s"), 0.0)
+    timers = dict.fromkeys(("spectrum_s", "spill_s"), 0.0)
+    spans = Spans()  # the ingest's stage times
     solid = torch.zeros(n, dtype=torch.int64, device=device)
     hist = torch.zeros(N_HIST_BUCKETS, dtype=torch.int64, device=device)
     per_sample = [{"id": i} for i in dataset_ids]
@@ -624,17 +638,16 @@ def compute_statistics_out_of_core(
         while state["sample"] < sample:  # samples without a batch too
             finish(state["sample"])
             state["sample"] += 1
-        t0 = time.perf_counter()
-        gather.add(kept_windows(packed, vb, k, n_valid,
-                                config.min_kmer_shannon_index))
-        timers["extract_dispatch_s"] += time.perf_counter() - t0
+        with span("simka.ingest.dispatch", spans):
+            gather.add(kept_windows(packed, vb, k, n_valid,
+                                    config.min_kmer_shannon_index))
 
     stream = _packed_batch_stream(
-        dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads, timers
+        dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads
     )
     t_count = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as spill_ex:
-        _pipelined_ingest(stream, _shipper(device, timers), consume)
+        _pipelined_ingest(stream, _shipper(device, spans), consume, spans)
         while state["sample"] < n:
             finish(state["sample"])
             state["sample"] += 1
@@ -645,6 +658,9 @@ def compute_statistics_out_of_core(
         raise ValueError("no datasets")
     # the one read of the count phase's per-sample statistics
     solid_np, hist_np = solid.cpu().numpy(), hist.cpu().numpy()
+    timers.update(parse_pack_s=spans.seconds("simka.ingest.parse"),
+                  h2d_s=spans.seconds("simka.ingest.h2d"),
+                  extract_dispatch_s=spans.seconds("simka.ingest.dispatch"))
     # the host tiers' spill overlaps the count: count_s spans both
     timers["count_s"] = time.perf_counter() - t_count
     if tier != "device":
@@ -797,7 +813,6 @@ def count_dataset_spectrum(
 
     stream = _packed_batch_stream(
         [seqs], [""], k, nb_reads, None, min(stream_batch_reads, 1 << 17),
-        {"parse_pack_s": 0.0},
     )
     _pipelined_ingest(stream, ship, consume)
     words, counts = gather.spectrum()

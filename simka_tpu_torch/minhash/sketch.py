@@ -164,18 +164,24 @@ def _observer(observer: Optional[dict]) -> dict:
 def _ingest(sources, k: int, batch_reads: int, device, obs, consume):
     """Parse + pack (worker), H2D (worker) and ``consume(sample, packed,
     validbits, n_valid)`` on the main thread, sample after sample; the
-    workers add their times to ``obs``."""
+    workers' times are added to ``obs``."""
     from simka_tpu_torch.core.pipeline import (
         _packed_batch_stream,
         _pipelined_ingest,
         _shipper,
     )
+    from simka_tpu_torch.utils.metrics import Spans
 
     sources = [_gatb_source(s) for s in sources]
     stream = _packed_batch_stream(
         sources, [str(i) for i in range(len(sources))], k,
-        [0] * len(sources), None, batch_reads, obs, encoding="gatb")
-    _pipelined_ingest(stream, _shipper(device, obs), consume)
+        [0] * len(sources), None, batch_reads, encoding="gatb")
+    spans = Spans()
+    try:
+        _pipelined_ingest(stream, _shipper(device, spans), consume, spans)
+    finally:
+        obs["parse_pack_s"] += spans.seconds("simka.ingest.parse")
+        obs["h2d_s"] += spans.seconds("simka.ingest.h2d")
 
 
 def _batched_device_sketch(sources, kmer_size: int, sketch_size: int,

@@ -60,6 +60,7 @@ from typing import NamedTuple, Sequence, Union
 import torch
 
 from simka_tpu_torch.ops.kmers import WORD_BASES
+from simka_tpu_torch.utils.metrics import span
 
 # Whittaker A is accumulated over blocks of this many banks j (the
 # reference's block width) and of this many rows, which bound its
@@ -319,35 +320,50 @@ def solid_rows(
     *,
     n_banks: int,
     kmer_bits: int,
+    spans=None,
 ):
     """Sort + run-length count + abundance filter.
 
     Returns (words, sid, count): one row per solid (k-mer, sample), in
     (k-mer, sample)-ascending order; int64 words, an int64 or int32
-    sid and an int32 count.
+    sid and an int32 count. Spans (``spans``): ``simka.join.sort``,
+    then ``_compact_solid``'s.
     """
-    from simka_tpu_torch.ops.compact import compact_rows
-
     nw = len(words)
     sbits = _sbits(n_banks)
     if nw == 1 and kmer_bits + sbits <= 63:
         # packed path: one int64 key carries (kmer, sid)
-        key = torch.sort((words[0] << sbits) | sid.to(torch.int64)).values
-        count, kept, n = run_counts((key,), abundance_min, abundance_max)
-        key_c, cnt_c = compact_rows((key, count), kept, fills=(-1, 0),
-                                    n=int(n))
+        with span("simka.join.sort", spans):
+            key = torch.sort((words[0] << sbits) | sid.to(torch.int64)).values
+        key_c, cnt_c = _compact_solid((key,), abundance_min, abundance_max,
+                                      (-1,), spans)
         return (key_c >> sbits,), key_c & ((1 << sbits) - 1), cnt_c
 
     # multi-key path (one bank: the sample id is no key)
-    perm = _lex_order((*words, sid) if n_banks > 1 else words)
-    words = tuple(w[perm] for w in words)
-    sid = sid[perm]
-    del perm
-    count, kept, n = run_counts((*words, sid), abundance_min, abundance_max)
-    cols = compact_rows(
-        (*words, sid, count), kept, fills=(-1,) * nw + (0, 0), n=int(n)
-    )
+    with span("simka.join.sort", spans):
+        perm = _lex_order((*words, sid) if n_banks > 1 else words)
+        words = tuple(w[perm] for w in words)
+        sid = sid[perm]
+        del perm
+    cols = _compact_solid((*words, sid), abundance_min, abundance_max,
+                          (-1,) * nw + (0,), spans)
     return cols[:nw], cols[nw], cols[nw + 1]
+
+
+def _compact_solid(cols, abundance_min: int, abundance_max: int, fills,
+                   spans):
+    """Sorted key columns ``cols`` and their run counts, compacted to
+    the solid rows: (*cols, count). Spans: ``simka.join.run_counts``,
+    whose count of solid rows waits for the device
+    (``simka.sync.solid_count``), and ``simka.join.compact``."""
+    from simka_tpu_torch.ops.compact import compact_rows
+
+    with span("simka.join.run_counts", spans):
+        count, kept, n = run_counts(cols, abundance_min, abundance_max)
+        with span("simka.sync.solid_count", spans):
+            n = int(n)
+    with span("simka.join.compact", spans):
+        return compact_rows((*cols, count), kept, fills=(*fills, 0), n=n)
 
 
 def _abs_wrap32(prod: torch.Tensor) -> torch.Tensor:
@@ -394,15 +410,18 @@ def _kl_limbs(x: torch.Tensor) -> torch.Tensor:
     return (torch.stack(limbs, 1) * torch.sign(x)[:, None]).to(torch.int64)
 
 
-def _kl_from_limbs(sums: torch.Tensor) -> torch.Tensor:
+def _kl_from_limbs(sums: torch.Tensor, spans=None) -> torch.Tensor:
     """[M, 1 + KL_FRAC_LIMBS] int64 limb sums -> [M] f64, each the
     exact fixed-point total rounded once (Python's int division rounds
-    correctly)."""
+    correctly). The read of the sums waits for the device
+    (``simka.sync.kl``)."""
     bits = KL_LIMB_BITS * KL_FRAC_LIMBS
+    with span("simka.sync.kl", spans):
+        rows = sums.cpu().tolist()
     vals = [
         sum(v << (KL_LIMB_BITS * (KL_FRAC_LIMBS - j))
             for j, v in enumerate(row)) / (1 << bits)
-        for row in sums.cpu().tolist()
+        for row in rows
     ]
     return torch.tensor(vals, dtype=torch.float64, device=sums.device)
 
@@ -665,21 +684,24 @@ def pair_sums(sid, count, starts, seg_len, K, flat, kl, *,
                            whittaker_all, d_max=d_max)
 
 
-def _segments(words, sid, count, n_banks: int):
+def _segments(words, sid, count, n_banks: int, spans=None):
     """``segment_stats`` of solid rows and its one host read: (bins, scalars, d_max, starts, seg_len), the last
     two [nb_distinct] int64. The starts are copied out of the pass's
     buffer, one entry a row, so that the pair pass does not hold that
     buffer beside its own scratch: held, it raised the peak of the
-    every-distance join at N = 100 (``chip_smoke.py`` phase 14b)."""
+    every-distance join at N = 100 (``chip_smoke.py`` phase 14b). The
+    read waits for the device (``simka.sync.segments``)."""
     bins, starts, scalars = segment_stats(words, sid, count, n_banks=n_banks)
-    n_segs, d_max = scalars[[0, 2]].tolist()  # the one host read
+    read = scalars[[0, 2]]
+    with span("simka.sync.segments", spans):
+        n_segs, d_max = read.tolist()  # the one host read
     starts = starts[:n_segs + 1].clone()
     return bins, scalars, d_max, starts[:-1], starts[1:] - starts[:-1]
 
 
 def _raw_stats_from_rows(
     words, sid, count, *, n_banks: int, simple: bool = False,
-    complex_: bool = False, solid_override=None,
+    complex_: bool = False, solid_override=None, spans=None,
 ) -> JoinStats:
     """Per-bank totals, segments and pair sums over solid rows in
     (k-mer, sample)-ascending order (``_stats_from_rows`` with
@@ -693,27 +715,32 @@ def _raw_stats_from_rows(
     ``solid_override``: [N] int64 per-bank solid totals to use as K in
     the Whittaker and KL terms instead of these rows' own (the sweep's
     whole-sample totals, ``simka_tpu``'s ``solid_override``); the
-    returned ``solid_per_bank`` stays these rows' own."""
+    returned ``solid_per_bank`` stays these rows' own. Spans
+    (``spans``): ``simka.join.segments``, ``simka.join.pair_sums``."""
     N = n_banks
     dev = sid.device
     i64, f64 = torch.int64, torch.float64
-    bins, scalars, d_max, starts, seg_len = _segments(words, sid, count, N)
+    with span("simka.join.segments", spans):
+        bins, scalars, d_max, starts, seg_len = _segments(words, sid, count,
+                                                          N, spans)
     distinct_per_bank, solid_per_bank, chord_n2_per_bank = bins
     K = solid_per_bank if solid_override is None else solid_override.to(dev)
-    sid = sid.to(i64)
-    c64 = count.to(i64)
 
     names = ["ab", "ba", "distinct", "bray"]
     if simple:
         names += ["hellinger", "chord"]
     if complex_:
         names += ["whittaker", "s12"]
-    flat = {name: torch.zeros(N * N, dtype=i64, device=dev) for name in names}
-    kl = torch.zeros((N * N, 1 + KL_FRAC_LIMBS), dtype=i64, device=dev)
-    wall = torch.zeros(N * N, dtype=i64, device=dev) if complex_ else None
-    # the global per-bank totals of the Whittaker and KL terms
-    pair_sums(sid, c64, starts, seg_len, K.to(f64), flat, kl, d_max=d_max,
-              whittaker_all=wall)
+    with span("simka.join.pair_sums", spans):
+        sid = sid.to(i64)
+        c64 = count.to(i64)
+        flat = {name: torch.zeros(N * N, dtype=i64, device=dev)
+                for name in names}
+        kl = torch.zeros((N * N, 1 + KL_FRAC_LIMBS), dtype=i64, device=dev)
+        wall = torch.zeros(N * N, dtype=i64, device=dev) if complex_ else None
+        # the global per-bank totals of the Whittaker and KL terms
+        pair_sums(sid, c64, starts, seg_len, K.to(f64), flat, kl,
+                  d_max=d_max, whittaker_all=wall)
 
     def pairs(name):
         if name in flat:
@@ -751,7 +778,7 @@ def _add_raw(a: JoinStats, b: JoinStats) -> JoinStats:
     ))
 
 
-def _finish(raw: JoinStats, complex_: bool) -> JoinStats:
+def _finish(raw: JoinStats, complex_: bool, spans=None) -> JoinStats:
     """Raw stats as ``JoinStats``: chord converted to f64 once, KL's
     limb sums rounded once."""
     N = raw.solid_per_bank.shape[0]
@@ -759,7 +786,7 @@ def _finish(raw: JoinStats, complex_: bool) -> JoinStats:
     return raw._replace(
         chord_ninj=raw.chord_ninj.to(torch.float64),
         kullback_leibler=(
-            _kl_from_limbs(kl).view(N, N) if complex_
+            _kl_from_limbs(kl, spans).view(N, N) if complex_
             else torch.zeros((N, N), dtype=torch.float64, device=kl.device)
         ),
     )
@@ -767,14 +794,16 @@ def _finish(raw: JoinStats, complex_: bool) -> JoinStats:
 
 def stats_from_rows(
     words, sid, count, *, n_banks: int, simple: bool = False,
-    complex_: bool = False, solid_override=None,
+    complex_: bool = False, solid_override=None, spans=None,
 ) -> JoinStats:
     """``JoinStats`` of solid rows in (k-mer, sample)-ascending order
-    (``_raw_stats_from_rows``, converted)."""
-    return _finish(_raw_stats_from_rows(
+    (``_raw_stats_from_rows``, converted in ``simka.join.finish``)."""
+    raw = _raw_stats_from_rows(
         words, sid, count, n_banks=n_banks, simple=simple,
-        complex_=complex_, solid_override=solid_override,
-    ), complex_)
+        complex_=complex_, solid_override=solid_override, spans=spans,
+    )
+    with span("simka.join.finish", spans):
+        return _finish(raw, complex_, spans)
 
 
 def count_join_stats(
@@ -787,6 +816,7 @@ def count_join_stats(
     kmer_bits: int,
     simple: bool = False,
     complex_: bool = False,
+    spans=None,
 ) -> JoinStats:
     """All sufficient statistics of an instance stream.
 
@@ -807,20 +837,28 @@ def count_join_stats(
     The stream holds real instances only: there is no invalid-window
     sentinel in int64, so a word outside its range -- or a sample id
     outside [0, n_banks) -- raises ValueError.
+
+    ``spans`` (``utils.metrics.Spans``, or None) records the join's
+    steps: ``simka.join.check``, ``.sort``, ``.run_counts``,
+    ``.compact``, ``.segments``, ``.pair_sums`` and ``.finish``, each
+    wait for the device inside its step as a ``simka.sync.*`` span.
     """
-    words = _checked_rows(words, sid, n_banks, kmer_bits)
+    with span("simka.join.check", spans):
+        words = _checked_rows(words, sid, n_banks, kmer_bits, spans)
     rows = solid_rows(
         words, sid, abundance_min, abundance_max,
-        n_banks=n_banks, kmer_bits=kmer_bits,
+        n_banks=n_banks, kmer_bits=kmer_bits, spans=spans,
     )
     return stats_from_rows(
-        *rows, n_banks=n_banks, simple=simple, complex_=complex_
+        *rows, n_banks=n_banks, simple=simple, complex_=complex_,
+        spans=spans,
     )
 
 
-def _checked_rows(words, sid, n_banks: int, kmer_bits: int):
+def _checked_rows(words, sid, n_banks: int, kmer_bits: int, spans=None):
     """``words`` as a tuple, once every word is in its range and every
-    sample id in [0, n_banks); ValueError otherwise."""
+    sample id in [0, n_banks); ValueError otherwise. The read of the
+    bounds waits for the device (``simka.sync.check``)."""
     words = (words,) if isinstance(words, torch.Tensor) else tuple(words)
     nw = len(words)
     word_bits = 2 * WORD_BASES
@@ -835,7 +873,9 @@ def _checked_rows(words, sid, n_banks: int, kmer_bits: int):
         bounds = torch.stack(
             [sid.min().to(torch.int64), sid.max().to(torch.int64)]
             + [f(w) for w in words for f in (torch.min, torch.max)]
-        ).tolist()
+        )
+        with span("simka.sync.check", spans):
+            bounds = bounds.tolist()
         top_bits = kmer_bits - word_bits * (nw - 1)
         for i in range(nw):
             lo, hi = bounds[2 + 2 * i], bounds[3 + 2 * i]
