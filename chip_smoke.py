@@ -241,7 +241,14 @@ Phases (each raises on failure; nothing is caught):
      torch.unique_consecutive(return_counts=True)) and segment_stats at
      phase 14's and phase 7's solid rows (on the device too, the chain
      from the rows to the starts and lengths, and its plain version's
-     three index_add_ totals), each input kept by the path's own run.
+     three index_add_ totals), each input kept by the path's own run;
+     the packed sort (ops/sort.py, csrc/sort.cu) == torch.sort bit for
+     bit at phase 7's keys (its sorted key split back into words and
+     sample ids, in a seeded random order) and at the benchmark cell's
+     ~484 M seed-made 45-bit keys, timed around the call and on the
+     device beside the yardstick's bound (16 B a key), the design's
+     bound and torch.sort(...).values. Phase 7's k=21 runs launch the
+     sort's 8 kernels once, its k=63 runs none.
      Every CLI run that joins launches the segment kernel; phase 7's
      runs launch the extraction once a batch (32) and run_counts and
      segment_stats once, phase 14b's 100 / 1 / 1; the plain extraction,
@@ -269,15 +276,18 @@ min_pair_distance's launches are phase 12c's
 (l2_floor_ms: the design's L2 floor), wide_* at phase 12a's 100 x
 1,000,000; probe_dma_add1's, probe_map's and probe_onehot_f32's per
 launch, with launch_floor_ms and per_probe, the last with
-store_floor_ms and store_floor_device_ms; extract_kmers', run_counts'
-and segment_stats' launches in phase 7's default run, the other
+store_floor_ms and store_floor_device_ms; extract_kmers', run_counts',
+segment_stats' and sort_packed_keys' launches in phase 7's default run,
+the other
 launches_* as the compaction's, their times at phase 15b's shapes
 (k63_* the extraction at k=63; the segment pass's at phase 14's rows,
 n8_* at phase 7's, device_ms on the device (CUDA events around
 back-to-back launches of its entry point, the stream kept busy ahead
 of them), chain_ms the rows to the
 starts and lengths, index_add_ms the plain segment pass's three
-index_add_ totals); extra fields) and the card's
+index_add_ totals; the sort's at phase 7's keys, cell_* at the
+cell's, device_ms as the segment pass's, design_bound_ms the design's
+bytes, plain_ms its plain version, torch.sort); extra fields) and the card's
 nvidia-smi
 line; the last
 line is the JSON result. Exits non-zero without a result when no CUDA
@@ -304,7 +314,7 @@ from simka_tpu_torch.core import sweep
 from simka_tpu_torch.minhash import device as minhash
 from simka_tpu_torch.minhash import device_distance as dd
 from simka_tpu_torch.minhash.sketch import STAGES
-from simka_tpu_torch.ops import _kernels, compact, countjoin, kmers
+from simka_tpu_torch.ops import _kernels, compact, countjoin, kmers, sort
 from simka_tpu_torch.profiling import probes, trace
 
 INT64_MAX = (1 << 63) - 1
@@ -1084,6 +1094,7 @@ def cli_run(tag: str, argv: list, out: str, recorder: ShapeRecorder,
     kmers.launches = 0
     countjoin.run_counts_launches = 0
     countjoin.segment_stats_launches = 0
+    sort.sort_launches = 0
     t1 = time.perf_counter()
     rc, m = (cli_main(argv), None) if run is None else (0, run())
     torch.cuda.synchronize()
@@ -1109,6 +1120,7 @@ def cli_run(tag: str, argv: list, out: str, recorder: ShapeRecorder,
         "extract_launches": kmers.launches,
         "run_counts_launches": countjoin.run_counts_launches,
         "segment_launches": countjoin.segment_stats_launches,
+        "sort_launches": sort.sort_launches,
         "wall_s": wall,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
@@ -1148,13 +1160,16 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
                 raise AssertionError(f"full {tag}: route {c['route']}, "
                                      "expected in-memory")
             # one extraction launch a batch, one run count and one
-            # segment pass for the one join
+            # segment pass for the one join; at k=21 its packed sort (the
+            # histogram, the scan and a launch a digit), at k=63 none
             launches = (rec["extract_launches"], rec["run_counts_launches"],
-                        rec["segment_launches"])
+                        rec["segment_launches"], rec["sort_launches"])
             per = -(-FULL_COMMUNITY["reads_per_sample"] // BATCH_READS)
-            if launches != (n * per, 1, 1):
-                raise AssertionError(f"full {tag}: extraction, run-count "
-                                     f"and segment launches {launches}")
+            sorts = 2 + len(sort.radix_passes(
+                2 * k + countjoin._sbits(n))) if k <= 21 else 0
+            if launches != (n * per, 1, 1, sorts):
+                raise AssertionError(f"full {tag}: extraction, run-count, "
+                                     f"segment and sort launches {launches}")
             # in memory the histogram counts every instance
             rec["instances"] = int(sum(c["repartition_histogram"]))
             say(
@@ -1170,7 +1185,7 @@ def full_size(tmp: str, seed: int, recorder: ShapeRecorder):
                 f"pair-sums launches {rec['pair_launches']}, extraction "
                 f"{rec['extract_launches']}, run counts "
                 f"{rec['run_counts_launches']}, segment pass "
-                f"{rec['segment_launches']}, "
+                f"{rec['segment_launches']}, sort {rec['sort_launches']}, "
                 f"peak device memory {rec['peak_gib']:.2f} GiB"
             )
             runs.append((csv_texts(out), rec))
@@ -3146,6 +3161,7 @@ def wide_n_alone(seed: int = 0) -> dict:
 EXTRACT_REPLACES = "simka_tpu/core/pipeline.py:794"
 RUN_COUNTS_REPLACES = "simka_tpu/ops/countjoin.py:376"
 SEGMENT_REPLACES = "simka_tpu/ops/countjoin.py:1080"
+SORT_REPLACES = "simka_tpu/ops/countjoin.py:404"  # lax.sort of the key
 EXTRACT_KS = (1, 15, 16, 21, 31, 32, 33, 48, 62, 63, 64, 127)
 EXTRACT_WIDTHS = (32, 104, 160)
 SEGMENT_NS = (1, 2, 8, 100, 1000, 20000)
@@ -3702,6 +3718,91 @@ def time_segment_stats(held, dev, at: str) -> dict:
             "segments": nb}
 
 
+# the cell cami_high.default_dist's packed keys a job (benchmark/, 5
+# samples of 760,000 150-bp reads; ledger)
+CELL_SORT_KEYS, CELL_SORT_BANKS = 484_000_000, 5
+
+
+def sort_design_bytes(E: int, bits: int, sid_bytes: int) -> int:
+    """What csrc/sort.cu moves: the histogram's read of the words and
+    sample ids, the first pass's read of them and write of the keys, 16
+    B a key each later pass, and the status words (1 KB a tile, zeroed
+    once and written and read by each pass, counted once a pass)."""
+    passes = len(sort.radix_passes(bits))
+    tiles = -(-E // _kernels.lib().simka_sort_tile_keys())
+    return (E * (2 * (8 + sid_bytes) + 8 + 16 * (passes - 1))
+            + tiles * 1024 * (passes + 1))
+
+
+def time_sort(word, sid, sbits: int, bits: int, at: str) -> dict:
+    """Phase 15b: the packed sort (``ops.sort.sort_packed_keys``) ==
+    ``torch.sort((word << sbits) | sid).values``, bit for bit, timed
+    around the call and on the device (``stream_ms``), beside the
+    yardstick's bound (16 B a key: benchmark/yardstick.py::sort_bytes),
+    the design's (``sort_design_bytes``) and the library call. The plain
+    version is that library call (on a CPU tensor the wrapper runs it),
+    so ``plain_ms`` is ``library_ms``; the port never calls it on CUDA."""
+    E = word.shape[0]
+    saved = sort.sort_launches
+
+    def library():
+        return torch.sort((word << sbits) | sid.to(torch.int64)).values
+
+    got = sort.sort_packed_keys(word, sid, sbits, bits)
+    if not torch.equal(got, library()):
+        raise AssertionError(f"sort_packed_keys at {at} differs from "
+                             "torch.sort")
+    del got
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: sort.sort_packed_keys(word, sid, sbits, bits))
+    dev_ms = stream_ms(lambda: sort.sort_packed_keys(word, sid, sbits, bits))
+    sort.sort_launches = saved
+    lib_ms = time_ms(library, reps=5)
+    b_ms, b_by = bound(16 * E)
+    d_ms, _ = bound(sort_design_bytes(E, bits, sid.element_size()))
+    say(f"phase 15b: sort_packed_keys at {at} ({E} keys, {bits} bits, "
+        f"{len(sort.radix_passes(bits))} passes, sample id "
+        f"int{8 * sid.element_size()}): kernel {ms:.4f} ms around the call, "
+        f"{dev_ms:.4f} ms on the device (the yardstick's bound {b_ms:.4f} ms "
+        f"by {b_by}, {100 * b_ms / dev_ms:.1f}% on the device; the design's "
+        f"{d_ms:.4f} ms, {100 * d_ms / dev_ms:.1f}%); torch.sort(...).values "
+        f"{lib_ms:.4f} ms (the plain version); == torch.sort")
+    return {"ms": ms, "plain_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "device_ms": dev_ms,
+            "design_bound_ms": d_ms, "keys": E, "bits": bits}
+
+
+def sort_at_path_shapes(dev, seed: int, runs) -> dict:
+    """Phase 15b's sort: at phase 7's keys (run_counts' sorted key of its
+    default run, ``runs``, split back into words and sample ids and put
+    in a seeded random order) and at the cell's ~484 M seed-made keys
+    (42-bit words, 5 samples)."""
+    from simka_tpu_torch.utils.community import FULL_COMMUNITY
+
+    (key,), _, _ = runs
+    sbits = countjoin._sbits(FULL_COMMUNITY["n_samples"])
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    key = key.to(dev)[torch.randperm(key.shape[0], generator=g, device=dev)]
+    word, sid = key >> sbits, (key & ((1 << sbits) - 1)).to(torch.int32)
+    del key
+    res = time_sort(word, sid, sbits, 42 + sbits, "phase 7's keys")
+    del word, sid
+    torch.cuda.empty_cache()
+    sbits = countjoin._sbits(CELL_SORT_BANKS)
+    word = torch.randint(0, 1 << 42, (CELL_SORT_KEYS,), generator=g,
+                         device=dev)
+    sid = torch.randint(0, CELL_SORT_BANKS, (CELL_SORT_KEYS,), generator=g,
+                        device=dev, dtype=torch.int32)
+    cell = time_sort(word, sid, sbits, 42 + sbits,
+                     "the cell's shape, seed-made")
+    res.update((f"cell_{k}", v) for k, v in cell.items()
+               if k not in ("bound_by", "plain_ms"))
+    del word, sid
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernels_phase(dev, seed: int, inputs: KernelInputs,
                   segment_rows) -> dict:
     """Phase 15; returns the three kernels' numbers for their records."""
@@ -3724,6 +3825,7 @@ def kernels_phase(dev, seed: int, inputs: KernelInputs,
             inputs.segments, dev, "phase 7's solid rows").items()
         if k not in ("bound_by", "library_ms"))
     torch.cuda.empty_cache()
+    res["sort"] = sort_at_path_shapes(dev, seed, inputs.runs)
     say(f"phase 15: {time.perf_counter() - t0:.1f} s")
     return res
 
@@ -3899,7 +4001,9 @@ def main() -> int:
             ("run_counts", "runs.cu", RUN_COUNTS_REPLACES,
              "run_counts_launches", "run_counts"),
             ("segment_stats", "runs.cu", SEGMENT_REPLACES,
-             "segment_launches", "segment_stats")):
+             "segment_launches", "segment_stats"),
+            ("sort_packed_keys", "sort.cu", SORT_REPLACES, "sort_launches",
+             "sort")):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -3912,7 +4016,8 @@ def main() -> int:
                for lk, r in later_runs.items()},
             "max_abs_err": hand["max_abs_err"],
             # at phase 7's batch (extraction, k=21) and sorted key (run
-            # counts), at phase 14's solid rows (the segment pass)
+            # counts), at phase 14's solid rows (the segment pass), at
+            # phase 7's keys (the sort; cell_*: the cell's ~484 M keys)
             **{k: hand[at][k] for k in times},
             **{k: v for k, v in hand[at].items() if k not in times},
             **({f"k63_{k}": hand["extract_63"][k] for k in times}

@@ -117,6 +117,8 @@ def lib():
                 ("simka_pair_sums_budget", i64, [i64, i32]),
                 ("simka_runs_tile_rows", i64, []),
                 ("simka_segment_shared_banks", i64, []),
+                ("simka_sort_tile_keys", i64, []),
+                ("simka_sort_portion_tiles", i64, []),
             ):
                 fn = getattr(handle, name)
                 fn.restype = res
@@ -133,6 +135,9 @@ def lib():
                                       vp]),
                 ("simka_segment_stats", [vp, i32, i64, vp, i32, vp, i32, i64,
                                          vp, vp, vp, vp, vp]),
+                # csrc/sort.cu
+                ("simka_radix_sort", [vp, vp, i32, i32, i64, i32, vp, vp, vp,
+                                      vp, vp, vp, vp]),
                 # csrc/minhash.cu
                 ("simka_murmur_kmers", [vp, vp, i64, u64, u64, vp, vp, vp,
                                         vp]),

@@ -36,7 +36,9 @@ K-mers are the big-endian int64 word tuples of ``ops.kmers`` (one
 word for k <= 31). Two sort paths, chosen as in the reference:
   - packed: one word and 2k + sbits <= 63 (sbits = bits of N - 1, at
     least 1): one int64 key ``(kmer << sbits) | sid`` sorts in one
-    pass -- k=21 up to N = 2^21, k=31 only at N <= 2;
+    sort -- k=21 up to N = 2^21, k=31 only at N <= 2 -- on CUDA the
+    keys-only radix sort of ``csrc/sort.cu`` over its 2k + sbits used
+    bits, which forms the key itself (``ops.sort.sort_packed_keys``);
   - multi-key: otherwise. torch has no multi-key sort, so stable
     sorts chain from the least significant key (the sample id) up to
     the first word, which gives the lexicographic (k-mer, sample)
@@ -60,6 +62,7 @@ from typing import NamedTuple, Sequence, Union
 import torch
 
 from simka_tpu_torch.ops.kmers import WORD_BASES
+from simka_tpu_torch.ops.sort import sort_packed_keys
 from simka_tpu_torch.utils.metrics import span
 
 # Whittaker A is accumulated over blocks of this many banks j (the
@@ -326,15 +329,19 @@ def solid_rows(
 
     Returns (words, sid, count): one row per solid (k-mer, sample), in
     (k-mer, sample)-ascending order; int64 words, an int64 or int32
-    sid and an int32 count. Spans (``spans``): ``simka.join.sort``,
-    then ``_compact_solid``'s.
+    sid and an int32 count. Every word lies in its ``kmer_bits`` range
+    and every sample id in [0, n_banks) (``_checked_rows``; the
+    extraction's words are): the packed sort sorts only the key's used
+    bits. Spans (``spans``): ``simka.join.sort``, then
+    ``_compact_solid``'s.
     """
     nw = len(words)
     sbits = _sbits(n_banks)
     if nw == 1 and kmer_bits + sbits <= 63:
-        # packed path: one int64 key carries (kmer, sid)
+        # packed path: one int64 key carries (kmer, sid), sorted over its
+        # kmer_bits + sbits used bits (``ops.sort``)
         with span("simka.join.sort", spans):
-            key = torch.sort((words[0] << sbits) | sid.to(torch.int64)).values
+            key = sort_packed_keys(words[0], sid, sbits, kmer_bits + sbits)
         key_c, cnt_c = _compact_solid((key,), abundance_min, abundance_max,
                                       (-1,), spans)
         return (key_c >> sbits,), key_c & ((1 << sbits) - 1), cnt_c
