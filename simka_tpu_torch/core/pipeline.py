@@ -255,8 +255,10 @@ def compute_statistics(
     ``repartition_instances`` (instances per hash bucket in memory --
     per shard when sharded, as ``simka_tpu``'s sharded path -- and
     distinct solid k-mers out-of-core), ``counters`` (in memory:
-    ``h2d_bytes``, the packed and valid-bits bytes shipped) and
-    ``route``;
+    ``h2d_bytes``, the packed and valid-bits bytes shipped;
+    ``ingest_batches``, the batches dispatched; on one device
+    ``pair_groups``, the sample groups of the pair kernel's plan,
+    ``ops.countjoin.pair_groups``) and ``route``;
     on a restart also ``restart_held_bytes``, the device memory still
     allocated when the out-of-core run begins. When ``observer`` holds
     a list under ``"spans"``, the job's spans are appended to it
@@ -355,6 +357,7 @@ def _compute_statistics_in_memory(
             state["rows"] += sid.shape[0]
         if spans is not None:
             spans.count("h2d_bytes", packed.nbytes + vb.nbytes)
+            spans.count("ingest_batches", 1)
         if state["rows"] > rows_budget:
             batches.clear()
             sids.clear()
@@ -452,6 +455,7 @@ def _compute_statistics_sharded(
         if spans is not None:
             spans.count("h2d_bytes", sum(p.nbytes + v.nbytes
                                          for p, v in batch.values()))
+            spans.count("ingest_batches", 1)
         for d, m in held.items():
             on_d = sum(r for r, s in zip(rows, shards) if s == d)
             if on_d > plan[d]:

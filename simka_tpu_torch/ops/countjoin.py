@@ -57,7 +57,7 @@ totals.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -421,16 +421,17 @@ def _kl_from_limbs(sums: torch.Tensor, spans=None) -> torch.Tensor:
     """[M, 1 + KL_FRAC_LIMBS] int64 limb sums -> [M] f64, each the
     exact fixed-point total rounded once (Python's int division rounds
     correctly). The read of the sums waits for the device
-    (``simka.sync.kl``)."""
+    (``simka.sync.kl``); the sums on the host are ``simka.join.kl_host``."""
     bits = KL_LIMB_BITS * KL_FRAC_LIMBS
     with span("simka.sync.kl", spans):
         rows = sums.cpu().tolist()
-    vals = [
-        sum(v << (KL_LIMB_BITS * (KL_FRAC_LIMBS - j))
-            for j, v in enumerate(row)) / (1 << bits)
-        for row in rows
-    ]
-    return torch.tensor(vals, dtype=torch.float64, device=sums.device)
+    with span("simka.join.kl_host", spans):
+        vals = [
+            sum(v << (KL_LIMB_BITS * (KL_FRAC_LIMBS - j))
+                for j, v in enumerate(row)) / (1 << bits)
+            for row in rows
+        ]
+        return torch.tensor(vals, dtype=torch.float64, device=sums.device)
 
 
 def _pair_sums_plain(sid, count, starts, seg_len, K, flat, kl, *,
@@ -565,6 +566,14 @@ def pair_plan(n_banks: int, n_slots: int, whittaker_all: bool, budget: int,
     return GLOBAL_PLAN
 
 
+def pair_groups(plan: Optional[PairPlan]) -> int:
+    """The sample groups of a launch's plan: 1 for the ungrouped shared
+    form, 0 for the global form and where no kernel launched (None)."""
+    if plan is None or plan.form != "shared":
+        return 0
+    return len(plan.groups) - 1
+
+
 def _kernel_channels(flat) -> list:
     """The kernel's channel numbers on in ``flat`` (PAIR_CHANNELS'
     index; the KL limbs 8..12 with the complex channels)."""
@@ -575,9 +584,9 @@ def _kernel_channels(flat) -> list:
 
 
 def _pair_sums_cuda(sid, count, starts, seg_len, K, flat, kl, wall, *,
-                    d_max: int) -> None:
+                    d_max: int) -> PairPlan:
     """The kernel of ``csrc/pair_sums.cu`` in one launch, planned by
-    ``pair_plan`` from the card's shared memory."""
+    ``pair_plan`` from the card's shared memory; returns the plan."""
     from simka_tpu_torch.ops import _kernels
 
     with torch.cuda.device(sid.device):
@@ -589,6 +598,7 @@ def _pair_sums_cuda(sid, count, starts, seg_len, K, flat, kl, wall, *,
     plan = pair_plan(K.shape[0], len(_kernel_channels(flat)),
                      wall is not None, budget, d_max)
     _launch_pair_sums(sid, count, starts, seg_len, K, flat, kl, wall, plan)
+    return plan
 
 
 def _launch_pair_sums(sid, count, starts, seg_len, K, flat, kl, wall,
@@ -614,7 +624,7 @@ def _launch_pair_sums(sid, count, starts, seg_len, K, flat, kl, wall,
     for s, c in enumerate(chans):
         slot[c] = s
     shared = plan.form == "shared"
-    groups = len(plan.groups) - 1 if shared else 0
+    groups = pair_groups(plan)
     bounds = (ctypes.c_int * max(1, groups + 1))(*plan.groups)
     warp_bounds = (ctypes.c_int * max(1, groups * (plan.team_warps + 1)))(
         *(a for wb in plan.warp_bounds for a in wb))
@@ -631,7 +641,7 @@ def _launch_pair_sums(sid, count, starts, seg_len, K, flat, kl, wall,
 
 
 def pair_sums(sid, count, starts, seg_len, K, flat, kl, *,
-              d_max: int, whittaker_all=None) -> None:
+              d_max: int, whittaker_all=None) -> Optional[PairPlan]:
     """Add the pair terms of every two rows of one segment into ``flat``
     and ``kl`` (``simka_tpu``'s ``_pair_accumulate``), and Whittaker's
     all-rows sums into ``whittaker_all`` (its ``_whittaker_all_banks``).
@@ -653,7 +663,8 @@ def pair_sums(sid, count, starts, seg_len, K, flat, kl, *,
         singletons too).
 
     On CUDA tensors this launches the kernel of ``csrc/pair_sums.cu``
-    once or raises; on CPU tensors it is the plain version. Every
+    once or raises, and returns its ``PairPlan``; on CPU tensors it is
+    the plain version. It returns None where no kernel launches. Every
     channel is an integer sum, so the two agree bit for bit.
     """
     N = K.shape[0]
@@ -723,7 +734,8 @@ def _raw_stats_from_rows(
     the Whittaker and KL terms instead of these rows' own (the sweep's
     whole-sample totals, ``simka_tpu``'s ``solid_override``); the
     returned ``solid_per_bank`` stays these rows' own. Spans
-    (``spans``): ``simka.join.segments``, ``simka.join.pair_sums``."""
+    (``spans``): ``simka.join.segments``, ``simka.join.pair_sums``, and
+    the counter ``pair_groups`` (``pair_groups`` of the kernel's plan)."""
     N = n_banks
     dev = sid.device
     i64, f64 = torch.int64, torch.float64
@@ -746,8 +758,10 @@ def _raw_stats_from_rows(
         kl = torch.zeros((N * N, 1 + KL_FRAC_LIMBS), dtype=i64, device=dev)
         wall = torch.zeros(N * N, dtype=i64, device=dev) if complex_ else None
         # the global per-bank totals of the Whittaker and KL terms
-        pair_sums(sid, c64, starts, seg_len, K.to(f64), flat, kl,
-                  d_max=d_max, whittaker_all=wall)
+        plan = pair_sums(sid, c64, starts, seg_len, K.to(f64), flat, kl,
+                         d_max=d_max, whittaker_all=wall)
+    if spans is not None:
+        spans.count("pair_groups", pair_groups(plan))
 
     def pairs(name):
         if name in flat:

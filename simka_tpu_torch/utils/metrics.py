@@ -28,8 +28,9 @@ CLOCK = "simka.clock"
 # each the sum of its spans: the parse worker's pulls, the
 # ship worker's copies, the main thread's dispatch of each batch, the
 # join (from the ingest's end to the statistics: its device waits hold
-# the extraction backlog), the main thread's waits for shipped batches
-# and the join's waits for the device
+# the extraction backlog), the main thread's waits for shipped batches,
+# the join's waits for the device, and the join's host sums of the
+# Kullback-Leibler limbs (one Python sum an N x N entry)
 STAGE_SPANS = {
     "parse_pack_s": ("simka.ingest.parse",),
     "h2d_s": ("simka.ingest.h2d",),
@@ -39,6 +40,7 @@ STAGE_SPANS = {
     "join_wait_s": ("simka.sync.check", "simka.sync.solid_count",
                     "simka.sync.segments", "simka.sync.kl",
                     "simka.sync.to_numpy"),
+    "kl_host_s": ("simka.join.kl_host",),
 }
 # the spans timed where no records are kept
 TIMED = frozenset(n for names in STAGE_SPANS.values() for n in names)

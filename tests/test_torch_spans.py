@@ -11,7 +11,8 @@
   ``simka.ingest``), inside its parent's interval.
 - The stage timers are sums of their spans, with and without records;
   without records no other span is timed; the counter ``h2d_bytes``
-  counts the batches' bytes.
+  counts the batches' bytes, ``ingest_batches`` the batches, and
+  ``pair_groups`` the pair kernel's sample groups (none on the CPU).
 - Under a CPU ``torch.profiler``, the ``simka.clock`` span places the
   program's clock on the trace's: a span around a torch op, moved by
   the offset, holds the op's event to within 20 us.
@@ -55,6 +56,7 @@ PARENTS = {
     "simka.join.pair_sums": "simka.join",
     "simka.join.finish": "simka.join",
     "simka.sync.kl": "simka.join.finish",
+    "simka.join.kl_host": "simka.join.finish",
     "simka.join.host_stats": "simka.join",
     "simka.sync.to_numpy": "simka.join.host_stats",
     "simka.matrices": None,
@@ -169,6 +171,10 @@ def test_stage_timers_are_sums_of_their_spans(shards):
     assert timers["join_wait_s"] == pytest.approx(
         sum(_seconds(records, n) for n in syncs), rel=1e-12)
     assert 0 < timers["join_wait_s"] < timers["join_s"]
+    # the KL limbs' host sums: the one-device join's finish alone
+    assert timers["kl_host_s"] == pytest.approx(
+        _seconds(records, "simka.join.kl_host"), rel=1e-12)
+    assert (timers["kl_host_s"] > 0) == (shards is None)
 
 
 def test_without_records_only_the_stage_timers_spans_are_timed(monkeypatch):
@@ -203,8 +209,12 @@ def test_counters_count_the_batches_and_the_rows(shards):
     obs = {}
     _job(obs, shards)
     batches = _batches()
-    # each batch once, however many shards share its device
-    want = {"h2d_bytes": sum(p.nbytes + v.nbytes for _, p, v, _ in batches)}
+    # each batch once, however many shards share its device; the
+    # one-device join's plain pair sums launch no kernel: no group
+    want = {"h2d_bytes": sum(p.nbytes + v.nbytes for _, p, v, _ in batches),
+            "ingest_batches": len(batches)}
+    if shards is None:
+        want["pair_groups"] = 0
     assert obs["counters"] == want
     assert len(batches) == N_SAMPLES * -(-150 // BATCH_READS)
 
