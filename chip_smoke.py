@@ -254,6 +254,16 @@ Phases (each raises on failure; nothing is caught):
      segment_stats once, phase 14b's 100 / 1 / 1; the plain extraction,
      run counts and segment pass raise on a CUDA tensor while the path
      runs.
+ 16. (run right after phase 2) the H2D line: one batch of the
+     benchmark's cells (2^17 reads x 152 bases, 7,471,104 B) by the
+     ingest's shipper (core/pipeline.py::_shipper) from pageable numpy
+     and from page-locked arrays (the native parser's batches for a
+     job on a card), each equal to the host batch and counted as
+     page-locked or not; the host time around the call, the copies'
+     device time and kind (torch.profiler's memcpy events) and their
+     rate in GB/s.
+     Alone: python3 -c "import torch, chip_smoke;
+     chip_smoke.h2d_line(torch.device('cuda', 0), 0)".
 
 Prints, before the last line, the kernels' JSON record (per kernel:
 launches on the main path, max_abs_err, ms, plain_ms, bound_ms,
@@ -287,11 +297,10 @@ of them), chain_ms the rows to the
 starts and lengths, index_add_ms the plain segment pass's three
 index_add_ totals; the sort's at phase 7's keys, cell_* at the
 cell's, device_ms as the segment pass's, design_bound_ms the design's
-bytes, plain_ms its plain version, torch.sort); extra fields) and the card's
-nvidia-smi
-line; the last
-line is the JSON result. Exits non-zero without a result when no CUDA
-device is present.
+bytes, plain_ms its plain version, torch.sort); extra fields; beside
+"kernels", "h2d": phase 16's numbers) and the card's nvidia-smi line;
+the last line is the JSON result. Exits non-zero without a result when
+no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -498,6 +507,73 @@ def time_compaction(tag: str, cols, kept, fills, reps: int = 10) -> dict:
         f"{r['fill_bound_ms']:.4f} ms, plain {r['plain_fill_ms']:.4f} ms); "
         f"a copy of the columns {r['copy_ms']:.4f} ms" + lib)
     return r
+
+
+def h2d_line(dev, seed: int, reps: int = 30) -> dict:
+    """Phase 16: one ingest batch of the benchmark's cells (2^17 reads
+    of 152 bases: 38 B of packed codes and 19 B of valid bits a read,
+    7,471,104 B) onto the card by the ingest's shipper
+    (``core.pipeline._shipper``), from pageable numpy and from
+    page-locked arrays, as the native parser gives them for a job on a
+    card, each equal to the host batch and counted as page-locked or
+    not (``h2d_pinned_in``). Per way: the host time around the call
+    (the median over ``reps``), the copies' device time and kind from
+    torch.profiler (its memcpy events), and their rate in GB/s."""
+    from simka_tpu_torch.core import pipeline
+    from simka_tpu_torch.utils.metrics import Spans
+
+    rng = np.random.default_rng(seed)
+    packed = rng.integers(0, 256, (BATCH_READS, 38), dtype=np.uint8)
+    vb = rng.integers(0, 256, (BATCH_READS, 19), dtype=np.uint8)
+    nbytes = packed.nbytes + vb.nbytes
+    locked = [torch.empty(a.shape, dtype=torch.uint8, pin_memory=True)
+              for a in (packed, vb)]
+    for t, a in zip(locked, (packed, vb)):
+        t.copy_(torch.from_numpy(a))
+    locked = [t.numpy() for t in locked]
+
+    out = {"bytes": nbytes}
+    for name, (p0, v0) in (("pageable", (packed, vb)),
+                           ("page_locked", locked)):
+        spans = Spans()
+        ship = pipeline._shipper(dev, spans)
+
+        def fn():
+            return ship((0, p0, v0, None))[1:3]
+
+        p, v = fn()
+        torch.cuda.synchronize()
+        if not (np.array_equal(p.cpu().numpy(), packed)
+                and np.array_equal(v.cpu().numpy(), vb)):
+            raise AssertionError(f"H2D by {name}: the device batch differs")
+        if spans.counters["h2d_pinned_in"] != (name == "page_locked"):
+            raise AssertionError(f"H2D by {name}: counted {spans.counters}")
+        host = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        events, _ = traced(fn, reps)
+        copies = [(s, e, n) for s, e, n in events if "Memcpy" in n]
+        dev_ms = sum(e - s for s, e, _ in copies) / 1e3 / reps
+        out[name] = {
+            "host_ms": float(np.median(host)),
+            "device_ms": dev_ms if copies else None,
+            "gbps": nbytes / dev_ms / 1e6 if copies else None,
+            "kinds": sorted({n for _, _, n in copies}),
+        }
+
+    def line(r):
+        rate = "not measured" if r["gbps"] is None else f"{r['gbps']:.2f}"
+        return (f"{r['host_ms']:.4f} ms around the call, "
+                f"{fmt(r['device_ms'])} of {r['kinds']} ({rate} GB/s)")
+
+    say(f"H2D of one cell batch ({nbytes:,} B, {reps} calls) by the "
+        f"shipper: from pageable numpy {line(out['pageable'])}; from "
+        f"page-locked arrays (the native parser's for a job on a card) "
+        f"{line(out['page_locked'])}")
+    return out
 
 
 def kernel_vs_plain(dev) -> int:
@@ -3858,6 +3934,7 @@ def main() -> int:
         f"{os.path.relpath(native.get_lib()._name)}")
 
     dev = torch.device("cuda", 0)
+    h2d = h2d_line(dev, args.seed)
     err = kernel_vs_plain(dev)
     probe = probe_phase(dev, args.seed)
     with tempfile.TemporaryDirectory(prefix="simka_chip_smoke_") as tmp:
@@ -4054,7 +4131,7 @@ def main() -> int:
         })
     say(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "h2d": h2d}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

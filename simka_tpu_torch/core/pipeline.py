@@ -256,7 +256,8 @@ def compute_statistics(
     per shard when sharded, as ``simka_tpu``'s sharded path -- and
     distinct solid k-mers out-of-core), ``counters`` (in memory:
     ``h2d_bytes``, the packed and valid-bits bytes shipped;
-    ``ingest_batches``, the batches dispatched; on one device
+    ``ingest_batches``, the batches dispatched; ``h2d_pinned_in``, the
+    copies to a card from page-locked arrays, ``_shipper``; on one device
     ``pair_groups``, the sample groups of the pair kernel's plan,
     ``ops.countjoin.pair_groups``) and ``route``;
     on a restart also ``restart_held_bytes``, the device memory still
@@ -306,13 +307,21 @@ def compute_statistics(
 
 def _shipper(device: torch.device, spans: Optional[Spans]):
     """The ingest's H2D stage: a host batch of ``_packed_batch_stream``
-    shipped to ``device``, in the span ``simka.ingest.h2d``."""
+    shipped to ``device``, in the span ``simka.ingest.h2d``. Counts
+    ``h2d_pinned_in``, the copies to a card from page-locked arrays (the
+    native parser's where the job's device is a card,
+    ``io.packed.PackedReadSource``'s ``pin``), which the driver copies
+    straight, not through a staging buffer of its own."""
+    card = device.type == "cuda"
 
     def ship(item):
         sample, packed, vb, n_valid = item
         with span("simka.ingest.h2d", spans):
-            packed = torch.from_numpy(packed).to(device)
-            vb = torch.from_numpy(vb).to(device)
+            packed, vb = torch.from_numpy(packed), torch.from_numpy(vb)
+            if spans is not None:
+                spans.count("h2d_pinned_in", card and packed.is_pinned()
+                            and vb.is_pinned())
+            packed, vb = packed.to(device), vb.to(device)
         return sample, packed, vb, n_valid
 
     return ship
@@ -806,19 +815,14 @@ def count_dataset_spectrum(
     nb_reads = [0]
     gather = _SpectrumGather(k, device, stream_batch_reads * 32)
 
-    def ship(item):
-        _, packed, vb, n_valid = item
-        return (torch.from_numpy(packed).to(device),
-                torch.from_numpy(vb).to(device), n_valid)
-
-    def consume(packed, vb, n_valid):
+    def consume(_sample, packed, vb, n_valid):
         gather.add(kept_windows(packed, vb, k, n_valid,
                                 min_kmer_shannon_index))
 
     stream = _packed_batch_stream(
         [seqs], [""], k, nb_reads, None, min(stream_batch_reads, 1 << 17),
     )
-    _pipelined_ingest(stream, ship, consume)
+    _pipelined_ingest(stream, _shipper(device, None), consume)
     words, counts = gather.spectrum()
     return words, counts, nb_reads[0]
 
@@ -913,6 +917,7 @@ def count_one_dataset(
         config.min_read_size,
         config.min_read_shannon_index,
         max_reads=cap,
+        pin=device.type == "cuda",
     )
     t0 = time.perf_counter()
     for attempt in range(4):
@@ -1172,6 +1177,7 @@ def run_simka(
                 config.min_read_size,
                 config.min_read_shannon_index,
                 max_reads=cap,
+                pin=dev.type == "cuda",
             )
             for d in datasets
         ]

@@ -20,6 +20,7 @@ import tempfile
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _PKG = os.path.dirname(os.path.dirname(_HERE))
@@ -114,6 +115,21 @@ def _raise_if_malformed(lib, h, path: str) -> None:
         raise ValueError(f"{path}: {msg.decode()}")
 
 
+def _batch_buffers(pinned: bool, rows: int, width: int):
+    """A batch's packed [rows, width/4] and validity [rows, width/8]
+    uint8 buffers. When ``pinned``, both are views of one page-locked
+    block (a tensor's memory, kept alive by the arrays: one allocation a
+    batch), which a CUDA card's driver copies straight, not through a
+    staging buffer of its own."""
+    w4, w8 = width // 4, width // 8
+    if not pinned:
+        return np.empty((rows, w4), np.uint8), np.empty((rows, w8), np.uint8)
+    block = torch.empty(rows * (w4 + w8), dtype=torch.uint8,
+                        pin_memory=True).numpy()
+    return (block[:rows * w4].reshape(rows, w4),
+            block[rows * w4:].reshape(rows, w8))
+
+
 def iter_packed_batches(
     path: str,
     batch_reads: int,
@@ -122,6 +138,7 @@ def iter_packed_batches(
     encoding: str = "acgt",
     width: int = 64,
     kmer_size: int = 0,
+    pin: bool = False,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, int, int]]:
     """Yield (packed [B, width/4], validbits [B, width/8], n_reads,
     n_valid_windows) batches in pack_codes_host layout, filtered and
@@ -129,7 +146,8 @@ def iter_packed_batches(
     bytes). ``width`` grows automatically when a longer read arrives
     (rounded to 8: every width slot beyond the longest read becomes a
     padded k-mer window downstream). ``kmer_size`` > 0 also counts
-    the valid k-mer windows per batch."""
+    the valid k-mer windows per batch. ``pin``: the batches page-locked
+    (``_batch_buffers``), for a job on a card."""
     lib = get_lib()
     if lib is None:
         raise RuntimeError("native fastx library unavailable")
@@ -140,8 +158,7 @@ def iter_packed_batches(
     width = -(-max(width, 8) // 8) * 8
     try:
         while True:
-            packed = np.empty((batch_reads, width // 4), np.uint8)
-            validbits = np.empty((batch_reads, width // 8), np.uint8)
+            packed, validbits = _batch_buffers(pin, batch_reads, width)
             n_valid = ctypes.c_int64(0)
             n = lib.fastx_read_packed_batch(
                 h,

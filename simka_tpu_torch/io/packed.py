@@ -12,9 +12,10 @@ yields raw filtered reads).
 from __future__ import annotations
 
 import os
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 from simka_tpu_torch.io.bank import (
     encode_batch,
@@ -66,6 +67,9 @@ class PackedReadSource:
     ``max_reads`` applies per group with the reference's
     SimkaInputIterator quirks (first passing read of each file is
     uncounted; the read whose increment reaches the cap is dropped).
+    ``pin``: the native parser's batches page-locked, which a card
+    copies straight; the owner of the job's device says whether it is a
+    card, and None pins where torch sees one.
     """
 
     def __init__(
@@ -75,6 +79,7 @@ class PackedReadSource:
         min_read_shannon_index: float = 0.0,
         max_reads: int = 0,
         encoding: str = "acgt",
+        pin: Optional[bool] = None,
     ):
         banks = list(banks)
         if banks and isinstance(banks[0], (str, bytes, os.PathLike)):
@@ -84,6 +89,7 @@ class PackedReadSource:
         self.min_read_shannon_index = min_read_shannon_index
         self.max_reads = max_reads
         self.encoding = encoding
+        self.pin = torch.cuda.is_available() if pin is None else pin
 
     def __call__(self) -> Iterator[bytes]:
         """Provider protocol: the filtered, capped raw-read stream."""
@@ -132,6 +138,7 @@ class PackedReadSource:
                     encoding=self.encoding,
                     width=width0,
                     kmer_size=k,
+                    pin=self.pin,
                 ):
                     if cap:
                         # SimkaInputIterator quirks: the first passing

@@ -20,6 +20,7 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from simka_tpu_torch.core.output import dump_matrix_csv_gz
 from simka_tpu_torch.io.dsl import check_input_validity, parse_input_file
@@ -32,11 +33,12 @@ from simka_tpu_torch.minhash.sketch_file import SketchFile
 
 
 def _make_source(ds, min_read_size: int, min_read_shannon_index: float,
-                 max_reads: int):
+                 max_reads: int, device: torch.device):
     from simka_tpu_torch.io.packed import PackedReadSource
 
     return PackedReadSource(ds.banks, min_read_size, min_read_shannon_index,
-                            max_reads=max_reads, encoding="gatb")
+                            max_reads=max_reads, encoding="gatb",
+                            pin=device.type == "cuda")
 
 
 def sketch_command(
@@ -99,7 +101,7 @@ def sketch_command(
 
     def make_source(ds):
         return _make_source(ds, min_read_size, min_read_shannon_index,
-                            max_reads)
+                            max_reads, dev)
 
     def write(i, ds, hashes, counts):
         t0 = time.perf_counter()
@@ -391,7 +393,7 @@ def run_simka_min(
             limit = (_batched_instance_limit(dev) if instance_limit is None
                      else instance_limit)
             srcs = [_make_source(ds, min_read_size, min_read_shannon_index,
-                                 max_reads) for ds in datasets]
+                                 max_reads, dev) for ds in datasets]
             try:
                 bundle = _batched_device_sketch(
                     srcs, kmer_size, sketch_size, seed, use_filter, 1 << 15,

@@ -11,8 +11,9 @@
   ``simka.ingest``), inside its parent's interval.
 - The stage timers are sums of their spans, with and without records;
   without records no other span is timed; the counter ``h2d_bytes``
-  counts the batches' bytes, ``ingest_batches`` the batches, and
-  ``pair_groups`` the pair kernel's sample groups (none on the CPU).
+  counts the batches' bytes, ``ingest_batches`` the batches,
+  ``pair_groups`` the pair kernel's sample groups (none on the CPU), and
+  ``h2d_pinned_in`` no copy on the CPU.
 - Under a CPU ``torch.profiler``, the ``simka.clock`` span places the
   program's clock on the trace's: a span around a torch op, moved by
   the offset, holds the op's event to within 20 us.
@@ -210,9 +211,10 @@ def test_counters_count_the_batches_and_the_rows(shards):
     _job(obs, shards)
     batches = _batches()
     # each batch once, however many shards share its device; the
-    # one-device join's plain pair sums launch no kernel: no group
+    # one-device join's plain pair sums launch no kernel: no group; a
+    # CPU device copies nothing page-locked
     want = {"h2d_bytes": sum(p.nbytes + v.nbytes for _, p, v, _ in batches),
-            "ingest_batches": len(batches)}
+            "ingest_batches": len(batches), "h2d_pinned_in": 0}
     if shards is None:
         want["pair_groups"] = 0
     assert obs["counters"] == want
