@@ -47,7 +47,6 @@ from __future__ import annotations
 
 import os
 import shutil
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,7 +59,18 @@ from simka_tpu_torch.core.output import write_all_matrices
 from simka_tpu_torch.core.stats import SimkaStatistics
 from simka_tpu_torch.io.dsl import check_input_validity, parse_input_file
 from simka_tpu_torch.ops.kmers import N_HIST_BUCKETS
-from simka_tpu_torch.utils.metrics import Spans, clock_anchor, span
+from simka_tpu_torch.utils.metrics import (
+    OUT_OF_CORE_SPANS,
+    RUN,
+    RUN_STAGES,
+    SAMPLE_SPANS,
+    SWEEP_SPANS,
+    Metrics,
+    Spans,
+    clock_anchor,
+    span,
+)
+
 # a sample's kept windows are counted into a partial spectrum each time
 # this many reads' worth (x 32 windows) are gathered
 STREAM_BATCH_READS = 1 << 20
@@ -548,10 +558,12 @@ def compute_statistics_out_of_core(
     spectrum x N x 1.3 and that estimate, since they cannot be split
     once spilling starts. The spill is removed at the end.
 
-    ``observer``, when given, receives ``stage_timers``,
-    ``repartition_instances`` (distinct solid k-mers per hash bucket, as
-    ``simka_tpu``'s), ``sweep_ranges``, ``spill_tier``, ``spectrum_rows``
-    and ``per_sample`` (rows, spectrum and spill seconds).
+    ``observer``, when given, receives ``stage_timers`` (sums of spans,
+    ``utils.metrics.OUT_OF_CORE_SPANS``), ``repartition_instances``
+    (distinct solid k-mers per hash bucket, as ``simka_tpu``'s),
+    ``sweep_ranges``, ``spill_tier``, ``spectrum_rows`` and
+    ``per_sample`` (rows, and the seconds of the sample's spectrum and,
+    on the host tiers, of its spill: its own spans).
     """
     from concurrent.futures import ThreadPoolExecutor
 
@@ -595,8 +607,8 @@ def compute_statistics_out_of_core(
         budget_rows = max(budget_rows * 3 // 5, 1)
 
     nb_reads = [0] * n
-    timers = dict.fromkeys(("spectrum_s", "spill_s"), 0.0)
-    spans = Spans()  # the ingest's stage times
+    spans = Spans()  # the route's stage timers
+    steps = [Spans() for _ in range(n)]  # each sample's spectrum and spill
     solid = torch.zeros(n, dtype=torch.int64, device=device)
     hist = torch.zeros(N_HIST_BUCKETS, dtype=torch.int64, device=device)
     per_sample = [{"id": i} for i in dataset_ids]
@@ -622,27 +634,23 @@ def compute_statistics_out_of_core(
         return spill
 
     def spill_host(spill, s, spectrum):
-        t0 = time.perf_counter()
-        spill.spill_parts(s, partition_on_device(*spectrum, k,
-                                                 spill.n_ranges))
-        per_sample[s]["spill_s"] = round(time.perf_counter() - t0, 4)
+        with span("simka.spectra.spill", steps[s]):
+            spill.spill_parts(s, partition_on_device(*spectrum, k,
+                                                     spill.n_ranges))
 
     def finish(s):  # every batch of sample s is consumed
-        t0 = time.perf_counter()
-        words, counts = gather.spectrum()
-        sd, hd = spill_stats(words, counts, k, config.abundance_min,
-                             config.abundance_max)
-        solid[s] = sd
-        hist.add_(hd)
-        if state["spill"] is None:
-            state["spill"] = make_spill(counts.shape[0])
-        t1 = time.perf_counter()
-        per_sample[s].update(rows=counts.shape[0],
-                             spectrum_s=round(t1 - t0, 4))
-        timers["spectrum_s"] += t1 - t0
+        with span("simka.spectra.spectrum", steps[s]):
+            words, counts = gather.spectrum()
+            sd, hd = spill_stats(words, counts, k, config.abundance_min,
+                                 config.abundance_max)
+            solid[s] = sd
+            hist.add_(hd)
+            if state["spill"] is None:
+                state["spill"] = make_spill(counts.shape[0])
+        per_sample[s]["rows"] = counts.shape[0]
         if tier == "device":
-            state["spill"].spill_sample(s, words, counts)
-            timers["spill_s"] += time.perf_counter() - t1
+            with span("simka.spectra.spill", steps[s]):
+                state["spill"].spill_sample(s, words, counts)
         else:
             spills.append(spill_ex.submit(
                 spill_host, state["spill"], s, (words, counts)))
@@ -658,31 +666,33 @@ def compute_statistics_out_of_core(
     stream = _packed_batch_stream(
         dataset_seqs, dataset_ids, k, nb_reads, log, batch_reads
     )
-    t_count = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as spill_ex:
-        _pipelined_ingest(stream, _shipper(device, spans), consume, spans)
-        while state["sample"] < n:
-            finish(state["sample"])
-            state["sample"] += 1
-        for f in spills:
-            f.result()
-    spill = state["spill"]
-    if spill is None:
-        raise ValueError("no datasets")
-    # the one read of the count phase's per-sample statistics
-    solid_np, hist_np = solid.cpu().numpy(), hist.cpu().numpy()
-    timers.update(parse_pack_s=spans.seconds("simka.ingest.parse"),
-                  h2d_s=spans.seconds("simka.ingest.h2d"),
-                  extract_dispatch_s=spans.seconds("simka.ingest.dispatch"))
-    # the host tiers' spill overlaps the count: count_s spans both
-    timers["count_s"] = time.perf_counter() - t_count
-    if tier != "device":
-        timers["spill_s"] = sum(p.get("spill_s", 0.0) for p in per_sample)
+    # the host tiers' spill overlaps the count: simka.spectra spans both
+    with span("simka.spectra", spans):
+        with ThreadPoolExecutor(max_workers=1) as spill_ex:
+            _pipelined_ingest(stream, _shipper(device, spans), consume,
+                              spans)
+            while state["sample"] < n:
+                finish(state["sample"])
+                state["sample"] += 1
+            for f in spills:
+                f.result()
+        spill = state["spill"]
+        if spill is None:
+            raise ValueError("no datasets")
+        # the one read of the count phase's per-sample statistics
+        solid_np, hist_np = solid.cpu().numpy(), hist.cpu().numpy()
+    for s, step in enumerate(steps):
+        spans.add(step)
+        per_sample[s]["spectrum_s"] = round(
+            step.seconds("simka.spectra.spectrum"), 4)
+        if tier != "device":
+            per_sample[s]["spill_s"] = round(
+                step.seconds("simka.spectra.spill"), 4)
     js = sweep_join_stats(
         spill, n, config.abundance_min, config.abundance_max, solid_np,
         k=k, device=device, simple=config.simple_dist,
         complex_=config.complex_dist,
-        log=log if log is not None else (lambda m: None), timers=timers,
+        log=log if log is not None else (lambda m: None), spans=spans,
         shards=shards,
     )
     spill.cleanup()
@@ -692,7 +702,8 @@ def compute_statistics_out_of_core(
     )
     if observer is not None:
         observer.update(
-            stage_timers=timers, repartition_instances=hist_np,
+            stage_timers=spans.stage_timers(OUT_OF_CORE_SPANS),
+            repartition_instances=hist_np,
             sweep_ranges=spill.n_ranges, spill_tier=tier,
             spectrum_rows=int(sum(p["rows"] for p in per_sample)),
             per_sample=per_sample,
@@ -872,7 +883,7 @@ def spill_stats(words, counts, k: int, abundance_min: int,
 
 def count_one_dataset(
     d, config: SimkaConfig, cap: int, device: torch.device, ckpt=None,
-    log=lambda m: None, timers: Optional[dict] = None,
+    log=lambda m: None, spans: Optional[Spans] = None,
 ):
     """Count phase for one dataset (``simka_tpu``'s
     ``count_one_dataset``): checkpoint reuse, the count, the checkpoint
@@ -884,13 +895,13 @@ def count_one_dataset(
 
     Returns (words, counts, n_reads, resumed): the spectrum on the host
     in the checkpoint's layout, ``simka_tpu``'s uint32 words and int64
-    counts. ``timers``, when given, receives ``load_s``, ``count_s``
-    and ``save_s`` for the steps taken.
+    counts. ``spans`` (or None) times the steps taken: the
+    checkpoint's load, the count and the checkpoint's save
+    (``utils.metrics.SAMPLE_SPANS``).
     """
     from simka_tpu_torch.io.packed import PackedReadSource
     from simka_tpu_torch.ops.spectrum import to_host
 
-    timers = {} if timers is None else timers
     k = config.kmer_size
     key = None
     if ckpt is not None:
@@ -904,9 +915,8 @@ def count_one_dataset(
             cap,
             config.min_kmer_shannon_index,
         )
-        t0 = time.perf_counter()
-        cached = ckpt.load(d.id, key)
-        timers["load_s"] = time.perf_counter() - t0
+        with span(SAMPLE_SPANS["load_s"], spans):
+            cached = ckpt.load(d.id, key)
         if cached is not None:
             words, counts, n = cached
             log(f"count {d.id}: resumed from checkpoint "
@@ -919,25 +929,23 @@ def count_one_dataset(
         max_reads=cap,
         pin=device.type == "cuda",
     )
-    t0 = time.perf_counter()
-    for attempt in range(4):
-        try:
-            *spectrum, n = count_dataset_spectrum(
-                source, k, device,
-                min_kmer_shannon_index=config.min_kmer_shannon_index,
-            )
-            break
-        except OSError as e:
-            if attempt == 3:
-                raise
-            log(f"count {d.id}: attempt {attempt + 1} failed ({e}); "
-                "retrying")
-    words, counts = to_host(spectrum, k)
-    timers["count_s"] = time.perf_counter() - t0
+    with span(SAMPLE_SPANS["count_s"], spans):
+        for attempt in range(4):
+            try:
+                *spectrum, n = count_dataset_spectrum(
+                    source, k, device,
+                    min_kmer_shannon_index=config.min_kmer_shannon_index,
+                )
+                break
+            except OSError as e:
+                if attempt == 3:
+                    raise
+                log(f"count {d.id}: attempt {attempt + 1} failed ({e}); "
+                    "retrying")
+        words, counts = to_host(spectrum, k)
     if ckpt is not None:
-        t0 = time.perf_counter()
-        ckpt.save(d.id, key, words, counts, n)
-        timers["save_s"] = time.perf_counter() - t0
+        with span(SAMPLE_SPANS["save_s"], spans):
+            ckpt.save(d.id, key, words, counts, n)
     log(f"count {d.id}: {n} reads -> {len(counts)} distinct k-mers")
     return words, counts, n, False
 
@@ -963,11 +971,13 @@ def compute_statistics_checkpointed(
     (``sweep_join_stats``); ``<tmp>/sweep/`` is removed unless
     -keep-tmp.
 
-    Fills ``metrics``' count and merge stages and counters (the
-    reference's keys, plus ``spectrum_rows``, ``memory_budget_bytes``,
-    ``per_sample`` step times and, after a sweep, ``sweep_ranges`` and
-    the seconds ``sweep_range_load_s``, ``sweep_range_join_s``,
-    ``sweep_partition_s`` and ``sweep_write_s``). The join, or each
+    Fills ``metrics``' count and merge stages (spans into
+    ``metrics.spans``) and counters (the reference's keys, plus
+    ``spectrum_rows``, ``memory_budget_bytes``, ``per_sample`` step
+    times, each sample's own spans, ``utils.metrics.SAMPLE_SPANS``, and,
+    after a sweep, ``sweep_ranges`` and the seconds
+    ``sweep_range_load_s``, ``sweep_range_join_s``, ``sweep_partition_s``
+    and ``sweep_write_s``, ``utils.metrics.SWEEP_SPANS``). The join, or each
     range of the sweep, runs over the hash shards on ``shards``
     (default ``[device]``), each shard's rows staged on its own device
     (``stage_rows_by_hash``), so the budget is the shards' plan
@@ -998,34 +1008,40 @@ def compute_statistics_checkpointed(
     budget = min(max(config.max_memory_mb, 1) * 1_000_000,
                  plan_bytes(shards))
     spectra, nb_reads, per_sample = [], [], []
+    steps = []  # each sample's spans (SAMPLE_SPANS)
     rows_so_far = 0
     hist = np.zeros(N_HIST_BUCKETS, np.int64)
     solid = np.zeros(len(datasets), np.int64)
     spill = None
+    spans = metrics.spans
+
+    def step_times(s):  # the steps sample s has taken, in seconds
+        per_sample[s].update({
+            name: round(steps[s].seconds(n), 4)
+            for name, n in SAMPLE_SPANS.items() if n in steps[s].ns})
 
     def spill_one(s, words, counts):
-        t0 = time.perf_counter()
-        spill.spill_sample(s, words, counts)
-        solid[s] = filtered_solid_per_bank(
-            [counts], config.abundance_min, config.abundance_max)[0]
-        per_sample[s]["spill_s"] = round(time.perf_counter() - t0, 4)
+        with span(SAMPLE_SPANS["spill_s"], steps[s]):
+            spill.spill_sample(s, words, counts)
+            solid[s] = filtered_solid_per_bank(
+                [counts], config.abundance_min, config.abundance_max)[0]
+        step_times(s)
 
-    with metrics.stage("count"):
+    with span(RUN_STAGES["count"], spans):
         for i, d in enumerate(datasets):
             log(f"count [{i + 1}/{len(datasets)}] {d.id}")
-            timers: dict = {}
+            steps.append(Spans())
             words, counts, n, resumed = count_one_dataset(
-                d, config, cap, device, ckpt=ckpt, log=log, timers=timers
+                d, config, cap, device, ckpt=ckpt, log=log, spans=steps[i]
             )
             hist += repartition_histogram(
                 [(words, counts)], config.abundance_min, config.abundance_max
             )
             if resumed:
                 metrics.count("datasets_resumed", 1)
-            per_sample.append({
-                "id": d.id, "resumed": resumed, "rows": len(counts),
-                **{name: round(v, 4) for name, v in timers.items()},
-            })
+            per_sample.append({"id": d.id, "resumed": resumed,
+                               "rows": len(counts)})
+            step_times(i)
             rows_so_far += len(counts)
             need = rows_so_far * row_bytes * JOIN_WORKING_SET_FACTOR
             log(f"{rows_so_far} spectrum rows so far: {need} B of a "
@@ -1044,7 +1060,7 @@ def compute_statistics_checkpointed(
                     -(-projected // spectrum_rows_budget(
                         shards, n_words(k), None)))
                 spill = SpectrumSpill(config.output_tmp_dir, n_ranges, k,
-                                      device)
+                                      device, spans)
                 log(f"out-of-core sweep: {n_ranges} hash ranges "
                     f"(projected {projected} rows)")
                 for s, (w, c) in enumerate(spectra):
@@ -1067,32 +1083,29 @@ def compute_statistics_checkpointed(
             f"{int(hist.min())} mean {int(hist.mean())} max "
             f"{int(hist.max())}")
     log(f"count phase: {int(sum(nb_reads))} reads in "
-        f"{metrics.timings['count']:.2f}s")
-    with metrics.stage("merge"):
+        f"{spans.seconds(RUN_STAGES['count']):.2f}s")
+    with span(RUN_STAGES["merge"], spans):
         if spill is None:
             stats = compute_statistics_from_spectra(
                 spectra, ids, nb_reads, config, device, shards
             )
         else:
             metrics.set("sweep_ranges", spill.n_ranges)
-            timers = {}
             js = sweep_join_stats(
                 spill, len(ids), config.abundance_min, config.abundance_max,
                 solid, k=k, device=device, simple=config.simple_dist,
-                complex_=config.complex_dist, log=log, timers=timers,
+                complex_=config.complex_dist, log=log, spans=spans,
                 shards=shards,
             )
             stats = SimkaStatistics.from_join_stats(
                 js.to_numpy(), ids, k, np.asarray(nb_reads, np.int64),
                 config.simple_dist, config.complex_dist,
             )
-            timers.update(partition_s=spill.partition_s,
-                          write_s=spill.write_s)
-            for name, v in timers.items():
+            for name, v in spans.stage_timers(SWEEP_SPANS).items():
                 metrics.set(f"sweep_{name}", round(v, 4))
             if not config.keep_tmp:
                 spill.cleanup()
-    log(f"merge: {metrics.timings['merge']:.2f}s")
+    log(f"merge: {spans.seconds(RUN_STAGES['merge']):.2f}s")
     return stats
 
 
@@ -1127,7 +1140,6 @@ def run_simka(
     from simka_tpu_torch.io.packed import PackedReadSource
     from simka_tpu_torch.ops.kmers import n_words
     from simka_tpu_torch.parallel.sharded import check_shards, shard_devices
-    from simka_tpu_torch.utils.metrics import Metrics
 
     if tier is not None and config.output_tmp_dir:
         raise ValueError("a spill tier applies to the in-memory command; "
@@ -1135,8 +1147,8 @@ def run_simka(
     dev = resolve_device(device)
     devices = (shard_devices(config.n_shards, dev) if shards is None
                else check_shards(shards, dev))
-    metrics = Metrics()
-    t0 = time.time()
+    spans = Spans()  # the run and its stages (utils.metrics.RUN_STAGES)
+    metrics = Metrics(spans)
     datasets = parse_input_file(config.input_filename)
     check_input_validity(datasets)
     ids = [d.id for d in datasets]
@@ -1184,7 +1196,7 @@ def run_simka(
         observer: dict = {}
         est = estimate_total_instances(datasets, config.kmer_size)
         plan_rows = instance_rows_budget(devices, n_words(config.kmer_size))
-        with metrics.stage("count"):
+        with span(RUN_STAGES["count"], spans):
             if tier is not None or est > plan_rows:
                 # clearly past the device plan: straight out-of-core
                 # (the mid-ingest guard would catch it anyway, after up
@@ -1222,7 +1234,7 @@ def run_simka(
             )
         log(f"{len(ids)} datasets, {total} reads")
 
-    with metrics.stage("output"):
+    with span(RUN_STAGES["output"], spans):
         matrices = compute_all_matrices(stats)
         os.makedirs(config.output_dir, exist_ok=True)
         write_all_matrices(config.output_dir, matrices, ids)
@@ -1237,7 +1249,7 @@ def run_simka(
                       ignore_errors=True)
     log(
         f"wrote {len(matrices)} matrices to {config.output_dir} "
-        f"in {time.time() - t0:.2f}s"
+        f"in {spans.seconds(RUN):.2f}s"
     )
     return matrices
 

@@ -53,9 +53,8 @@
 // 3 CTAs an SM (shared memory would allow 6); 64 registers (4 CTAs)
 // spill and measured slower.
 //
-// What holds it back (per-tile globaltimer stamps of a build with
-// -DSIMKA_COMPACT_STAMPS, simka_tpu_torch/profiling/compact_phases.py):
-// the look-back.
+// What holds it back (per-tile globaltimer stamps of an instrumented
+// build, PERF.md section 6): the look-back.
 // A tile must wait until every tile after the nearest published prefix
 // has published its count, and counts arrive with the spread of the
 // mask loads' latency under load.
@@ -83,26 +82,6 @@ constexpr int kVecRounds = kRowsPerThread / 2;  // uint4 a thread, i64
 constexpr uint64_t kFlagA = 1ull << 62;  // tile count published
 constexpr uint64_t kFlagP = 2ull << 62;  // inclusive prefix published
 constexpr uint64_t kCountMask = (1ull << 62) - 1;
-
-#ifdef SIMKA_COMPACT_STAMPS
-// Thread 0's %globaltimer per tile, for profiling/compact_phases.py:
-// [0] entry, [1] ticket taken, [2] mask scanned, [3] prefix known,
-// [4] exit, [5] count published, [6] prefix published.
-constexpr int kStampTiles = 1 << 17;
-constexpr int kStamps = 7;
-__device__ uint64_t g_stamp[kStampTiles * kStamps];
-__device__ __forceinline__ uint64_t now_ns() {
-  uint64_t v;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(v));
-  return v;
-}
-#define STAMP_HERE(v) const uint64_t v = now_ns()
-#define STAMP_PUT(t, i, v) \
-  ((t) < kStampTiles ? (void)(g_stamp[(t) * kStamps + (i)] = (v)) : (void)0)
-#else
-#define STAMP_HERE(v) (void)0
-#define STAMP_PUT(t, i, v) (void)0
-#endif
 
 struct Cols {
   const void* in[kMaxCols];
@@ -247,7 +226,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   __shared__ Smem s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   uint64_t* status = scratch + 2;
-  STAMP_HERE(T0);
 
   // 1. tile order
   if (tid == 0)
@@ -256,7 +234,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int64_t t = s.tile;
   const int64_t base = t * kTile;
   const int rows = (int)(E - base < kTile ? E - base : kTile);
-  STAMP_HERE(T1);
 
   // 2. mask bits of this thread's rows, then the block scan
   uint32_t bits = 0;
@@ -288,12 +265,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     kept_t += s.warp_tot[w];
   }
   s.excl[tid] = before + incl - cnt;
-  STAMP_HERE(T2);
 
   // 3. publish this tile's count (tile 0: its inclusive prefix) at once
   if (tid == 0) {
     st_relaxed(&status[t], (t == 0 ? kFlagP : kFlagA) | (uint64_t)kept_t);
-    STAMP_PUT(t, 5, now_ns());
   }
   __syncthreads();  // s.excl
 
@@ -325,7 +300,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       }
       if (lane == 0) {
         st_relaxed(&status[t], kFlagP | (uint64_t)(prefix + kept_t));
-        STAMP_PUT(t, 6, now_ns());
       }
     }
     if (lane == 0) {
@@ -341,7 +315,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
               col_vec(cols, 0, base, rows), regs);
   __syncthreads();
   const int64_t prefix = s.prefix;
-  STAMP_HERE(T3);
   // rows this tile may store: a caller's n below the true count clips
   // the run rather than writing past the outputs
   const int64_t run = out_rows - prefix < kept_t
@@ -384,13 +357,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                   rows, vec, regs);
       __syncthreads();
     }
-  }
-  if (tid == 0) {
-    STAMP_PUT(t, 0, T0);
-    STAMP_PUT(t, 1, T1);
-    STAMP_PUT(t, 2, T2);
-    STAMP_PUT(t, 3, T3);
-    STAMP_PUT(t, 4, now_ns());
   }
 }
 
@@ -438,12 +404,5 @@ int simka_compact_rows(const uint8_t* kept, int64_t E, int n_cols,
       kept, E, cols, out_rows, write_fill, scratch);
   return (int)cudaGetLastError();
 }
-
-#ifdef SIMKA_COMPACT_STAMPS
-// Copies the stamps, uint64 [kStampTiles * 7], to host memory.
-int simka_compact_stamps(void* host) {
-  return (int)cudaMemcpyFromSymbol(host, g_stamp, sizeof(g_stamp));
-}
-#endif
 
 }  // extern "C"

@@ -35,7 +35,7 @@
 // windows) 5.1 MB in and 99.1 MB out, 0.031 ms at 3.35 TB/s. This form
 // takes 0.075 ms there on the device (0.082 ms at k = 63, 1.38x the
 // bytes in half the windows: its work a window, not its bytes, holds
-// it; profiling/kernel_ab.py, NVIDIA H100 80GB HBM3, 700.00 W).
+// it; NVIDIA H100 80GB HBM3, 700.00 W, PERF.md section 6).
 //
 // This form does O(words) work a window:
 //   - The batch is one flat stream of B * L bases (row-major rows are

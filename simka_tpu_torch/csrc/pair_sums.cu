@@ -50,10 +50,10 @@
 // channel) and, with every channel, the f64 terms, ~30 operations a
 // pair with two divisions and two logs, at 64 f64 lanes an SM: 2.29 ms
 // (chip_smoke.py's pair_sums_bound). What bounds it now is its walk:
-// with every add into a register sink it keeps 88% of its time
-// (profiling/pair_phases.py at N = 100), against the earlier design's
-// 39-49% (one 64-bit shared atomic a pair and channel: 2.1% / 1.7% of
-// its bound without the all-rows terms).
+// with every add into a register sink it keeps 88% of its time (an
+// instrumented build at N = 100, PERF.md section 6), against the
+// earlier design's 39-49% (one 64-bit shared atomic a pair and
+// channel: 2.1% / 1.7% of its bound without the all-rows terms).
 //
 // Design: one writer per bin.
 //   - Rows through shared memory. A CTA takes the segments whose first
@@ -94,7 +94,8 @@
 //     (__match_any_sync) add in turns, one __syncwarp apart. The earlier
 //     design (a warp a segment, lanes over its pairs, one 64-bit shared
 //     atomic a pair and channel) spent 61.5% / 51.3% of its time on
-//     those atomics (profiling/pair_phases.py at N = 100).
+//     those atomics (an instrumented build at N = 100, PERF.md
+//     section 6).
 //     The flush sums the copies and adds each nonzero bin into the
 //     outputs with one global atomic: the only atomics of the form.
 //   - Sample groups. When one copy of every channel's bins does not fit
@@ -121,9 +122,6 @@
 // and chord, would cost N x N x k-mers; it is not done.)
 // Two's-complement wrap makes the unsigned atomics add signed values
 // (the KL limbs of a negative term) exactly.
-//
-// -DSIMKA_PAIR_SINK (profiling/pair_phases.py): every add into the
-// partials goes into a register sink instead, to time the rest.
 //
 // Plain C interface for ctypes. Nothing here allocates or synchronises:
 // the caller passes the outputs and the stream; the entry point returns
@@ -181,12 +179,6 @@ struct ChannelSet {
                    : (kComplex ? c - (kSimple ? 0 : 2) : -1);
   }
 };
-
-#ifdef SIMKA_PAIR_SINK
-#define PAIR_ADD(p, x) (sink += (unsigned long long)(x) ^ (size_t)(p))
-#else
-#define PAIR_ADD(p, x) (*(p) += (unsigned long long)(x))
-#endif
 
 // torch.remainder(x, 2^32) on f64: fmod, then the sign fix (exact)
 __device__ __forceinline__ double mod32(double x) {
@@ -390,9 +382,6 @@ pair_owner_kernel(const long long* __restrict__ sid,
   unsigned long long* const part = S.part + team * stride;
   unsigned long long* const wpart = part + (long long)Set::n * nb;
   int4* const hdr = S.hdr + warp * 32;
-#ifdef SIMKA_PAIR_SINK
-  unsigned long long sink = 0;
-#endif
 
   for (long long i = tid; i < R * stride; i += kThreads) S.part[i] = 0;
   for (int j = tid; j < N; j += kThreads) {
@@ -482,11 +471,11 @@ pair_owner_kernel(const long long* __restrict__ sid,
             if ((unsigned long long)c <= climit) {
               const unsigned c_lo = (unsigned)c;
               for (int j = lane; j < N; j += 32)
-                PAIR_ADD(row + j, abs32(c_lo * S.K_lo[j]));
+                row[j] += (unsigned long long)abs32(c_lo * S.K_lo[j]);
             } else {
               for (int j = lane; j < N; j += 32)
-                PAIR_ADD(row + j,
-                         abs32(low32(__dmul_rn((double)c, S.K[j]))));
+                row[j] += (unsigned long long)abs32(
+                    low32(__dmul_rn((double)c, S.K[j])));
             }
           }
         }
@@ -554,7 +543,7 @@ pair_owner_kernel(const long long* __restrict__ sid,
 #pragma unroll
             for (int c = 0; c < kChannels; ++c)
               if (Set::slot(c) >= 0)
-                PAIR_ADD(part + Set::slot(c) * nb + bin, v[c]);
+                part[Set::slot(c) * nb + bin] += (unsigned long long)v[c];
           }
           __syncwarp();
         }
@@ -567,9 +556,6 @@ pair_owner_kernel(const long long* __restrict__ sid,
 
   // the flush: the copies summed, each nonzero bin added once
   __syncthreads();
-#ifdef SIMKA_PAIR_SINK
-  if (sink == 0x9e3779b97f4a7c15ULL) atomicAdd(p.out[2], sink);
-#endif
   const int n_own = a1 - a0;
   for (int e = tid; e < n_own * N; e += kThreads) {
     const int a = a0 + e / N, b = e - (e / N) * N;

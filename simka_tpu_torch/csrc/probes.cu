@@ -41,7 +41,7 @@
 // 67 MFLOP over 989 TFLOP/s bf16 0.07 us; a DMA window's 8 KB 0.0024
 // us), under the card's shortest kernel: a one-element fill_ takes
 // 0.99 us on the device (an H100 80GB HBM3 at 700 W; chip_smoke.py's
-// phase 4, profiling/probe_ab.py). No design removes that floor; what
+// phase 4, PERF.md section 6). No design removes that floor; what
 // a design can remove is the time a kernel spends past it. The DMA
 // kernel cuts its serial chain (the barrier set up during the offset's
 // read, loads issued as soon as the source is known, one shared buffer

@@ -78,14 +78,14 @@
 // What bounds them: device-memory bandwidth. run_counts reads the key
 // columns once and writes 4 + 1 B a row: at phase 7's sorted packed key
 // (313,342,848 int64 rows) 2.51 GB in, 1.57 GB out, 1.22 ms at 3.35
-// TB/s; it takes 1.46 ms there on the device (profiling/kernel_ab.py,
-// NVIDIA H100 80GB HBM3, 700.00 W). segment_stats reads the word
+// TB/s; it takes 1.46 ms there on the device (NVIDIA H100 80GB HBM3,
+// 700.00 W, PERF.md section 6). segment_stats reads the word
 // columns, the sample id and the count once and writes 8 B a segment
 // (20 B a row at k = 21 with the packed key's int64 sample id and the
 // int32 count): at phase 14's 99,009,246 solid rows and 3,999,316
 // segments 2.01 GB, 0.6007 ms; at phase 7's 77,329,304 rows and
-// 35,190,577 segments 1.83 GB, 0.5457 ms (chip_smoke.py phase 15b and
-// profiling/kernel_ab.py time it; PERF.md section 6 has the times).
+// 35,190,577 segments 1.83 GB, 0.5457 ms (chip_smoke.py phase 15b
+// times it; PERF.md section 6 has the times).
 //
 // Plain C interface for ctypes. Nothing here allocates or synchronises:
 // the caller passes the outputs, segment_stats' scratch and the stream;

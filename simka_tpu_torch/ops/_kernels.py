@@ -48,17 +48,16 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
-def compile_library(out: str, defines=(), verbose: bool = False) -> None:
-    """Compile every ``csrc/*.cu`` with ``defines`` and link them into
-    the shared library ``out``: one ``nvcc`` a source, all started
-    together, then one link."""
+def compile_library(out: str, verbose: bool = False) -> None:
+    """Compile every ``csrc/*.cu`` and link them into the shared
+    library ``out``: one ``nvcc`` a source, all started together, then
+    one link."""
     srcs = sources()
     with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
         objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
         procs = [
             subprocess.Popen(
-                [_nvcc(), *COMPILE_FLAGS, *defines, "-Xptxas", "-v", "-c",
-                 "-o", o, s],
+                [_nvcc(), *COMPILE_FLAGS, "-Xptxas", "-v", "-c", "-o", o, s],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for s, o in zip(srcs, objs)
         ]

@@ -284,7 +284,7 @@ def run_simka_multihost(config, device: str = "cuda",
     from simka_tpu_torch.ops import compact
     from simka_tpu_torch.ops.kmers import n_uint32_words
     from simka_tpu_torch.parallel.sharded import check_shards
-    from simka_tpu_torch.utils.metrics import Metrics
+    from simka_tpu_torch.utils.metrics import RUN_STAGES, Metrics, Spans, span
 
     datasets = parse_input_file(config.input_filename)
     check_input_validity(datasets)
@@ -302,7 +302,8 @@ def run_simka_multihost(config, device: str = "cuda",
                              pid, n_proc, home_card(dev))
     per_rank = shards_per_rank(len(shards), dev)
     mine = datasets_for_process(n, pid, n_proc)
-    metrics = Metrics()
+    spans = Spans()  # the run and its stages (utils.metrics.RUN_STAGES)
+    metrics = Metrics(spans)
     metrics.set("n_datasets", n)
     metrics.set("n_processes", n_proc)
     metrics.set("device", str(dev))
@@ -342,7 +343,7 @@ def run_simka_multihost(config, device: str = "cuda",
     word_parts = [[] for _ in range(n_uint32_words(k))]
     sids, cnts = [], []
     nb_reads = torch.zeros(n, dtype=torch.int64, device=dev)
-    with metrics.stage("count"):
+    with span(RUN_STAGES["count"], spans):
         for s in mine:
             words, counts, nr, resumed = count_one_dataset(
                 datasets[s], config, cap, dev, ckpt=ckpt, log=log)
@@ -360,7 +361,7 @@ def run_simka_multihost(config, device: str = "cuda",
     def column(parts, dtype):
         return np.concatenate(parts) if parts else np.empty(0, dtype)
 
-    with metrics.stage("merge"):
+    with span(RUN_STAGES["merge"], spans):
         js = multihost_join_from_spectra(
             [column(p, np.uint32) for p in word_parts],
             column(sids, np.int32), column(cnts, np.int32),

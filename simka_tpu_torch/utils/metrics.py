@@ -1,18 +1,20 @@
-"""Structured run metrics: per-stage wall clock, counters and spans.
+"""Structured run metrics: spans, the stage timers summed from them,
+and ``simka_metrics.json``.
 
 The reference's observability is per-job log files and progress bars
 (SURVEY.md §5); this is the structured replacement: every pipeline run
-can emit a ``simka_metrics.json`` with stage timings and counters,
+emits a ``simka_metrics.json`` with its stage times and counters,
 suitable for dashboards or regression tracking.
 
-``span`` marks a layer boundary inside a job (``core.pipeline``,
-``ops.countjoin``, ``core.distances``). Where the ``Spans`` keeps
-records it records the span and adds its nanoseconds to its name's
-total; where it keeps none, only a span that a stage timer sums
-(``STAGE_SPANS``) is timed, and every other site does nothing, as with
-None. Every time is ``time.perf_counter_ns``, one clock for every
-thread of the process; ``clock_anchor`` places that clock on a
-``torch.profiler`` trace.
+``span`` is the one timer. It marks a layer boundary inside a job
+(``core.pipeline``, ``ops.countjoin``, ``core.distances``) and a stage
+or step of every route (``core.pipeline``, ``core.sweep``,
+``parallel.multihost``). Where the ``Spans`` keeps records it records
+the span and adds its nanoseconds to its name's total; where it keeps
+none, only a span that a stage timer sums (``TIMED``) is timed, and
+every other site does nothing, as with None. Every time is
+``time.perf_counter_ns``, one clock for every thread of the process;
+``clock_anchor`` places that clock on a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -42,8 +44,50 @@ STAGE_SPANS = {
                     "simka.sync.to_numpy"),
     "kl_host_s": ("simka.join.kl_host",),
 }
-# the spans timed where no records are kept
-TIMED = frozenset(n for names in STAGE_SPANS.values() for n in names)
+# the out-of-core route's stage timers (seconds): the ingest's, as in
+# memory; the count phase (the ingest with every sample's spectrum and
+# spill); each sample's spectrum and spill (on a worker thread on the
+# host tiers); the sweep's range loads and joins
+OUT_OF_CORE_SPANS = {
+    "spectrum_s": ("simka.spectra.spectrum",),
+    "spill_s": ("simka.spectra.spill",),
+    "parse_pack_s": ("simka.ingest.parse",),
+    "h2d_s": ("simka.ingest.h2d",),
+    "extract_dispatch_s": ("simka.ingest.dispatch",),
+    "count_s": ("simka.spectra",),
+    "range_load_s": ("simka.sweep.load",),
+    "range_join_s": ("simka.sweep.join",),
+}
+# one sample's steps on the -out-tmp route (``per_sample``, seconds): its
+# checkpoint's load, its count, its checkpoint's save, its spill into
+# the sweep's files
+SAMPLE_SPANS = {
+    "load_s": "simka.sample.load",
+    "count_s": "simka.sample.count",
+    "save_s": "simka.sample.save",
+    "spill_s": "simka.sample.spill",
+}
+# the -out-tmp sweep's timers (the ``sweep_<timer>`` counters, seconds):
+# the range loads and joins, and ``SpectrumSpill``'s cuts on the device
+# and file writes
+SWEEP_SPANS = {
+    "range_load_s": ("simka.sweep.load",),
+    "range_join_s": ("simka.sweep.join",),
+    "partition_s": ("simka.sweep.partition",),
+    "write_s": ("simka.sweep.write",),
+}
+# ``simka_metrics.json``'s ``total_seconds`` and ``stages``
+RUN = "simka.run"
+RUN_STAGES = {
+    "count": "simka.run.count",
+    "merge": "simka.run.merge",
+    "output": "simka.run.output",
+}
+# the spans timed where no records are kept: those of every stage timer
+TIMED = frozenset(
+    [n for timers in (STAGE_SPANS, OUT_OF_CORE_SPANS, SWEEP_SPANS)
+     for names in timers.values() for n in names]
+    + [*SAMPLE_SPANS.values(), *RUN_STAGES.values(), RUN])
 
 
 class Spans:
@@ -68,12 +112,17 @@ class Spans:
         """The seconds spent under ``names``, summed."""
         return sum(self.ns.get(n, 0) for n in names) / 1e9
 
-    def stage_timers(self) -> Dict[str, float]:
-        """``STAGE_SPANS``' timers, in seconds."""
-        return {k: self.seconds(*names) for k, names in STAGE_SPANS.items()}
+    def stage_timers(self, timers=STAGE_SPANS) -> Dict[str, float]:
+        """The timers of ``timers`` (name: its span names), in seconds."""
+        return {k: self.seconds(*names) for k, names in timers.items()}
 
     def count(self, name: str, value: int) -> None:
         self.counters[name] = self.counters.get(name, 0) + int(value)
+
+    def add(self, other: "Spans") -> None:
+        """Add ``other``'s span totals to this one's."""
+        for name, ns in other.ns.items():
+            self.ns[name] = self.ns.get(name, 0) + ns
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -161,30 +210,17 @@ def clock_anchor(spans: Optional[Spans]) -> None:
         pass
 
 
-class StageTimer:
-    def __init__(self, metrics: "Metrics", stage: str):
-        self.metrics = metrics
-        self.stage = stage
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.metrics.timings[self.stage] = self.metrics.timings.get(
-            self.stage, 0.0
-        ) + (time.perf_counter() - self.t0)
-        return False
-
-
 class Metrics:
-    def __init__(self):
-        self.timings: Dict[str, float] = {}
-        self.counters: Dict[str, float] = {}
-        self._t_start = time.perf_counter()
+    """What ``simka_metrics.json`` holds: ``counters`` (``count``,
+    ``set``) and, from ``spans``, the run's seconds (the span ``RUN``,
+    from the ``Metrics``' making to its ``save``) and those of each
+    stage of ``RUN_STAGES`` that ran."""
 
-    def stage(self, name: str) -> StageTimer:
-        return StageTimer(self, name)
+    def __init__(self, spans: Spans):
+        self.spans = spans
+        self.counters: Dict[str, float] = {}
+        self._run = span(RUN, spans)
+        self._run.__enter__()
 
     def count(self, name: str, value: float) -> None:
         self.counters[name] = self.counters.get(name, 0.0) + value
@@ -192,16 +228,16 @@ class Metrics:
     def set(self, name: str, value) -> None:
         self.counters[name] = value
 
-    def finalize(self) -> Dict:
-        total = time.perf_counter() - self._t_start
-        return {
-            "total_seconds": round(total, 3),
-            "stages": {k: round(v, 3) for k, v in self.timings.items()},
+    def save(self, path: str) -> Dict:
+        """Close the span ``RUN`` and write the metrics to ``path``."""
+        self._run.__exit__(None, None, None)
+        ns = self.spans.ns
+        data = {
+            "total_seconds": round(self.spans.seconds(RUN), 3),
+            "stages": {k: round(self.spans.seconds(name), 3)
+                       for k, name in RUN_STAGES.items() if name in ns},
             "counters": self.counters,
         }
-
-    def save(self, path: str) -> Dict:
-        data = self.finalize()
         with open(path, "w") as f:
             json.dump(data, f, indent=2, sort_keys=True)
         return data

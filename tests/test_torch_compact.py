@@ -216,21 +216,3 @@ def test_kernel_matches_plain_on_cuda(E, frac):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
 
-
-def test_phase_summary_of_tile_stamps():
-    """profiling/compact_phases.py splits each tile's stamps (entry,
-    ticket, scan, prefix, exit, count and prefix published) into its
-    phases."""
-    from simka_tpu_torch.profiling import compact_phases
-
-    # tile t starts at 1000 t ns; phases of 100, 200, 300 and 400 ns;
-    # its prefix published 50 ns after its count
-    t0 = np.arange(4, dtype=np.uint64)[:, None] * 1000
-    steps = np.array([0, 100, 300, 600, 1000, 300, 350], np.uint64)
-    lines = compact_phases.summary(t0 + steps, "exact-length")
-    assert lines[0] == ("exact-length: 4 tiles over 4.0 us; "
-                        "a tile 1.000 us (median)")
-    for line, us in zip(lines[1:5], (0.1, 0.2, 0.3, 0.4)):
-        assert f"median {us:8.3f} us, p90 {us:8.3f} us" in line
-    assert lines[5] == ("  prefix published 0.050 us (median) after "
-                        "the tile's own count")

@@ -9,8 +9,11 @@
   of their layers, each under its parent and on its thread (the
   workers' parse and copy spans on threads of their own, under
   ``simka.ingest``), inside its parent's interval.
-- The stage timers are sums of their spans, with and without records;
-  without records no other span is timed; the counter ``h2d_bytes``
+- The stage timers are sums of their spans, with and without records,
+  on the in-memory route and on the others (the out-of-core route on
+  the device and host-memory tiers, the -out-tmp route with the sweep:
+  its stages, sweep timers and each sample's steps); without records
+  the in-memory job times no other span; the counter ``h2d_bytes``
   counts the batches' bytes, ``ingest_batches`` the batches,
   ``pair_groups`` the pair kernel's sample groups (none on the CPU), and
   ``h2d_pinned_in`` no copy on the CPU.
@@ -18,6 +21,8 @@
   program's clock on the trace's: a span around a torch op, moved by
   the offset, holds the op's event to within 20 us.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -27,6 +32,7 @@ from simka_tpu_torch.config import SimkaConfig
 from simka_tpu_torch.core import distances, pipeline
 from simka_tpu_torch.ops import countjoin
 from simka_tpu_torch.utils import metrics
+from simka_tpu_torch.utils.community import write_community
 
 CPU = torch.device("cpu")
 K = 21
@@ -151,9 +157,21 @@ def test_every_span_is_recorded_under_its_parent(shards, parents):
     assert names.count("simka.clock") == 1
 
 
-@pytest.mark.parametrize("shards", [None, [CPU] * 2],
-                         ids=["one-device", "cpu-x2"])
-def test_stage_timers_are_sums_of_their_spans(shards):
+def _recording(monkeypatch):
+    """Every ``Spans`` the pipeline makes keeps records; returns them,
+    in the order made."""
+    made = []
+
+    class Recording(metrics.Spans):
+        def __init__(self, records=None):
+            super().__init__([] if records is None else records)
+            made.append(self)
+
+    monkeypatch.setattr(pipeline, "Spans", Recording)
+    return made
+
+
+def _in_memory_timers(shards, monkeypatch, tmp_path):
     obs = {"spans": []}
     _job(obs, shards)
     timers, records = obs["stage_timers"], obs["spans"]
@@ -178,6 +196,78 @@ def test_stage_timers_are_sums_of_their_spans(shards):
     assert (timers["kl_host_s"] > 0) == (shards is None)
 
 
+def _out_of_core_timers(tier, monkeypatch, tmp_path):
+    made = _recording(monkeypatch)
+    obs = {}
+    pipeline.compute_statistics_out_of_core(
+        _samples(3), [f"S{s}" for s in range(N_SAMPLES)], CONFIG, CPU,
+        batch_reads=BATCH_READS, observer=obs, tier=tier)
+    route, *steps = made
+    assert len(steps) == N_SAMPLES and obs["spill_tier"] == tier
+    records = [r for sp in made for r in sp.records]
+    timers = obs["stage_timers"]
+    assert set(timers) == set(metrics.OUT_OF_CORE_SPANS)
+    for key, names in metrics.OUT_OF_CORE_SPANS.items():
+        assert timers[key] == pytest.approx(
+            sum(_seconds(records, n) for n in names), rel=1e-12), key
+        assert timers[key] > 0, key
+    # each sample's steps are its own spans, inside the count phase
+    (c0, c1), = [(r[2], r[3]) for r in route.records
+                 if r[0] == "simka.spectra"]
+    for step, got in zip(steps, obs["per_sample"]):
+        want = {"spectrum_s": "simka.spectra.spectrum"}
+        if tier != "device":
+            want["spill_s"] = "simka.spectra.spill"
+        assert set(got) == {"id", "rows", *want}
+        for key, name in want.items():
+            assert got[key] == round(_seconds(step.records, name), 4), key
+        assert all(c0 <= r[2] <= r[3] <= c1 for r in step.records)
+
+
+def _out_tmp_timers(_, monkeypatch, tmp_path):
+    made = _recording(monkeypatch)
+    inp = write_community(str(tmp_path / "c"), seed=5, n_samples=N_SAMPLES,
+                          n_genomes=2, genome_len=2000,
+                          reads_per_sample=150)
+    out = tmp_path / "out"
+    pipeline.run_simka(SimkaConfig(
+        input_filename=inp, output_dir=str(out), kmer_size=K,
+        abundance_min=2, simple_dist=True, complex_dist=True,
+        verbose=False, output_tmp_dir=str(tmp_path / "tmp"),
+        sweep_ranges=3), "cpu")
+    with open(out / "simka_metrics.json") as f:
+        m = json.load(f)
+    run, *steps = made
+    assert len(steps) == N_SAMPLES
+    assert m["total_seconds"] == round(_seconds(run.records, metrics.RUN),
+                                       3)
+    assert m["stages"] == {k: round(_seconds(run.records, n), 3)
+                           for k, n in metrics.RUN_STAGES.items()}
+    c = m["counters"]
+    for key, (name,) in metrics.SWEEP_SPANS.items():
+        assert c[f"sweep_{key}"] == round(_seconds(run.records, name), 4)
+        assert c[f"sweep_{key}"] > 0, key
+    for step, got in zip(steps, c["per_sample"]):
+        assert set(got) == {"id", "resumed", "rows", *metrics.SAMPLE_SPANS}
+        for key, name in metrics.SAMPLE_SPANS.items():
+            assert got[key] == round(_seconds(step.records, name), 4), key
+
+
+ROUTES = {
+    "one-device": (_in_memory_timers, None),
+    "cpu-x2": (_in_memory_timers, [CPU] * 2),
+    "out-of-core-device": (_out_of_core_timers, "device"),
+    "out-of-core-ram": (_out_of_core_timers, "ram"),
+    "out-tmp-sweep": (_out_tmp_timers, None),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_stage_timers_are_sums_of_their_spans(route, monkeypatch, tmp_path):
+    check, arg = ROUTES[route]
+    check(arg, monkeypatch, tmp_path)
+
+
 def test_without_records_only_the_stage_timers_spans_are_timed(monkeypatch):
     made = []
 
@@ -190,7 +280,8 @@ def test_without_records_only_the_stage_timers_spans_are_timed(monkeypatch):
     obs = {}
     _job(obs)
     sp, = made
-    assert sp.records is None and set(sp.ns) == metrics.TIMED
+    assert sp.records is None and set(sp.ns) == {
+        n for names in metrics.STAGE_SPANS.values() for n in names}
     assert obs["stage_timers"] == sp.stage_timers()
     assert set(obs["stage_timers"]) == set(metrics.STAGE_SPANS)
     for name in set(PARENTS) - metrics.TIMED:

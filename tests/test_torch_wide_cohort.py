@@ -40,6 +40,21 @@ TOY_BATCH_READS = 256
 BUDGET_H100 = {64: 198_784, 100: 198_352}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """torch on one CPU thread for this module, restored after it. A
+    job's three threads (the main, parse and ship threads) each open a
+    team of torch's default threads, one a core, for every CPU op; where
+    other processes share the cores, the teams' barriers wait on
+    descheduled threads: a 64-sample case took minutes beside five
+    8-thread loads that takes seconds alone, and seconds on one thread
+    beside them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _runner(mix: str, device=CPU):
     cfg = registry.config(CONFIG)
     cfg = {**cfg, "community": {**cfg["community"], **TOY_COMMUNITY},
